@@ -1,0 +1,44 @@
+"""The port imports neither JAX, flax nor anything of the JAX package."""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import omnifusion_torch
+names = sorted(m.name for m in pkgutil.walk_packages(omnifusion_torch.__path__, "omnifusion_torch."))
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "omnifusion_tpu"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(REPO), env.get("PYTHONPATH")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "omnifusion_torch.models.spherical_fusion" in result["modules"]
+    assert "omnifusion_torch.cli.infer" in result["modules"]
+    assert result["bad"] == []
+
+
+def test_port_sources_name_no_jax():
+    # also what is imported only inside a function
+    for path in (REPO / "omnifusion_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                assert words[1].split(".")[0] not in ("jax", "jaxlib", "flax", "omnifusion_tpu"), (
+                    f"{path}: {line}"
+                )
