@@ -146,14 +146,14 @@ def confidence_merge(pred, conf, p2e_grids: Pers2EquiGrids, dtype=None):
     pred, conf: (B, P, h, w) or any shape that flattens to (B, P*h*w) in
     patch-major order. dtype: precision of the blend's source (default f32;
     f16 and bf16 allowed); the blend accumulates and the division runs in
-    f32. Returns (B, H, W, 1) f32."""
-    mdt = torch.float32 if dtype is None else dtype
+    f32 (f64 throughout for f64 heads). Returns (B, H, W, 1) f32 (f64)."""
+    mdt = torch.promote_types(pred.dtype, torch.float32) if dtype is None else dtype
     b = pred.shape[0]
     pred = pred.to(mdt).reshape(b, -1)
     conf = conf.to(mdt).reshape(b, -1)
     merged = pers2equi_cf(torch.stack([pred * conf, conf], dim=1), p2e_grids)
-    num, den = merged[:, 0].float(), merged[:, 1].float()
-    zero = (den <= 1e-8).float()
+    num, den = merged[:, 0], merged[:, 1]
+    zero = (den <= 1e-8).to(den.dtype)
     return (num / (den + 1e-8 * zero))[..., None]
 
 

@@ -32,7 +32,8 @@ class Attention(nn.Module):
         k = kv[:, :, 0].transpose(1, 2)
         v = kv[:, :, 1].transpose(1, 2)
         attn = (q @ k.transpose(-2, -1)) * (d**-0.5)
-        attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+        attn = torch.softmax(attn, -1, dtype=torch.promote_types(attn.dtype, torch.float32))
+        attn = attn.to(x.dtype)
         out = (attn @ v).transpose(1, 2).reshape(b, n, c)
         return self.proj(out)
 

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``.cu`` file under ``omnifusion_torch/csrc/`` is compiled by ONE
-``nvcc`` call into one shared library with a plain C interface, which is
-loaded with ctypes. Nothing includes PyTorch's headers, so the build takes
-seconds. The library lands in ``omnifusion_torch/_build/`` (listed in
+Every ``.cu`` file under ``omnifusion_torch/csrc/`` is compiled by its own
+``nvcc`` call, all started together, and one more ``nvcc`` call links the
+objects into one shared library with a plain C interface, which is loaded
+with ctypes. Nothing includes PyTorch's headers, so the build takes seconds.
+The library lands in ``omnifusion_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of the sources and flags, at first use in a
 process; a later process with the same sources loads it without building.
 
@@ -28,7 +29,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 # the kernels' dtype argument
@@ -44,7 +45,14 @@ _SIGNATURES = {
         _L, _L, _L, _L, _L, _L,  # src strides (b, c, pixel), out strides
         _P,  # stream
     ),
+    "omnifusion_quad_spread": (
+        _P, _I, _P, _P, _P, _I, _P, _P, _P,  # cot, dtype, out, idx_t, w_t, k_t, over ptr/src/w
+        _L, _L, _L, _L, _L,  # n_rows, channels, n_cot, n_in, row_stride
+        _L, _L, _L, _L, _L, _L,  # cot strides (b, c, pixel), out strides
+        _P,  # stream
+    ),
     "omnifusion_up2x": (_P, _P, _I, _L, _L, _L, _P),
+    "omnifusion_up2x_adjoint": (_P, _P, _I, _L, _L, _L, _P),
 }
 
 
@@ -73,21 +81,30 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    try:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
         cu = [s for s in sources() if s.endswith(".cu")]
+        objs = [os.path.join(tmp_dir, os.path.basename(s) + ".o") for s in cu]
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for s, o in zip(cu, objs)
+        ]
+        failed = []
+        for s, proc in zip(cu, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(s)} ({proc.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib = os.path.join(tmp_dir, "lib.so")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu], capture_output=True, text=True
+            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs], capture_output=True, text=True
         )
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(lib, path)  # atomic: a concurrent loader sees all or nothing
     return path
 
 
@@ -100,6 +117,14 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def on_cuda(x: torch.Tensor, what: str) -> bool:
+    """Where a wrapper runs: True on a CUDA tensor (its kernel), False on a
+    CPU tensor (its plain version); raises on any other device."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what} runs on cuda or cpu tensors, got {x.device}")
+    return x.device.type == "cuda"
 
 
 def check(err: int, what: str) -> None:

@@ -9,7 +9,9 @@ JAX package's layouts at the public functions:
 
 Both ops are one static sparse gather-blend (ops/quad_blend.py): on a CUDA
 tensor they launch its kernel, on a CPU tensor they run its plain version.
-The tables move to a device once per (spec, device) and stay cached.
+Both are differentiable in their input: the backward applies the transposed
+tables (the transposed kernel on the card). The tables, forward and
+transposed, move to a device once per (spec, device) and stay cached.
 """
 
 from __future__ import annotations
@@ -31,7 +33,9 @@ from omnifusion_torch.projection.spec import (
 @functools.lru_cache(maxsize=None)
 def equi2pers_tables(spec: ProjectionSpec, device: torch.device) -> BlendTables:
     g = build_equi2pers_grids(spec)
-    return BlendTables.create(g.idx, g.w4, spec.erp_w, spec.erp_h * spec.erp_w, device)
+    return BlendTables.create(
+        g.idx, g.w4, spec.erp_w, spec.erp_h * spec.erp_w, device, vjp=g.vjp
+    )
 
 
 @functools.lru_cache(maxsize=None)
@@ -39,11 +43,13 @@ def pers2equi_tables(spec: ProjectionSpec, device: torch.device) -> BlendTables:
     g = build_pers2equi_grids(spec)
     n_in = spec.n_patches * spec.patch_h * spec.patch_w
     if g.capped is None:
-        return BlendTables.create(g.idx, g.w4, spec.patch_w, n_in, device)
+        return BlendTables.create(g.idx, g.w4, spec.patch_w, n_in, device, vjp=g.vjp)
+    # the capped map is the dense one re-packed: one transposed table serves both
     c = g.capped
     return BlendTables.create(
         c.idx, c.w4, spec.patch_w, n_in, device,
         tail_ptr=c.tail_ptr, tail_pix=c.tail_pix, tail_idx=c.tail_idx, tail_w=c.tail_w,
+        vjp=g.vjp,
     )
 
 

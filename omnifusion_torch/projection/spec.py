@@ -10,11 +10,12 @@ so that they are equal array for array (tests/test_torch_port_tables.py).
 Differences from the JAX module:
 
 - the tables are plain dataclasses of numpy arrays (no flax.struct);
-- the transposed backward tables are not built: the port has no training
-  path yet;
 - the capped merge table carries CSR row pointers over its sorted COO tail
   (``tail_ptr``), so the gather-blend kernel walks each output pixel's tail
-  segment without atomics.
+  segment without atomics;
+- the transposed backward tables (``TransposedTables``) carry CSR row
+  pointers over their overflow, sorted by destination (``over_ptr``), so
+  the transposed kernel walks each source pixel's overflow the same way.
 """
 
 from __future__ import annotations
@@ -100,6 +101,24 @@ class ProjectionSpec:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class TransposedTables:
+    """The transpose of a quad map, for the backward (build_vjp_tables).
+
+    Keyed by the forward's source pixel j (the top-left corner of a quad):
+    up to K_T (output pixel, 4 corner weights) entries in ``idx_t``/``w_t``,
+    the rest in a COO overflow sorted by ``over_dst`` with CSR row pointers
+    ``over_ptr`` (N_in + 1): the overflow of source pixel j is
+    ``over_ptr[j]:over_ptr[j+1]``."""
+
+    idx_t: np.ndarray  # (N_in, K_T) int32 output pixels (0 where w_t is 0)
+    w_t: np.ndarray  # (N_in, K_T, 4) float32 corner weights [00, 01, 10, 11]
+    over_src: np.ndarray  # (M,) int32 output pixel of each overflow quad
+    over_dst: np.ndarray  # (M,) int32 sorted source pixel (top-left corner)
+    over_w: np.ndarray  # (M, 4) float32
+    over_ptr: np.ndarray  # (N_in + 1,) int32
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class Equi2PersGrids:
     """Static tables for ERP -> tangent patches.
 
@@ -114,6 +133,7 @@ class Equi2PersGrids:
     xyz: np.ndarray  # (P, h, w, 3) unit-sphere coords per patch pixel
     uv: np.ndarray  # (P, h, w, 2) normalized (lon, lat) in [-1, 1]
     centers: np.ndarray  # (P, 2) normalized patch centers in [-1, 1]
+    vjp: TransposedTables
     spec: ProjectionSpec
 
 
@@ -146,6 +166,7 @@ class Pers2EquiGrids:
     idx: np.ndarray  # (erp_h*erp_w, K) int32 into P*h*w
     w4: np.ndarray  # (erp_h*erp_w, K, 4) float32 [00, 01, 10, 11]
     capped: CappedTables | None
+    vjp: TransposedTables
     spec: ProjectionSpec
 
 
@@ -196,14 +217,87 @@ def _fold_clamped_corners(w4: np.ndarray, x_clamped: np.ndarray, y_clamped: np.n
     return np.stack([w00, w01, w10, w11], axis=-1)
 
 
+# The JAX package's cost model of a sparse table: a dense slot costs one
+# gather per pixel, an overflow or tail entry _SCATTER_COST of them. Both
+# packages must cut their tables at the same place, so it is fixed here, as
+# is the largest dense fan-in of a transposed table (the JAX default cap).
+_SCATTER_COST = 3.0
+_MAX_K_T = 16
+
+
+def build_vjp_tables(idx: np.ndarray, w4: np.ndarray, n_in: int) -> TransposedTables:
+    """Transpose a quad table (N_out, K) for the backward, in quad
+    granularity: one entry per (source quad, output pixel) with the 4
+    corner weights attached; the corner split is recovered when the
+    transposed map is applied (ops/quad_blend.py: quad_spread).
+
+    The dense fan-in K_T <= _MAX_K_T minimizes
+    ``n_in*k + _SCATTER_COST*overflow(k)``; the rest of each source pixel's
+    fan-in goes to a COO overflow sorted by destination (the border pixels
+    of the pole patches, which absorb clamp-folded weights, have fan-ins
+    near 1000)."""
+    n_out, k = idx.shape
+    j = idx.astype(np.int64).reshape(-1)
+    w = np.asarray(w4, np.float64).reshape(-1, 4)
+    n = np.repeat(np.arange(n_out, dtype=np.int64), k)
+    keep = w.sum(-1) > 0
+    j, w, n = j[keep], w[keep], n[keep]
+    order = np.argsort(j, kind="stable")
+    j, w, n = j[order], w[order], n[order]
+
+    counts = np.bincount(j, minlength=n_in)
+    k_t = 1
+    if len(j):
+        hi = int(min(counts.max(), _MAX_K_T))
+        costs = [
+            n_in * c + _SCATTER_COST * np.maximum(counts - c, 0).sum()
+            for c in range(1, hi + 1)
+        ]
+        k_t = int(np.argmin(costs)) + 1
+    rank = np.arange(len(j)) - np.repeat(
+        np.concatenate([[0], np.cumsum(counts)[:-1]]), counts
+    )
+    in_table = rank < k_t
+    idx_t = np.zeros((n_in, k_t), np.int32)
+    w_t = np.zeros((n_in, k_t, 4), np.float32)
+    idx_t[j[in_table], rank[in_table]] = n[in_table]
+    w_t[j[in_table], rank[in_table]] = w[in_table]
+
+    over = ~in_table
+    over_dst = j[over]
+    return TransposedTables(
+        idx_t=idx_t,
+        w_t=w_t,
+        over_src=n[over].astype(np.int32),
+        over_dst=over_dst.astype(np.int32),
+        over_w=w[over].astype(np.float32),
+        over_ptr=np.concatenate(
+            [[0], np.cumsum(np.bincount(over_dst, minlength=n_in))]
+        ).astype(np.int32),
+    )
+
+
+_VJP_KEYS = tuple(f.name for f in dataclasses.fields(TransposedTables))
+
+
+def _vjp_arrays(t: TransposedTables) -> dict:
+    return {f"vjp_{k}": getattr(t, k) for k in _VJP_KEYS}
+
+
+def _vjp_from(cached: dict) -> TransposedTables:
+    return TransposedTables(**{k: cached.pop(f"vjp_{k}") for k in _VJP_KEYS})
+
+
 @functools.lru_cache(maxsize=None)
 def build_equi2pers_grids(spec: ProjectionSpec) -> Equi2PersGrids:
     cached = table_cache.load("e2p", spec)
     if cached is not None:
-        return Equi2PersGrids(spec=spec, **cached)
+        vjp = _vjp_from(cached)  # takes the vjp_* arrays out of ``cached``
+        return Equi2PersGrids(vjp=vjp, spec=spec, **cached)
     g = _build_equi2pers_grids(spec)
     table_cache.save(
-        "e2p", spec, dict(idx=g.idx, w4=g.w4, xyz=g.xyz, uv=g.uv, centers=g.centers)
+        "e2p", spec,
+        dict(idx=g.idx, w4=g.w4, xyz=g.xyz, uv=g.uv, centers=g.centers, **_vjp_arrays(g.vjp)),
     )
     return g
 
@@ -239,12 +333,15 @@ def _build_equi2pers_grids(spec: ProjectionSpec) -> Equi2PersGrids:
         [cos_lat * np.sin(lon), cos_lat * np.cos(lon), np.sin(lat)], axis=-1
     )
     uv = np.stack([lon_n, lat_n], axis=-1)
+    idx = np.asarray(idx, dtype=np.int32)
+    w4 = np.asarray(w4, dtype=np.float32)
     return Equi2PersGrids(
-        idx=np.asarray(idx, dtype=np.int32),
-        w4=np.asarray(w4, dtype=np.float32),
+        idx=idx,
+        w4=w4,
         xyz=np.asarray(xyz, dtype=np.float32),
         uv=np.asarray(uv, dtype=np.float32),
         centers=np.asarray(spec.centers_normalized(), dtype=np.float32),
+        vjp=build_vjp_tables(idx, w4, spec.erp_h * spec.erp_w),
         spec=spec,
     )
 
@@ -261,9 +358,11 @@ def build_pers2equi_grids(spec: ProjectionSpec) -> Pers2EquiGrids:
             if "cap_idx" in cached
             else None
         )
-        return Pers2EquiGrids(idx=cached["idx"], w4=cached["w4"], capped=capped, spec=spec)
+        return Pers2EquiGrids(
+            idx=cached["idx"], w4=cached["w4"], capped=capped, vjp=_vjp_from(cached), spec=spec
+        )
     g = _build_pers2equi_grids(spec)
-    arrays = dict(idx=g.idx, w4=g.w4)
+    arrays = dict(idx=g.idx, w4=g.w4, **_vjp_arrays(g.vjp))
     if g.capped is not None:
         arrays.update({f"cap_{k}": getattr(g.capped, k) for k in _CAPPED_KEYS})
     table_cache.save("p2e", spec, arrays)
@@ -343,25 +442,26 @@ def _build_pers2equi_grids(spec: ProjectionSpec) -> Pers2EquiGrids:
     idx_k = np.asarray(idx_k, dtype=np.int32)
     w_k = np.asarray(w_k, dtype=np.float32)
     return Pers2EquiGrids(
-        idx=idx_k, w4=w_k, capped=build_capped_tables(idx_k, w_k), spec=spec
+        idx=idx_k,
+        w4=w_k,
+        capped=build_capped_tables(idx_k, w_k),
+        vjp=build_vjp_tables(idx_k, w_k, P * ph * pw),
+        spec=spec,
     )
 
 
-def build_capped_tables(
-    idx_k: np.ndarray, w_k: np.ndarray, scatter_cost: float = 3.0
-) -> CappedTables | None:
+def build_capped_tables(idx_k: np.ndarray, w_k: np.ndarray) -> CappedTables | None:
     """Re-pack a slot-sorted (N, K) quad table as dense cap + sorted COO tail.
 
-    Picks the cap that minimizes ``N*cap + scatter_cost*tail(cap)``, the JAX
-    package's cost model, so that both packages cut the table at the same
-    cap; returns None when the dense table wins. Slots must be live-first
+    Picks the cap that minimizes ``N*cap + _SCATTER_COST*tail(cap)``;
+    returns None when the dense table wins. Slots must be live-first
     per pixel (build_pers2equi_grids sorts by descending weight).
     """
     n, k = idx_k.shape
     live = w_k.sum(-1) > 0  # (N, K), front-packed per row
     counts = live.sum(1)
     tail_sizes = [int(np.maximum(counts - cap, 0).sum()) for cap in range(1, k + 1)]
-    costs = [n * cap + scatter_cost * t for cap, t in zip(range(1, k + 1), tail_sizes)]
+    costs = [n * cap + _SCATTER_COST * t for cap, t in zip(range(1, k + 1), tail_sizes)]
     cap = int(np.argmin(costs)) + 1
     if cap == k:
         return None

@@ -7,7 +7,8 @@ they are built once per machine: a versioned ``.npz`` per (table kind, spec)
 under ``.table_cache_torch/``.
 
 The port keeps a directory of its own. Its tables hold other arrays than
-the JAX package's (CSR tail pointers, no transposed backward tables), and a
+the JAX package's (CSR pointers over the merge's tail and over the
+transposed tables' overflow), and a
 shared directory would let one package load the other's tables, so that a
 test comparing the two packages' tables would compare one with itself.
 
@@ -36,7 +37,7 @@ import zipfile
 
 import numpy as np
 
-VERSION = 1
+VERSION = 2
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 

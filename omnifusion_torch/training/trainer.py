@@ -1,0 +1,124 @@
+"""Train and eval steps.
+
+The port's counterpart of ``omnifusion_tpu/training/trainer.py``, with the
+reference training recipe (train_erp_depth.py:156-294): AdamW (lr 1e-4,
+weight decay 0.01) under per-step cosine warm restarts, BerHu supervision,
+BatchNorm running statistics updated once per train forward.
+
+``TrainState`` holds the model, the optimizer, the schedule and the update
+count; ``train_step`` updates all of them in place, where the JAX package
+returns a new state. torch's AdamW and optax's adamw agree on the update:
+bias-corrected moments, eps outside the square root, decoupled decay
+``lr * wd * p``. The schedule is evaluated at the update count before the
+increment, as optax evaluates it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+from torch import nn
+
+from omnifusion_torch.evaluation.metrics import compute_depth_metrics
+from omnifusion_torch.losses.direct import berhu_loss
+from omnifusion_torch.training.schedule import cosine_warm_restarts
+
+
+def param_groups(
+    model: nn.Module, weight_decay: float, caffe_bias_rules: bool = False,
+    frozen_prefixes: tuple = (),
+) -> list[dict]:
+    """The optimizer's parameter groups, each with an ``lr_scale`` on the
+    schedule (trainer.py:44-92 of the JAX package).
+
+    ``caffe_bias_rules`` (upstream util.py:147-155): parameters whose last
+    name part contains "bias" get twice the learning rate and no weight
+    decay. ``frozen_prefixes`` (upstream util.py:124-130): parameters whose
+    name starts with a prefix get no updates; they still get gradients, as
+    the JAX package's do."""
+    groups = {"other": [], "bias": []}
+    for name, p in model.named_parameters():
+        if any(name.startswith(pre) for pre in frozen_prefixes):
+            continue
+        bias = caffe_bias_rules and "bias" in name.rsplit(".", 1)[-1]
+        groups["bias" if bias else "other"].append(p)
+    out = [{"params": groups["other"], "weight_decay": weight_decay, "lr_scale": 1.0}]
+    if groups["bias"]:
+        out.append({"params": groups["bias"], "weight_decay": 0.0, "lr_scale": 2.0})
+    return out
+
+
+def make_optimizer(
+    model: nn.Module,
+    lr: float = 1e-4,
+    weight_decay: float = 0.01,
+    caffe_bias_rules: bool = False,
+    frozen_prefixes: tuple = (),
+) -> torch.optim.AdamW:
+    """AdamW over ``param_groups``; the learning rate is set before every
+    update from the schedule (``train_step``)."""
+    return torch.optim.AdamW(
+        param_groups(model, weight_decay, caffe_bias_rules, frozen_prefixes), lr=lr
+    )
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.AdamW
+    schedule: Callable[[int], float]
+    step: int = 0
+
+
+def create_train_state(
+    model: nn.Module,
+    lr: float = 1e-4,
+    weight_decay: float = 0.01,
+    t_0: int = 5,
+    t_mult: int = 2,
+    steps_per_epoch: int = 1,
+    caffe_bias_rules: bool = False,
+    frozen_prefixes: tuple = (),
+) -> TrainState:
+    return TrainState(
+        model=model,
+        optimizer=make_optimizer(model, lr, weight_decay, caffe_bias_rules, frozen_prefixes),
+        schedule=cosine_warm_restarts(lr, t_0, t_mult, steps_per_epoch=steps_per_epoch),
+    )
+
+
+def forward_loss(model: nn.Module, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Train-mode forward and BerHu loss: (loss, pred). batch: rgb
+    (B, H, W, 3), depth and mask (B, H, W, 1)."""
+    model.train()
+    pred = model(batch["rgb"])
+    return berhu_loss(pred, batch["depth"], batch["mask"]), pred
+
+
+def train_step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
+    """One update; returns loss, grad_norm (global L2 norm of all the
+    gradients) and pred_mean as 0-d tensors on the model's device, so that
+    the caller decides when to sync."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, pred = forward_loss(state.model, batch)
+    loss.backward()
+    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+    grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    lr = state.schedule(state.step)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr * group["lr_scale"]
+    state.optimizer.step()
+    state.step += 1
+    return {"loss": loss.detach(), "grad_norm": grad_norm, "pred_mean": pred.detach().mean()}
+
+
+def eval_step(model: nn.Module, batch: dict):
+    """Eval-mode forward and the median-scaled depth metrics:
+    (metrics, N, pred)."""
+    model.eval()
+    with torch.inference_mode():
+        pred = model(batch["rgb"])
+        metrics, n = compute_depth_metrics(pred, batch["depth"], batch["mask"])
+    return metrics, n, pred

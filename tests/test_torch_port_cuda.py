@@ -12,10 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from omnifusion_torch.ops.quad_blend import BlendTables, quad_blend, quad_blend_plain
-from omnifusion_torch.ops.upsample import up2x, up2x_plain
+from omnifusion_torch.ops.quad_blend import (
+    BlendTables,
+    quad_blend,
+    quad_blend_plain,
+    quad_spread,
+    quad_spread_plain,
+)
+from omnifusion_torch.ops.upsample import up2x, up2x_adjoint, up2x_adjoint_plain, up2x_plain
 from omnifusion_torch.projection import ProjectionSpec
 from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
+from omnifusion_torch.projection.spec import build_vjp_tables
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +92,68 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     tables = pers2equi_tables(SPEC, cuda)
     with pytest.raises(ValueError, match="pixels"):
         quad_blend(torch.rand(1, 2, tables.n_in - 1, device=cuda), tables)
+    with pytest.raises(ValueError, match="pixels"):
+        quad_spread(torch.rand(1, 2, tables.n_out - 1, device=cuda), tables.vjp)
+    with pytest.raises(TypeError, match="dtype"):
+        up2x_adjoint(torch.zeros(1, 1, 2, 2, dtype=torch.float64, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_spread_kernel_matches_plain(cuda, dtype):
+    # the merge's backward: channel-first, K_T = 4 plus the overflow
+    tables = pers2equi_tables(SPEC, cuda).vjp
+    assert tables.n_over > 0
+    cot = torch.rand(5, 2, tables.n_out, generator=torch.Generator().manual_seed(4)).to(cuda, dtype)
+    before = quad_spread.launches
+    got = quad_spread(cot, tables)
+    torch.cuda.synchronize()
+    assert quad_spread.launches == before + 1 and got.dtype == torch.float32
+    # the same f32 products summed in another order (the plain version sums
+    # each corner plane with index_add_, whose order changes from run to
+    # run, then the four rolled planes): rtol ~ (terms per sum) * 2^-24
+    torch.testing.assert_close(got, quad_spread_plain(cot, tables), rtol=1e-5, atol=1e-5)
+
+
+def test_spread_kernel_e2p_and_wrapped_corners(cuda):
+    tables = equi2pers_tables(SPEC, cuda).vjp
+    cot = torch.rand(43, tables.n_out, 3, generator=torch.Generator().manual_seed(5)).to(cuda)
+    torch.testing.assert_close(
+        quad_spread(cot, tables, channel_last=True),
+        quad_spread_plain(cot, tables, channel_last=True), rtol=0, atol=1e-5,
+    )
+    rng = np.random.default_rng(6)
+    n_in, w, n_out = 96, 8, 40
+    idx = rng.integers(n_in - 2 * w, n_in, size=(n_out, 2)).astype(np.int32)
+    w4 = rng.random((n_out, 2, 4)).astype(np.float32)
+    wrap = BlendTables.create(idx, w4, w, n_in, cuda, vjp=build_vjp_tables(idx, w4, n_in)).vjp
+    cot = torch.rand(3, 5, n_out, generator=torch.Generator().manual_seed(6)).to(cuda)
+    got = quad_spread(cot, wrap)
+    torch.cuda.synchronize()
+    assert got[..., : w + 1].abs().sum() > 0
+    torch.testing.assert_close(got, quad_spread_plain(cot, wrap), rtol=0, atol=1e-5)
+
+
+def test_blend_backward_runs_the_spread_kernel(cuda):
+    tables = pers2equi_tables(SPEC, cuda)
+    x = torch.rand(2, 2, tables.n_in, device=cuda, dtype=torch.float16, requires_grad=True)
+    g = torch.rand(2, 2, tables.n_out, device=cuda)
+    before = quad_spread.launches
+    quad_blend(x, tables).backward(g)
+    torch.cuda.synchronize()
+    assert quad_spread.launches == before + 1 and x.grad.dtype == torch.float16
+    torch.testing.assert_close(x.grad, quad_spread_plain(g, tables.vjp).half())
+
+
+@pytest.mark.parametrize(
+    "shape", [(3, 8, 4, 4), (2, 32, 16, 16), (1, 3, 7, 5), (2, 3, 1, 1), (1, 2, 1, 4)]
+)
+def test_up2x_adjoint_kernel_matches_plain(cuda, shape):
+    n, c, h, w = shape
+    g = torch.rand(n, c, 2 * h, 2 * w, generator=torch.Generator().manual_seed(7)).to(cuda)
+    x = torch.rand(shape, device=cuda, requires_grad=True)
+    before = up2x_adjoint.launches
+    up2x(x).backward(g)
+    torch.cuda.synchronize()
+    assert up2x_adjoint.launches == before + 1
+    # a 16-tap sum of inputs in [0, 1) in another order
+    torch.testing.assert_close(x.grad, up2x_adjoint_plain(g), rtol=0, atol=1e-6)

@@ -30,6 +30,9 @@ def test_port_imports_no_jax():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "omnifusion_torch.models.spherical_fusion" in result["modules"]
     assert "omnifusion_torch.cli.infer" in result["modules"]
+    assert {"omnifusion_torch.cli.train", "omnifusion_torch.training.trainer",
+            "omnifusion_torch.data.loader", "omnifusion_torch.evaluation.metrics",
+            "omnifusion_torch.losses.direct"} <= set(result["modules"])
     assert result["bad"] == []
 
 
