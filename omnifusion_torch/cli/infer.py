@@ -2,13 +2,16 @@
 
     python -m omnifusion_torch.cli.infer --input panos/ --checkpoint model.pt
     python -m omnifusion_torch.cli.infer --input 'panos/*.npy' --seed 0 --batch 4
+    python -m omnifusion_torch.cli.infer --input panos/ --bf16 --merge_dtype f16
 
 The port's counterpart of ``omnifusion_tpu/cli/infer.py`` for the one-shot
 model. It builds the model once, loads a ``.pt`` state dict (the port's
 keys, e.g. from ``models.convert.state_dict_from_jax``) or fills seeded
 weights, and answers batches of panoramas. Each input is a ``.npy`` ERP
 image (H, W, 3) f32 in [0, 1] at the ``--erp_size`` resolution; each output
-is ``<save_path>/<stem>_depth.npy``, (H, W) f32 metres.
+is ``<save_path>/<stem>_depth.npy``, (H, W) f32 metres. ``--bf16`` runs the
+trunk in bf16 (``SphericalFusion(dtype=torch.bfloat16)``); with
+``--merge_dtype f16`` that is the JAX package's serving recipe.
 
 Runs on the CUDA card unless ``--device`` names another device.
 """
@@ -50,6 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--nrows", type=int, default=4, choices=[3, 4, 5, 6])
     parser.add_argument("--batch", type=int, default=2)
     parser.add_argument("--device", default=None, help="default: the CUDA card")
+    parser.add_argument("--bf16", action="store_true", help="bf16 trunk (f32 parameters)")
     parser.add_argument("--merge_dtype", default="f32", choices=sorted(MERGE_DTYPES))
     return parser
 
@@ -82,7 +86,12 @@ def build_model(args) -> SphericalFusion:
     """The eval-mode model the flags describe, with its weights."""
     device = resolve_device(args.device)
     spec = ProjectionSpec.create(args.erp_size, args.patchsize, (args.fov, args.fov), args.nrows)
-    model = SphericalFusion(spec, merge_dtype=MERGE_DTYPES[args.merge_dtype], device=device)
+    model = SphericalFusion(
+        spec,
+        dtype=torch.bfloat16 if args.bf16 else None,
+        merge_dtype=MERGE_DTYPES[args.merge_dtype],
+        device=device,
+    )
     if args.checkpoint:
         sd = torch.load(args.checkpoint, map_location=device, weights_only=True)
         model.load_state_dict(sd, strict=True)

@@ -38,6 +38,7 @@ from omnifusion_torch.training import (
     restore_file,
     train_step,
 )
+from omnifusion_torch.utils.profiling import Throughput
 
 METRICS = ("abs_rel", "sq_rel", "lin_rms_sq", "log_rms_sq", "d1", "d2", "d3")
 
@@ -108,17 +109,19 @@ def run_training(args) -> dict:
         csvwriter = csv.writer(csvfile)
         if new_csv:
             csvwriter.writerow(["epoch", "loss", *METRICS])
+        throughput = Throughput()
         for epoch in range(first_epoch, args.epochs):
             t0 = time.time()
             pending = []  # device scalars; read at the end of the epoch
             for batch in train_loader.to_device(device):
                 pending.append(train_step(state, batch)["loss"])
+                throughput.update(args.batch)
             losses = [float(v) for v in pending]
             mean_loss = float(np.mean(losses)) if losses else float("nan")
             history["train_loss"].append(mean_loss)
             seconds = time.time() - t0
             print(f"epoch {epoch}: loss {mean_loss:.4f}  ({seconds:.1f}s, {len(losses)} steps, "
-                  f"{len(losses) * args.batch / max(seconds, 1e-9):.1f} panos/s)")
+                  f"{throughput.per_sec:.1f} panos/s)")
             mgr.save(state, "latest")
 
             if (epoch + 1) % args.val_interval == 0 or epoch == args.epochs - 1:

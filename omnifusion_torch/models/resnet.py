@@ -18,16 +18,16 @@ from omnifusion_torch.models.layers import TorchBatchNorm, max_pool_3x3_s2, torc
 class BasicBlock(nn.Module):
     """torchvision BasicBlock: 3x3 conv-bn-relu, 3x3 conv-bn, residual, relu."""
 
-    def __init__(self, in_features, features, stride=1, device=None):
+    def __init__(self, in_features, features, stride=1, dtype=None, device=None):
         super().__init__()
-        self.conv1 = torch_conv(in_features, features, 3, stride, 1, device=device)
+        self.conv1 = torch_conv(in_features, features, 3, stride, 1, dtype=dtype, device=device)
         self.bn1 = TorchBatchNorm(features, device=device)
-        self.conv2 = torch_conv(features, features, 3, 1, 1, device=device)
+        self.conv2 = torch_conv(features, features, 3, 1, 1, dtype=dtype, device=device)
         self.bn2 = TorchBatchNorm(features, device=device)
         self.downsample = None
         if stride != 1 or in_features != features:
             self.downsample = nn.Sequential(
-                torch_conv(in_features, features, 1, stride, 0, device=device),
+                torch_conv(in_features, features, 1, stride, 0, dtype=dtype, device=device),
                 TorchBatchNorm(features, device=device),
             )
 
@@ -38,13 +38,16 @@ class BasicBlock(nn.Module):
         return F.relu(out + identity)
 
 
-def resnet_stage(in_features, features, num_blocks, stride, device=None) -> nn.Sequential:
+def resnet_stage(
+    in_features, features, num_blocks, stride, dtype=None, device=None
+) -> nn.Sequential:
     return nn.Sequential(
         *(
             BasicBlock(
                 in_features if i == 0 else features,
                 features,
                 stride if i == 0 else 1,
+                dtype=dtype,
                 device=device,
             )
             for i in range(num_blocks)
@@ -71,18 +74,22 @@ class ResNet34Encoder(nn.Module):
       layer4: (N, 512, H/32, W/32)
 
     ``stages`` = (features, blocks, stride) per stage; a smaller override
-    keeps the same pyramid with fewer blocks (small tests).
+    keeps the same pyramid with fewer blocks (small tests). ``dtype``: the
+    convolutions' compute dtype (None: that of the parameters, f32); the
+    BatchNorms return their input's, so every feature is in ``dtype``.
     """
 
-    def __init__(self, stages: Sequence[tuple[int, int, int]] = RESNET34_STAGES, device=None):
+    def __init__(
+        self, stages: Sequence[tuple[int, int, int]] = RESNET34_STAGES, dtype=None, device=None
+    ):
         super().__init__()
         self.stages = tuple(tuple(s) for s in stages)
-        self.conv1 = torch_conv(3, 64, 7, 2, 3, device=device)
+        self.conv1 = torch_conv(3, 64, 7, 2, 3, dtype=dtype, device=device)
         self.bn1 = TorchBatchNorm(64, device=device)
         in_features = 64
         for i, (features, blocks, stride) in enumerate(self.stages, start=1):
             self.add_module(
-                f"layer{i}", resnet_stage(in_features, features, blocks, stride, device)
+                f"layer{i}", resnet_stage(in_features, features, blocks, stride, dtype, device)
             )
             in_features = features
 

@@ -13,6 +13,14 @@ transformer, de_conv*, pred, weight_pred, mlp_points; plus up_proj where the
 token width is not 512): ``DepthTrunk`` extends ``ResNet34Encoder`` and
 ``SphericalFusion`` extends ``DepthTrunk``, so a state dict converted from
 the JAX variables (models/convert.py) loads with strict=True.
+
+``dtype=torch.bfloat16`` is the JAX package's serving recipe (bench.py:
+163-188): the ERP is cast before equi2pers, so the e2p blend reads bf16;
+MlpPoints, the encoder, ``down``, ``up_proj``, the decoder and the fused
+heads compute in bf16 on f32 parameters; the BatchNorms normalize in f32;
+the transformer runs in f32 (transformer.py); the merge's precision is
+``merge_dtype`` alone and the depth is f32. Parameters stay f32, so state
+dicts do not change.
 """
 
 from __future__ import annotations
@@ -46,12 +54,14 @@ class MlpPoints(nn.Sequential):
     """Two 1x1 conv + BN + ReLU geometric embedding (upstream mlp_points:
     Sequential indices 0, 1, 3, 4 hold the parameters)."""
 
-    def __init__(self, in_features: int = 5, hidden: int = 16, out: int = 64, device=None):
+    def __init__(
+        self, in_features: int = 5, hidden: int = 16, out: int = 64, dtype=None, device=None
+    ):
         super().__init__(
-            torch_conv(in_features, hidden, 1, device=device),
+            torch_conv(in_features, hidden, 1, dtype=dtype, device=device),
             TorchBatchNorm(hidden, device=device),
             nn.ReLU(),
-            torch_conv(hidden, out, 1, device=device),
+            torch_conv(hidden, out, 1, dtype=dtype, device=device),
             TorchBatchNorm(out, device=device),
             nn.ReLU(),
         )
@@ -61,7 +71,8 @@ class DepthTrunk(ResNet34Encoder):
     """Shared encoder/transformer/decoder/heads over a folded patch stack.
 
     ``trunk(x, point_feat, b)``: x (B*P, 3, h, w) and point_feat
-    (P, 64, h/4, w/4) -> (pred, conf), each (B*P, 1, h, w).
+    (P, 64, h/4, w/4) -> (pred, conf), each (B*P, 1, h, w), in ``dtype``
+    (None: f32).
     """
 
     def __init__(
@@ -71,14 +82,16 @@ class DepthTrunk(ResNet34Encoder):
         depth: int = 6,
         num_heads: int = 4,
         encoder_stages: Optional[Sequence[tuple[int, int, int]]] = None,
+        dtype: Optional[torch.dtype] = None,
         device=None,
     ):
         stages = tuple(encoder_stages or RESNET34_STAGES)
-        super().__init__(stages, device=device)
+        super().__init__(stages, dtype=dtype, device=device)
+        self.dtype = dtype
         c1, c2, c3, c4 = (s[0] for s in stages)
         hh, ww = patch_size[0] // 32, patch_size[1] // 32
         self.emb = 32 * hh * ww
-        self.down = torch_conv(c4, 32, 1, use_bias=True, device=device)
+        self.down = torch_conv(c4, 32, 1, use_bias=True, dtype=dtype, device=device)
         self.transformer = TransformerCascade(
             self.emb, n_patches, depth=depth, num_heads=num_heads, device=device
         )
@@ -86,34 +99,42 @@ class DepthTrunk(ResNet34Encoder):
         # space when emb == layer4's width (patch 128); otherwise the tokens
         # fold back to their source layout through a 1x1 projection
         if self.emb != c4:
-            self.up_proj = torch_conv(32, c4, 1, use_bias=True, device=device)
-        self.de_conv0_0 = ConvBnReLU(c4, 256, device=device)
-        self.de_conv0_1 = ConvBnReLU(256 + c3, 128, device=device)
-        self.de_conv1_0 = ConvBnReLU(128, 128, device=device)
-        self.de_conv1_1 = ConvBnReLU(128 + c2, 64, device=device)
-        self.de_conv2_0 = ConvBnReLU(64, 64, device=device)
-        self.de_conv2_1 = ConvBnReLU(64 + c1, 64, device=device)
-        self.de_conv3_0 = ConvBnReLU(64, 64, device=device)
-        self.de_conv3_1 = ConvBnReLU(64 + 64, 32, device=device)
-        self.de_conv4_0 = ConvBnReLU(32, 32, device=device)
+            self.up_proj = torch_conv(32, c4, 1, use_bias=True, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device)
+        self.de_conv0_0 = ConvBnReLU(c4, 256, **kw)
+        self.de_conv0_1 = ConvBnReLU(256 + c3, 128, **kw)
+        self.de_conv1_0 = ConvBnReLU(128, 128, **kw)
+        self.de_conv1_1 = ConvBnReLU(128 + c2, 64, **kw)
+        self.de_conv2_0 = ConvBnReLU(64, 64, **kw)
+        self.de_conv2_1 = ConvBnReLU(64 + c1, 64, **kw)
+        self.de_conv3_0 = ConvBnReLU(64, 64, **kw)
+        self.de_conv3_1 = ConvBnReLU(64 + 64, 32, **kw)
+        self.de_conv4_0 = ConvBnReLU(32, 32, **kw)
         self.pred = torch_conv(32, 1, 3, 1, 1, use_bias=True, device=device)
         self.weight_pred = torch_conv(32, 1, 3, 1, 1, use_bias=True, device=device)
 
     def trunk(self, x, point_feat, b: int):
         bp, _, h, w = x.shape
         p = bp // b
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         pf = point_feat.expand(b, *point_feat.shape).reshape(bp, *point_feat.shape[1:])
         feats = self.encode(x, pf.to(x.dtype))
         conv1, l1, l2, l3, l4 = (
             feats[k] for k in ("conv1", "layer1", "layer2", "layer3", "layer4")
         )
 
-        # global fusion: one channel-major-flattened token per patch
+        # global fusion: one channel-major-flattened token per patch; the
+        # tokens come out of the transformer in f32 (transformer.py)
         tok = self.down(l4).reshape(b, p, self.emb)
         tok = self.transformer(tok)
         if self.emb == l4.shape[1]:
+            # bf16 + f32 promotes to f32, as in JAX (spherical_fusion.py:147),
+            # so under a bf16 trunk the first decoder upsample runs in f32
             l4 = l4 + tok.reshape(bp, self.emb, 1, 1)
         else:
+            # up_proj computes in the trunk's dtype: the sum keeps it
+            # (spherical_fusion.py:151-153)
             hh, ww = l4.shape[-2:]
             l4 = l4 + self.up_proj(tok.reshape(bp, 32, hh, ww))
 
@@ -128,20 +149,24 @@ class DepthTrunk(ResNet34Encoder):
         x = self.de_conv4_0(resize_bilinear(x, (h, w)))
 
         # fused heads: one conv with both heads' kernels reads the feature
-        # map once; each head keeps its own parameters
+        # map once; each head keeps its own parameters, cast to the feature
+        # map's dtype (spherical_fusion.py:174-175)
         y = F.conv2d(
             x,
-            torch.cat([self.pred.weight, self.weight_pred.weight]),
-            torch.cat([self.pred.bias, self.weight_pred.bias]),
+            torch.cat([self.pred.weight, self.weight_pred.weight]).to(x.dtype),
+            torch.cat([self.pred.bias, self.weight_pred.bias]).to(x.dtype),
             padding=1,
         )
         return F.relu(y[:, :1]), torch.sigmoid(y[:, 1:])
 
 
-def confidence_merge(pred, conf, p2e_grids: Pers2EquiGrids, dtype=None):
+def confidence_merge(
+    pred, conf, p2e_grids: Pers2EquiGrids, use_confidence: bool = True, dtype=None
+):
     """Merge per-patch depth to ERP with the confidence-weighted scheme:
     pers2equi(pred*conf) / pers2equi(conf), both in one 2-channel
-    channel-first blend.
+    channel-first blend; with ``use_confidence=False``, pers2equi(pred)
+    alone, a 1-channel blend.
 
     pred, conf: (B, P, h, w) or any shape that flattens to (B, P*h*w) in
     patch-major order. dtype: precision of the blend's source (default f32;
@@ -149,6 +174,10 @@ def confidence_merge(pred, conf, p2e_grids: Pers2EquiGrids, dtype=None):
     f32 (f64 throughout for f64 heads). Returns (B, H, W, 1) f32 (f64)."""
     mdt = torch.promote_types(pred.dtype, torch.float32) if dtype is None else dtype
     b = pred.shape[0]
+    if not use_confidence:
+        spec = p2e_grids.spec
+        merged = pers2equi_cf(pred.to(mdt).reshape(b, 1, -1), p2e_grids)
+        return merged.reshape(b, spec.erp_h, spec.erp_w, 1)
     pred = pred.to(mdt).reshape(b, -1)
     conf = conf.to(mdt).reshape(b, -1)
     merged = pers2equi_cf(torch.stack([pred * conf, conf], dim=1), p2e_grids)
@@ -158,11 +187,14 @@ def confidence_merge(pred, conf, p2e_grids: Pers2EquiGrids, dtype=None):
 
 
 class SphericalFusion(DepthTrunk):
-    """One-shot model: ERP (B, H, W, 3) -> depth (B, H, W, 1).
+    """One-shot model: ERP (B, H, W, 3) -> depth (B, H, W, 1) f32.
 
-    ``device``: where the parameters live; None means the CUDA card, and
-    raises when there is none. Parameters start from PyTorch's default
-    init: load a state dict, or call ``init_weights`` for seeded ones."""
+    ``dtype``: the trunk's compute dtype (None: f32; ``torch.bfloat16``:
+    the serving recipe, see the module's docstring). ``merge_dtype``: the
+    merge blend's source precision (None: f32). ``device``: where the
+    parameters live; None means the CUDA card, and raises when there is
+    none. Parameters start from PyTorch's default init: load a state dict,
+    or call ``init_weights`` for seeded ones."""
 
     def __init__(
         self,
@@ -170,17 +202,18 @@ class SphericalFusion(DepthTrunk):
         depth: int = 6,
         num_heads: int = 4,
         encoder_stages: Optional[Sequence[tuple[int, int, int]]] = None,
+        dtype: Optional[torch.dtype] = None,
         merge_dtype: Optional[torch.dtype] = None,
         device=None,
     ):
         device = resolve_device(device)
         super().__init__(
             (spec.patch_h, spec.patch_w), spec.n_patches, depth, num_heads,
-            encoder_stages, device=device,
+            encoder_stages, dtype=dtype, device=device,
         )
         self.spec = spec
         self.merge_dtype = merge_dtype
-        self.mlp_points = MlpPoints(device=device)
+        self.mlp_points = MlpPoints(dtype=dtype, device=device)
         # geometric embedding input: (center, rho=1, center) per patch pixel
         # at quarter resolution
         spec_q = spec.with_patch_scale(4)
@@ -189,12 +222,17 @@ class SphericalFusion(DepthTrunk):
         geo = torch.from_numpy(geo)[:, :, None, None].expand(-1, -1, spec_q.patch_h, spec_q.patch_w)
         self.register_buffer("geo", geo.contiguous().to(device), persistent=False)
 
-    def forward(self, rgb: torch.Tensor) -> torch.Tensor:
+    def forward(self, rgb: torch.Tensor, confidence: bool = True) -> torch.Tensor:
+        """``confidence=False``: merge the depth alone, unweighted."""
         spec = self.spec
         if rgb.shape[1:3] != (spec.erp_h, spec.erp_w):
             raise ValueError(f"input {tuple(rgb.shape)} does not match {spec}")
         b, p = rgb.shape[0], spec.n_patches
         h, w = spec.patch_h, spec.patch_w
+        # cast before the projection, so that the e2p blend reads the
+        # trunk's dtype (spherical_fusion.py:264-266)
+        if self.dtype is not None:
+            rgb = rgb.to(self.dtype)
         patches = equi2pers(rgb, build_equi2pers_grids(spec))  # (B, P, h, w, 3)
         x = patches.permute(0, 1, 4, 2, 3).reshape(b * p, 3, h, w)
         pred, conf = self.trunk(x, self.mlp_points(self.geo), b)
@@ -202,31 +240,43 @@ class SphericalFusion(DepthTrunk):
             pred.reshape(b, p, h, w),
             conf.reshape(b, p, h, w),
             build_pers2equi_grids(spec),
+            use_confidence=confidence,
             dtype=self.merge_dtype,
         )
 
 
+def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
+    """Standard normal draws cut at two standard deviations (each one past
+    them drawn again), the distribution of flax's truncated_normal."""
+    x = rng.standard_normal(shape)
+    while (out := np.abs(x) > 2).any():
+        x[out] = rng.standard_normal(int(out.sum()))
+    return x
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
-    """Fill ``model``'s parameters from a seeded ``torch.Generator``, with
-    the JAX package's initializer families: convs normal with
-    std sqrt(2/fan_out), linears Xavier-uniform, pos_emb normal(0.02),
-    biases 0, BatchNorm scale 1 and running stats (0, 1). The numbers are
-    drawn on the CPU, so one seed gives the same weights on every device."""
-    g = torch.Generator().manual_seed(seed)
+    """Fill ``model``'s parameters from ``np.random.default_rng(seed)``, with
+    the JAX package's initializer families: convs normal with std
+    sqrt(2/fan_out), linears Xavier-uniform, pos_emb normal(0.02) cut at two
+    standard deviations, biases 0, BatchNorm scale 1 and running stats
+    (0, 1). One seed gives the same weights on every device and with every
+    torch version; torch's own generators do not keep their streams from
+    one version to the next."""
+    rng = np.random.default_rng(seed)
 
-    def fill(t: torch.Tensor, values: torch.Tensor):
-        t.copy_(values.to(t.dtype))
+    def fill(t: torch.Tensor, values: np.ndarray):
+        t.copy_(torch.from_numpy(values.astype(np.float32)))
 
     for name, m in model.named_modules():
         if isinstance(m, nn.Conv2d):
             fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
-            fill(m.weight, torch.randn(m.weight.shape, generator=g) * (2.0 / fan_out) ** 0.5)
+            fill(m.weight, rng.standard_normal(tuple(m.weight.shape)) * (2.0 / fan_out) ** 0.5)
         elif isinstance(m, nn.Linear):
             bound = (6.0 / (m.in_features + m.out_features)) ** 0.5
-            fill(m.weight, (torch.rand(m.weight.shape, generator=g) * 2 - 1) * bound)
+            fill(m.weight, rng.uniform(-bound, bound, tuple(m.weight.shape)))
         elif isinstance(m, TransformerCascade):
-            fill(m.pos_emb, torch.randn(m.pos_emb.shape, generator=g) * 0.02)
+            fill(m.pos_emb, _truncated_normal(rng, tuple(m.pos_emb.shape)) * 0.02)
         if isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
             m.bias.zero_()
         if isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):

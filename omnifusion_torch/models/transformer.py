@@ -4,6 +4,9 @@ The port's counterpart of ``omnifusion_tpu/models/transformer.py``:
 separate q and kv projections without bias, a biased output projection,
 exact (erf) GELU, LayerNorm eps 1e-5 in the blocks and 1e-6 at the end, a
 learned positional embedding over the patch tokens, softmax in f32.
+The blocks run in f32 whatever the tokens' dtype: the JAX package passes
+the transformer no ``dtype``, so flax promotes bf16 tokens against the f32
+parameters of the first LayerNorm, and the residual sum with it.
 The sequence is tiny (at most 46 tokens), so attention is a plain
 matmul + softmax.
 """
@@ -71,7 +74,12 @@ class TransformerCascade(nn.Module):
         self.encoder_norm = nn.LayerNorm(dim, eps=1e-6, device=device)
 
     def forward(self, x):
+        # bf16 tokens stay bf16 through the embedding's add
+        # (omnifusion_tpu/models/transformer.py:92); flax's LayerNorm and
+        # Dense then promote them against their f32 parameters, and the
+        # residual sum with them, so the blocks and the output are f32
         x = x + self.pos_emb.to(x.dtype)
+        x = x.to(torch.promote_types(x.dtype, self.pos_emb.dtype))
         for block in self.layer:
             x = block(x)
         return self.encoder_norm(x)

@@ -10,7 +10,8 @@ process; a later process with the same sources loads it without building.
 
 Pointers and the stream go through ctypes as ``c_void_p``, sizes and strides
 as ``c_int64``. Every entry returns ``cudaGetLastError()`` of its launch;
-the wrappers in ``quad_blend.py`` and ``upsample.py`` raise when it is not 0.
+the wrappers in ``quad_blend.py``, ``upsample.py`` and ``probe.py`` raise when
+it is not 0.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ _SIGNATURES = {
     ),
     "omnifusion_up2x": (_P, _P, _I, _L, _L, _L, _P),
     "omnifusion_up2x_adjoint": (_P, _P, _I, _L, _L, _L, _P),
+    "omnifusion_probe": (_P, _P, _L, _P),  # x, out, n, stream
 }
 
 

@@ -19,6 +19,7 @@ from omnifusion_torch.ops.quad_blend import (
     quad_spread,
     quad_spread_plain,
 )
+from omnifusion_torch.ops.probe import probe, probe_plain
 from omnifusion_torch.ops.upsample import up2x, up2x_adjoint, up2x_adjoint_plain, up2x_plain
 from omnifusion_torch.projection import ProjectionSpec
 from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
@@ -84,6 +85,41 @@ def test_up2x_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(got, up2x_plain(x), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize(
+    "shape", [(3, 8, 4, 4), (2, 32, 16, 16), (1, 3, 7, 5), (2, 3, 1, 1), (1, 2, 1, 4)]
+)
+def test_up2x_kernel_matches_plain_bf16(cuda, shape):
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(3)).to(cuda, torch.bfloat16)
+    got = up2x(x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    # both compute in f32 and round once to bf16: at most one bf16 ulp apart
+    torch.testing.assert_close(got.float(), up2x_plain(x).float(), rtol=2**-7, atol=1e-6)
+
+
+def test_up2x_kernel_matches_plain_past_32_bit_indices(cuda):
+    # the last decoder upsample of a batch-256 bf16 forward: 2.4e9 outputs,
+    # so csrc/up2x.cu indexes them in 64 bits
+    x = torch.rand(4608, 32, 64, 64, generator=torch.Generator().manual_seed(9))
+    x = x.to(cuda, torch.bfloat16)
+    got = up2x(x)
+    torch.cuda.synchronize()
+    assert got.numel() > 2**31
+    for i in range(0, x.shape[0], 512):  # the plain version a slice at a time
+        want = up2x_plain(x[i : i + 512]).float()
+        torch.testing.assert_close(got[i : i + 512].float(), want, rtol=2**-7, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(256, 128), (7,), (3, 1000, 5)])
+def test_probe_kernel_equals_plain(cuda, shape):
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(8)).to(cuda) * 1e3
+    before = probe.launches
+    got = probe(x)
+    torch.cuda.synchronize()
+    assert probe.launches == before + 1
+    assert torch.equal(got, probe_plain(x))
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         up2x(torch.rand(2, 4, 4, 3, device=cuda).permute(0, 3, 1, 2))
@@ -96,6 +132,10 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         quad_spread(torch.rand(1, 2, tables.n_out - 1, device=cuda), tables.vjp)
     with pytest.raises(TypeError, match="dtype"):
         up2x_adjoint(torch.zeros(1, 1, 2, 2, dtype=torch.float64, device=cuda))
+    with pytest.raises(TypeError, match="dtype"):
+        probe(torch.zeros(4, dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        probe(torch.zeros(4, 4, device=cuda).t())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])

@@ -33,6 +33,10 @@ def test_port_imports_no_jax():
     assert {"omnifusion_torch.cli.train", "omnifusion_torch.training.trainer",
             "omnifusion_torch.data.loader", "omnifusion_torch.evaluation.metrics",
             "omnifusion_torch.losses.direct"} <= set(result["modules"])
+    assert {"omnifusion_torch.bench", "omnifusion_torch.ops.probe",
+            "omnifusion_torch.utils.profiling", "omnifusion_torch.tools.bench_components",
+            "omnifusion_torch.tools.bench_merge",
+            "omnifusion_torch.tools.profile_forward"} <= set(result["modules"])
     assert result["bad"] == []
 
 
