@@ -22,12 +22,15 @@ and the bf16 recipe's dtypes), then drives the paths at the flagship config
   and 256 (its batch-2 and batch-8 runs are the bf16 rows of the forward
   timings), the merge shootout (omnifusion_torch/tools/bench_merge.py,
   which launches the probe first), the component times
-  (omnifusion_torch/tools/bench_components.py) and the profiler
-  (omnifusion_torch/tools/profile_forward.py).
+  (omnifusion_torch/tools/bench_components.py), the profiler
+  (omnifusion_torch/tools/profile_forward.py) and the quad_spread and up2x
+  times (omnifusion_torch/tools/bench_kernels.py).
 
 Then it times each kernel beside its bound, its plain version and one
-library call that computes the same function, and the forward (f32, TF32,
-bf16 recipe) and the train step end to end.
+library call that computes the same function (quad_spread also split into
+its light and heavy launches by the profiler, and swept over the heavy
+threshold), and the forward (f32, TF32, bf16 recipe) and the train step end
+to end.
 
 Prints one JSON object per phase, then the card's name and power limit as
 nvidia-smi gives them, then the last line
@@ -45,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import io
 import json
 import os
@@ -85,10 +89,16 @@ UP2X_BF16_RTOL = 2.0**-7
 BF16_RATIO, BF16_RATIO_CPU, BF16_SHARE = 1.5, 2.0, 1e-4
 WITNESS_ERP, WITNESS_DEPTH = (256, 512), 2
 WITNESS_STAGES = ((64, 1, 1), (128, 1, 2), (256, 1, 2), (512, 1, 2))
-# inputs in [0, 1): f32 sums of up to 2194 products per thread (the merge's
-# longest overflow walk), summed in another order by the plain version, whose
+# quad_spread's time rows: the heavy threshold T and the load above which a
+# heavy pixel takes a whole block, swept
+HEAVY_SWEEP, WIDE_SWEEP = (16, 32, 64), (128, 256, 512)
+# inputs in [0, 1): f32 sums of up to 2194 products per pixel (the merge's
+# longest overflow load), summed in another order by the plain version, whose
 # index_add_ order changes from run to run: rtol 2194 * 2^-24 = 1.3e-4;
-# 16-bit results: one rounding more
+# 16-bit results: one rounding more. The synthetic table with a 5,000-entry
+# segment is held to its float64 plain version at the f32 tolerance: the
+# heavy kernel's block sums each thread's share of 5000 / 256 terms, then a
+# tree
 SPREAD_TOL = {torch.float32: (1e-5, 1.3e-4), torch.float16: (1e-5, 1e-3),
               torch.bfloat16: (1e-5, 8e-3)}  # (atol, rtol)
 # train parity (step_parity), heads tamed (tame_heads): the loss to f32
@@ -235,12 +245,57 @@ def per_run(forwards: int, steps: int = 0) -> dict:
             "up2x_adjoint": 5 * steps, "probe": 0}
 
 
-def up2x_index_bits(x: torch.Tensor) -> int:
-    """The index width csrc/up2x.cu launches with for ``x``: 64 bits once
-    the outputs plus the launch's width reach 2^31."""
-    total = 4 * x.numel()
-    blocks = min(-(-total // 256), 1 << 30)
-    return 32 if total + 256 * blocks < 1 << 31 else 64
+def straddling_tables(threshold: int, row_stride: int = 128, rows: int = 512,
+                      n_out: int = 65536):
+    """Transposed tables (K_T = 1) whose overflow loads straddle
+    ``threshold``: isolated segments of threshold - 1, threshold, threshold
+    + 1 and 5,000 entries (each the whole load of its quad's four pixels),
+    one on the last pixel (its corners wrap onto the first), and short
+    segments over the first half. Returns the tables and {pixel: load} of
+    the isolated segments' pixels."""
+    from omnifusion_torch.projection.spec import TransposedTables
+
+    rng = np.random.default_rng(11)
+    n_in = row_stride * rows
+    seg = np.zeros(n_in, np.int64)
+    small = rng.choice(n_in // 2, size=n_in // 8, replace=False)
+    seg[small] = rng.integers(1, 4, size=small.size)
+    loads = {}
+    for k, n in enumerate((threshold - 1, threshold, threshold + 1, 5000)):
+        j = n_in // 2 + (4 * k + 1) * row_stride + 5
+        seg[j] = n
+        loads.update({j + off: n for off in (0, 1, row_stride, row_stride + 1)})
+    seg[n_in - 1] = 2 * threshold
+    m = int(seg.sum())
+    w_t = rng.random((n_in, 1, 4), dtype=np.float32)
+    w_t[rng.random(n_in) < 0.3] = 0.0
+    t = TransposedTables(
+        idx_t=rng.integers(0, n_out, size=(n_in, 1)).astype(np.int32), w_t=w_t,
+        over_src=rng.integers(0, n_out, size=m).astype(np.int32),
+        over_dst=np.repeat(np.arange(n_in), seg).astype(np.int32),
+        over_w=rng.random((m, 4), dtype=np.float32),
+        over_ptr=np.concatenate([[0], np.cumsum(seg)]).astype(np.int32),
+    )
+    return t, loads
+
+
+def kernel_split_ms(fn, names: tuple, iters: int = 20) -> dict:
+    """Device ms per call of ``fn()`` of each kernel whose name holds one of
+    ``names``, from torch.profiler's CUDA activity (warm)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {n: 0.0 for n in names}
+    for e in prof.key_averages():
+        for n in names:
+            if n in e.key:
+                out[n] += getattr(e, "device_time_total", 0.0) / 1e3 / iters
+    return out
 
 
 def zero_counts() -> None:
@@ -341,13 +396,14 @@ def main() -> int:
     from omnifusion_torch.ops import _build
     from omnifusion_torch.ops.probe import probe, probe_plain
     from omnifusion_torch.ops.quad_blend import (
-        BlendTables, SpreadTables, quad_blend, quad_blend_plain, quad_spread, quad_spread_plain,
+        HEAVY_THRESHOLD, WIDE_LOAD, BlendTables, SpreadTables, heavy_pixels, overflow_load,
+        quad_blend, quad_blend_plain, quad_spread, quad_spread_plain,
     )
     from omnifusion_torch.ops.upsample import up2x, up2x_adjoint, up2x_adjoint_plain, up2x_plain
     from omnifusion_torch.projection import ProjectionSpec
     from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
     from omnifusion_torch.projection.spec import build_vjp_tables
-    from omnifusion_torch.tools import bench_components, bench_merge, profile_forward
+    from omnifusion_torch.tools import bench_components, bench_kernels, bench_merge, profile_forward
     from omnifusion_torch.training import create_train_state, train_step
     from omnifusion_torch.utils.profiling import (
         blend_bound, blend_matrix, bound_ms as bound, gpu_line, nbytes, time_ms,
@@ -396,9 +452,11 @@ def main() -> int:
                     "tail_entries": t_p2e.n_tail, "k_t": t_p2e.vjp.k_t,
                     "overflow": t_p2e.vjp.n_over,
                     "max_overflow_per_pixel": int(seg.max().item()),
-                    # one quad_spread thread walks the segments of its four corners
-                    "max_overflow_per_thread": int(sum(
-                        torch.roll(seg, off) for off in (0, 1, PATCH, PATCH + 1)).max().item())}})
+                    # quad_spread walks the segments of a pixel's four corners
+                    "max_overflow_load": int(overflow_load(
+                        t_p2e.vjp.over_ptr.cpu().numpy(), PATCH).max()),
+                    "heavy_threshold": t_p2e.vjp.threshold,
+                    "heavy_pixels": t_p2e.vjp.heavy.numel()}})
 
     # ---- each kernel against its plain version, at the paths' shapes ----
     n_erp = ERP[0] * ERP[1]
@@ -456,6 +514,27 @@ def main() -> int:
         atol, rtol = SPREAD_TOL[dtype]
         check("quad_spread", f"merge_{str(dtype)[6:]}_grad", src.grad,
               quad_spread_plain(cot_merge[:BATCH], t_p2e.vjp).to(dtype), atol, rtol)
+    # loads straddling the heavy threshold, and one past any block's stride;
+    # and the same bits from two calls (fixed-order sums, no atomics)
+    t_str, loads = straddling_tables(HEAVY_THRESHOLD)
+    straddle = SpreadTables.create(t_str, 128, 65536, dev)
+    cot_str = torch.rand(TRAIN_BATCH, 2, 65536, device=dev, generator=g)
+    got = quad_spread(cot_str, straddle)
+    atol, rtol = SPREAD_TOL[torch.float32]
+    note("quad_spread", check("quad_spread", "straddling_threshold", got,
+                              quad_spread_plain(cot_str.double(), straddle), atol, rtol,
+                              loads=sorted(set(loads.values())), heavy=straddle.heavy.numel(),
+                              threshold=straddle.threshold))
+    for case, cot, tables in (("straddling_threshold", cot_str, straddle),
+                              ("merge_f32", cot_merge, t_p2e.vjp)):
+        first, second = quad_spread(cot, tables), quad_spread(cot, tables)
+        torch.cuda.synchronize()
+        same = torch.equal(first, second) and torch.equal(first, quad_spread(cot, tables))
+        emit({"phase": "check", "kernel": "quad_spread", "case": f"{case}_run_to_run",
+              "calls": 3, "bitwise_equal": same})
+        if not same:
+            raise AssertionError(f"quad_spread {case}: calls differ")
+    del first, second, got
 
     p = spec.n_patches
     up_shapes = [(c, s) for c, s in ((512, 4), (128, 8), (64, 16), (64, 32), (32, 64))]
@@ -474,10 +553,18 @@ def main() -> int:
         x = torch.rand(BATCH * p, c, s, s, device=dev, generator=g).bfloat16()
         check("up2x", "x".join(map(str, x.shape)) + "_bf16", up2x(x), up2x_plain(x), 1e-6,
               UP2X_BF16_RTOL)
+    # odd sides and sides that are not powers of two (the stores are then
+    # element by element), f32 and bf16
+    for shape in ((5, 3, 7, 33), (2, 4, 1, 9)):
+        x = torch.rand(shape, device=dev, generator=g)
+        note("up2x", check("up2x", "x".join(map(str, shape)), up2x(x), up2x_plain(x), UP2X_TOL,
+                           bitwise_equal=torch.equal(up2x(x), up2x_plain(x))))
+        check("up2x", "x".join(map(str, shape)) + "_bf16", up2x(x.bfloat16()),
+              up2x_plain(x.bfloat16()), 1e-6, UP2X_BF16_RTOL)
     # the recipe at bench.py's largest batch: the blend reads 768 (e2p) and
-    # 512 (merge) rows, and the last two upsamples make so many outputs that
-    # csrc/up2x.cu indexes them in 64 bits; the plain versions run a slice
-    # of the rows at a time
+    # 512 (merge) rows, and the last upsample makes more than 2^31 outputs
+    # (csrc/up2x.cu offsets each plane in 64 bits); the plain versions run a
+    # slice of the rows at a time
     big = max(BENCH_BATCHES)
     for case, shape, tables, cl, dtype in (
         ("e2p_bf16", (big, n_erp, 3), t_e2p, True, torch.bfloat16),
@@ -488,15 +575,15 @@ def main() -> int:
             "quad_blend", f"{case}_b{big}", quad_blend(x, tables, channel_last=cl),
             lambda rows: quad_blend_plain(x[rows], tables, channel_last=cl), BLEND_TOL,
             chunk=16, tail_entries=tables.n_tail))
-    bits = []
+    outputs = []
     for c, s in up_shapes[3:]:
         x = torch.rand(big * p, c, s, s, device=dev, generator=g).bfloat16()
-        bits.append(up2x_index_bits(x))
+        outputs.append(4 * x.numel())
         check("up2x", "x".join(map(str, x.shape)) + "_bf16", up2x(x),
               lambda rows: up2x_plain(x[rows]), 1e-6, UP2X_BF16_RTOL, chunk=512,
-              outputs=4 * x.numel(), index_bits=bits[-1])
-    if 64 not in bits:
-        raise AssertionError(f"no up2x check took the 64-bit index path: {bits}")
+              outputs=outputs[-1])
+    if max(outputs) < 2**31:
+        raise AssertionError(f"no up2x check reached 2^31 outputs: {outputs}")
     del x
     torch.cuda.empty_cache()
 
@@ -733,9 +820,25 @@ def main() -> int:
         lib_out = torch.sparse.mm(wt_csr, dense)
         want_out = (out.permute(1, 0, 2) if cl else out.permute(2, 0, 1)).reshape(t.n_in, -1)
         no_over = SpreadTables(t.idx_t, t.w_t, t.row_stride, t.n_out)
+        split = kernel_split_ms(lambda: quad_spread(cot, t, channel_last=cl),
+                                ("quad_spread_kernel", "quad_spread_heavy_kernel"))
+        sweep = []  # the tables' own T and wide load are the module's constants
+        over_ptr = t.over_ptr.cpu().numpy()
+        for threshold in HEAVY_SWEEP if on_path else ():
+            for wide_load in WIDE_SWEEP:
+                heavy, n_wide = heavy_pixels(over_ptr, t.row_stride, threshold, wide_load)
+                t_sw = dataclasses.replace(t, threshold=threshold, n_wide=n_wide,
+                                           heavy=torch.from_numpy(heavy).to(dev))
+                sweep.append({"T": threshold, "wide_load": wide_load, "heavy": len(heavy),
+                              "wide": n_wide,
+                              "ms": timer(lambda: quad_spread(cot, t_sw, channel_last=cl))})
         rows["quad_spread"].append({
             "case": name, "shape": list(cot.shape), "on_path": on_path, "overflow": t.n_over,
+            "T": t.threshold, "wide_load": WIDE_LOAD, "heavy": t.heavy.numel(),
+            "wide": t.n_wide,
             "ms": timer(lambda: quad_spread(cot, t, channel_last=cl)),
+            "ms_light": split["quad_spread_kernel"], "ms_heavy": split["quad_spread_heavy_kernel"],
+            "split_from": "torch.profiler, 20 calls", "sweep": sweep,
             "ms_without_overflow": timer(lambda: quad_spread(cot, no_over, channel_last=cl)),
             "plain_ms": timer(lambda: quad_spread_plain(cot, t, channel_last=cl), iters=5),
             "library_ms": timer(lambda: torch.sparse.mm(wt_csr, dense)),
@@ -853,6 +956,14 @@ def main() -> int:
     for line in run_tool(bench_components.main, flagship + [
             "--batch", str(PROFILE_BATCH), "--bf16", "--merge_dtype", "f16"]):
         emit({"phase": "bench_components", "gpu": gpu, **json.loads(line)})
+
+    zero_counts()
+    res = json.loads(run_tool(bench_kernels.main, ["--iters", "10"])[0])
+    launches = counts()
+    emit({"phase": "bench_kernels", **res, "launches": launches})
+    if not (launches["quad_spread"] > 0 and launches["up2x"] > 0
+            and launches["quad_blend"] == launches["up2x_adjoint"] == launches["probe"] == 0):
+        raise AssertionError(f"bench_kernels launches {launches}")
 
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as tmp:
         for argv in (["--bf16", "--merge_dtype", "f16"], ["--train"]):

@@ -23,7 +23,7 @@
 //   of the source (the TPU kernel's _pack_dmajor and per-K column gathers)
 //   and no padding of D;
 // - the COO tail is walked as the pixel's own CSR segment, so the sum needs
-//   no atomics and is deterministic;
+//   one writer per output and is deterministic;
 // - corner addresses wrap modulo N_in, exactly as the JAX roll does: the
 //   corners idx+1, idx+W, idx+W+1 of the last row of the source point past
 //   its end with weight 0;

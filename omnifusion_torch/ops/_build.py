@@ -48,6 +48,7 @@ _SIGNATURES = {
     ),
     "omnifusion_quad_spread": (
         _P, _I, _P, _P, _P, _I, _P, _P, _P,  # cot, dtype, out, idx_t, w_t, k_t, over ptr/src/w
+        _I, _P, _L, _L,  # threshold, heavy, n_heavy, n_wide
         _L, _L, _L, _L, _L,  # n_rows, channels, n_cot, n_in, row_stride
         _L, _L, _L, _L, _L, _L,  # cot strides (b, c, pixel), out strides
         _P,  # stream

@@ -38,7 +38,10 @@ What lives here:
 - ``quad_blend_plain`` and ``quad_spread_plain``: the same functions in
   plain PyTorch. Autograd never differentiates them: both run inside the
   Function, with autograd off.
-- ``BlendTables`` and ``SpreadTables``: the tables as tensors on one device.
+- ``BlendTables`` and ``SpreadTables``: the tables as tensors on one device;
+  ``SpreadTables`` also carries the ``heavy`` list of the pixels whose
+  overflow load is above ``HEAVY_THRESHOLD`` (``heavy_pixels``), which the
+  kernel's second launch walks.
 
 Bound on the card, both directions: bytes (source + output + tables over
 3.35 TB/s). See the CUDA sources for the designs.
@@ -56,10 +59,39 @@ from torch.autograd.function import once_differentiable
 from omnifusion_torch.ops import _build
 
 _MAX_ROWS = 8 * 65535  # grid.y = ceil(rows / 8) must fit the launch limit
+# quad_spread: a source pixel whose overflow load L(i) (the summed length of
+# the four CSR segments its thread would walk) is above HEAVY_THRESHOLD goes
+# to the kernel's heavy launch: a warp per pixel and row group, or a block of
+# 256 threads where the load is above WIDE_LOAD; the rest walk their
+# segments alone (csrc/quad_spread.cu)
+HEAVY_THRESHOLD = 32
+WIDE_LOAD = 256
 
 
 def _tensor(a, dtype, device):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+
+def overflow_load(over_ptr: np.ndarray, row_stride: int) -> np.ndarray:
+    """L(i) = sum_q seg((i - off_q) mod N_in) for every source pixel i, from
+    the CSR row pointers of a transposed table's overflow: the entries one
+    quad_spread thread would walk for pixel i."""
+    seg = np.diff(np.asarray(over_ptr, np.int64))
+    return sum(np.roll(seg, off) for off in (0, 1, row_stride, row_stride + 1))
+
+
+def heavy_pixels(
+    over_ptr: np.ndarray, row_stride: int, threshold: int = HEAVY_THRESHOLD,
+    wide_load: int = WIDE_LOAD,
+) -> tuple[np.ndarray, int]:
+    """The pixels of quad_spread's heavy launch: (heavy, n_wide), the int32
+    source pixels whose load is above ``threshold``, sorted heaviest first
+    (ties by pixel), and how many of them, at the front, have a load above
+    ``wide_load`` and take a whole block."""
+    load = overflow_load(over_ptr, row_stride)
+    heavy = np.flatnonzero(load > threshold)
+    heavy = heavy[np.argsort(-load[heavy], kind="stable")]
+    return heavy.astype(np.int32), int((load[heavy] > wide_load).sum())
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -70,7 +102,11 @@ class SpreadTables:
     idx_t (N_in, K_T) int32 output pixels and w_t (N_in, K_T, 4) f32 corner
     weights, keyed by the forward's source pixel; the overflow sorted by
     destination with its CSR row pointers ``over_ptr`` (N_in + 1); the
-    forward's output pixel count ``n_out`` and the source row stride."""
+    forward's output pixel count ``n_out`` and the source row stride;
+    ``heavy`` and ``n_wide``, the int32 pixels whose overflow load is above
+    ``threshold``, heaviest first, and how many of them take a whole block
+    (``heavy_pixels``; empty without an overflow, and needed by the kernel
+    whenever there is one)."""
 
     idx_t: torch.Tensor
     w_t: torch.Tensor
@@ -80,11 +116,15 @@ class SpreadTables:
     over_dst: Optional[torch.Tensor] = None
     over_src: Optional[torch.Tensor] = None
     over_w: Optional[torch.Tensor] = None
+    heavy: Optional[torch.Tensor] = None
+    n_wide: int = 0
+    threshold: int = HEAVY_THRESHOLD
 
     @classmethod
     def create(cls, t, row_stride: int, n_out: int, device) -> "SpreadTables":
         """From a projection/spec.py TransposedTables."""
         has_over = len(t.over_src) > 0
+        heavy, n_wide = heavy_pixels(t.over_ptr, row_stride) if has_over else (np.zeros(0), 0)
         return cls(
             idx_t=_tensor(t.idx_t, np.int32, device),
             w_t=_tensor(t.w_t, np.float32, device),
@@ -94,6 +134,8 @@ class SpreadTables:
             over_dst=_tensor(t.over_dst, np.int32, device) if has_over else None,
             over_src=_tensor(t.over_src, np.int32, device) if has_over else None,
             over_w=_tensor(t.over_w, np.float32, device) if has_over else None,
+            heavy=_tensor(heavy, np.int32, device),
+            n_wide=n_wide,
         )
 
     @property
@@ -293,7 +335,9 @@ def _blend_kernel(src: torch.Tensor, tables: BlendTables, channel_last: bool) ->
 
 
 def _spread_kernel(cot: torch.Tensor, tables: SpreadTables, channel_last: bool) -> torch.Tensor:
-    """Launch csrc/quad_spread.cu."""
+    """Launch csrc/quad_spread.cu: the light kernel, then, when the tables
+    have heavy pixels, the heavy kernel on the same stream (two CUDA
+    launches, one count)."""
     _check_cuda(cot, "quad_spread")
     if tables.idx_t.device != cot.device:
         raise ValueError(f"tables on {tables.idx_t.device}, cotangent on {cot.device}")
@@ -306,6 +350,10 @@ def _spread_kernel(cot: torch.Tensor, tables: SpreadTables, channel_last: bool) 
     out = torch.empty(shape, dtype=torch.float32, device=cot.device)
     _, _, _, o_b, o_c, o_p = _strides(out, channel_last)
     over = tables.n_over > 0
+    if over and tables.heavy is None:
+        raise ValueError("quad_spread: tables with an overflow need their heavy list "
+                         "(SpreadTables.create)")
+    n_heavy = tables.heavy.shape[0] if over else 0
     err = _build.library().omnifusion_quad_spread(
         cot.data_ptr(),
         _build.DTYPE_CODES[cot.dtype],
@@ -316,6 +364,10 @@ def _spread_kernel(cot: torch.Tensor, tables: SpreadTables, channel_last: bool) 
         tables.over_ptr.data_ptr() if over else None,
         tables.over_src.data_ptr() if over else None,
         tables.over_w.data_ptr() if over else None,
+        tables.threshold,
+        tables.heavy.data_ptr() if n_heavy else None,
+        n_heavy,
+        tables.n_wide,
         b * c,
         c,
         n_out,
@@ -340,7 +392,9 @@ def quad_spread(
     """Apply the transposed map to ``cot``: the source gradient of the blend.
 
     cot (B, C, N_out) contiguous, or (B, N_out, C) when ``channel_last``, in
-    f32, f16 or bf16; returns f32 (B, C, N_in), or (B, N_in, C)."""
+    f32, f16 or bf16; returns f32 (B, C, N_in), or (B, N_in, C). On a CUDA
+    tensor one call is two kernel launches when the tables have heavy pixels
+    (the light pass, then the heavy one) and adds one to ``launches``."""
     if _build.on_cuda(cot, "quad_spread"):
         return _spread_kernel(cot, tables, channel_last)
     return quad_spread_plain(cot, tables, channel_last)

@@ -95,6 +95,9 @@ def _up2x_kernel(x: torch.Tensor) -> torch.Tensor:
     """Launch the forward of csrc/up2x.cu."""
     _check_cuda(x, "up2x")
     n, c, h, w = x.shape
+    # the kernel's in-plane offsets and thread index are 32-bit
+    if 4 * h * w >= 2**31 or n * c * h * -(-w // 2) >= 2**31:
+        raise ValueError(f"up2x: {tuple(x.shape)} is past the kernel's 32-bit plane or thread index")
     y = torch.empty(n, c, 2 * h, 2 * w, dtype=x.dtype, device=x.device)
     err = _build.library().omnifusion_up2x(
         x.data_ptr(),

@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from omnifusion_torch.ops.quad_blend import (
+    HEAVY_THRESHOLD,
     BlendTables,
+    SpreadTables,
     quad_blend,
     quad_blend_plain,
     quad_spread,
@@ -23,11 +25,49 @@ from omnifusion_torch.ops.probe import probe, probe_plain
 from omnifusion_torch.ops.upsample import up2x, up2x_adjoint, up2x_adjoint_plain, up2x_plain
 from omnifusion_torch.projection import ProjectionSpec
 from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
-from omnifusion_torch.projection.spec import build_vjp_tables
+from omnifusion_torch.projection.spec import TransposedTables, build_vjp_tables
 
 pytestmark = pytest.mark.cuda
 
 SPEC = ProjectionSpec.create((64, 128), (16, 16), (80, 80), 4)
+
+
+def straddling_tables(threshold: int, row_stride: int = 64, rows: int = 128, n_out: int = 4096):
+    """Transposed tables (K_T = 1) whose overflow loads straddle
+    ``threshold``: isolated segments of threshold - 1, threshold, threshold
+    + 1 and 5,000 entries (each the whole load of its quad's four pixels),
+    two neighbouring segments that only their common pixels' sum puts above
+    it, one on the last pixel (its corners wrap onto the first pixels), and
+    short segments scattered over the first half. Returns the tables and
+    {pixel: load} for the placed segments' pixels."""
+    rng = np.random.default_rng(7)
+    n_in = row_stride * rows
+    seg = np.zeros(n_in, np.int64)
+    small = rng.choice(n_in // 2, size=n_in // 8, replace=False)
+    seg[small] = rng.integers(1, 4, size=small.size)
+    loads = {}
+    for k, n in enumerate((threshold - 1, threshold, threshold + 1, 5000)):
+        j = n_in // 2 + (4 * k + 1) * row_stride + 5
+        seg[j] = n
+        loads.update({j + off: n for off in (0, 1, row_stride, row_stride + 1)})
+    j = n_in // 2 + 20 * row_stride + 9
+    seg[j], seg[j + 1] = threshold // 2, threshold // 2 + 1
+    loads.update({j: seg[j], j + 1: seg[j] + seg[j + 1], j + 2: seg[j + 1]})
+    seg[n_in - 1] = 2 * threshold
+    m = int(seg.sum())
+    over_w = rng.random((m, 4), dtype=np.float32)
+    over_w[rng.random((m, 4)) < 0.25] = 0.0
+    w_t = rng.random((n_in, 1, 4), dtype=np.float32)
+    w_t[rng.random(n_in) < 0.3] = 0.0
+    t = TransposedTables(
+        idx_t=rng.integers(0, n_out, size=(n_in, 1)).astype(np.int32),
+        w_t=w_t,
+        over_src=rng.integers(0, n_out, size=m).astype(np.int32),
+        over_dst=np.repeat(np.arange(n_in), seg).astype(np.int32),
+        over_w=over_w,
+        over_ptr=np.concatenate([[0], np.cumsum(seg)]).astype(np.int32),
+    )
+    return t, loads
 
 
 @pytest.fixture
@@ -73,9 +113,11 @@ def test_kernel_wraps_corners_modulo_n_in(cuda):
     torch.testing.assert_close(got, quad_blend_plain(x, tables), rtol=0, atol=2e-6)
 
 
-@pytest.mark.parametrize(
-    "shape", [(3, 8, 4, 4), (2, 32, 16, 16), (1, 3, 7, 5), (2, 3, 1, 1), (1, 2, 1, 4)]
-)
+UP2X_SHAPES = [(3, 8, 4, 4), (2, 32, 16, 16), (1, 3, 7, 5), (2, 3, 1, 1), (1, 2, 1, 4),
+               (5, 3, 7, 33), (2, 4, 1, 9)]  # odd sides, not powers of two
+
+
+@pytest.mark.parametrize("shape", UP2X_SHAPES)
 def test_up2x_kernel_matches_plain(cuda, shape):
     x = torch.rand(shape, generator=torch.Generator().manual_seed(3)).to(cuda)
     before = up2x.launches
@@ -85,9 +127,7 @@ def test_up2x_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(got, up2x_plain(x), rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize(
-    "shape", [(3, 8, 4, 4), (2, 32, 16, 16), (1, 3, 7, 5), (2, 3, 1, 1), (1, 2, 1, 4)]
-)
+@pytest.mark.parametrize("shape", UP2X_SHAPES)
 def test_up2x_kernel_matches_plain_bf16(cuda, shape):
     x = torch.rand(shape, generator=torch.Generator().manual_seed(3)).to(cuda, torch.bfloat16)
     got = up2x(x)
@@ -99,7 +139,7 @@ def test_up2x_kernel_matches_plain_bf16(cuda, shape):
 
 def test_up2x_kernel_matches_plain_past_32_bit_indices(cuda):
     # the last decoder upsample of a batch-256 bf16 forward: 2.4e9 outputs,
-    # so csrc/up2x.cu indexes them in 64 bits
+    # past a 32-bit output index (csrc/up2x.cu offsets each plane in 64 bits)
     x = torch.rand(4608, 32, 64, 64, generator=torch.Generator().manual_seed(9))
     x = x.to(cuda, torch.bfloat16)
     got = up2x(x)
@@ -140,9 +180,10 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
 def test_spread_kernel_matches_plain(cuda, dtype):
-    # the merge's backward: channel-first, K_T = 4 plus the overflow
+    # the merge's backward: channel-first, K_T = 4 plus the overflow, with
+    # heavy pixels
     tables = pers2equi_tables(SPEC, cuda).vjp
-    assert tables.n_over > 0
+    assert tables.n_over > 0 and tables.heavy.numel() > 0
     cot = torch.rand(5, 2, tables.n_out, generator=torch.Generator().manual_seed(4)).to(cuda, dtype)
     before = quad_spread.launches
     got = quad_spread(cot, tables)
@@ -171,6 +212,25 @@ def test_spread_kernel_e2p_and_wrapped_corners(cuda):
     torch.cuda.synchronize()
     assert got[..., : w + 1].abs().sum() > 0
     torch.testing.assert_close(got, quad_spread_plain(cot, wrap), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spread_kernel_straddling_the_threshold(cuda, dtype):
+    # loads T - 1, T, T + 1 and 5,000 (longer than any block's stride): the
+    # light and the heavy kernel split the overflow between them
+    t, loads = straddling_tables(HEAVY_THRESHOLD)
+    tables = SpreadTables.create(t, 64, 4096, cuda)
+    assert tables.heavy.numel() > 0 and max(loads.values()) == 5000
+    cot = torch.rand(3, 5, 4096, generator=torch.Generator().manual_seed(10)).to(cuda, dtype)
+    before = quad_spread.launches
+    got = quad_spread(cot, tables)
+    again = quad_spread(cot, tables)
+    torch.cuda.synchronize()
+    assert quad_spread.launches == before + 2  # one count per call, two launches each
+    assert torch.equal(got, again)  # fixed-order sums, no atomics: the same bits
+    # against the float64 plain version: f32 sums of up to 5,000 products
+    want = quad_spread_plain(cot.double(), tables)
+    torch.testing.assert_close(got.double(), want, rtol=1.3e-4, atol=1e-5)
 
 
 def test_blend_backward_runs_the_spread_kernel(cuda):

@@ -25,7 +25,10 @@ from omnifusion_tpu.projection import ops as jax_ops
 from omnifusion_tpu.projection.spec import build_equi2pers_grids as jax_e2p
 from omnifusion_tpu.projection.spec import build_pers2equi_grids as jax_p2e
 from omnifusion_torch.ops.quad_blend import (
+    HEAVY_THRESHOLD,
+    WIDE_LOAD,
     BlendTables,
+    SpreadTables,
     quad_blend,
     quad_blend_plain,
     quad_spread,
@@ -33,6 +36,7 @@ from omnifusion_torch.ops.quad_blend import (
 )
 from omnifusion_torch.projection import ProjectionSpec, equi2pers, pers2equi_cf
 from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
+from test_torch_port_cuda import straddling_tables  # no JAX there: the card runs that file
 from omnifusion_torch.projection.spec import (
     build_equi2pers_grids,
     build_pers2equi_grids,
@@ -180,3 +184,83 @@ def test_spread_wrapper_refuses_other_devices(specs):
     tables = _cases(specs)["merge"][0]
     with pytest.raises(ValueError, match="cuda or cpu"):
         quad_spread(torch.empty(1, 2, tables.n_out, device="meta"), tables.vjp)
+
+
+def _walk_visits(t, heavy: np.ndarray, row_stride: int, threshold: int):
+    """How often csrc/quad_spread.cu's two kernels read each (overflow entry,
+    corner): corner q of entry m (keyed at j) is read by the thread of pixel
+    i = (j + off_q) mod N_in, in the light kernel when i's four segments
+    (from over_ptr, as the kernel reads them) hold at most ``threshold``
+    entries, and in the heavy kernel when i is on the heavy list."""
+    n_in = len(t.over_ptr) - 1
+    ptr = t.over_ptr.astype(np.int64)
+    load = sum(ptr[(np.arange(n_in) - off) % n_in + 1] - ptr[(np.arange(n_in) - off) % n_in]
+               for off in (0, 1, row_stride, row_stride + 1))
+    on_heavy = np.zeros(n_in, bool)
+    on_heavy[heavy] = True
+    dst = t.over_dst.astype(np.int64)
+    visits = np.zeros((len(dst), 4), np.int64)
+    for q, off in enumerate((0, 1, row_stride, row_stride + 1)):
+        i = (dst + off) % n_in
+        visits[:, q] = (load[i] <= threshold).astype(np.int64) + on_heavy[i]
+    return visits
+
+
+@pytest.mark.parametrize("case", ["merge_small", "straddling"])
+def test_heavy_list_is_the_pixels_above_the_threshold(specs, case):
+    if case == "merge_small":
+        spec = specs[1]
+        t, w = build_pers2equi_grids(spec).vjp, spec.patch_w
+        loads = {}
+    else:
+        w = 64
+        t, loads = straddling_tables(HEAVY_THRESHOLD, w)
+    tables = SpreadTables.create(t, w, 4096, CPU)
+    # each pixel's load counted from the overflow's destinations, not over_ptr
+    n_in = t.idx_t.shape[0]
+    per_dst = np.bincount(t.over_dst, minlength=n_in)
+    load = sum(np.roll(per_dst, off) for off in (0, 1, w, w + 1))
+    for i, n in loads.items():
+        assert load[i] == n, (i, load[i], n)
+    heavy = tables.heavy.numpy()
+    assert heavy.dtype == np.int32 and tables.threshold == HEAVY_THRESHOLD
+    # the pixels above the threshold, heaviest first; the first n_wide above
+    # WIDE_LOAD
+    np.testing.assert_array_equal(np.sort(heavy), np.flatnonzero(load > HEAVY_THRESHOLD))
+    assert (np.diff(load[heavy]) <= 0).all()
+    assert tables.n_wide == (load > WIDE_LOAD).sum()
+    assert (load[heavy[: tables.n_wide]] > WIDE_LOAD).all()
+    assert 0 < len(heavy) < n_in
+    if case == "straddling":
+        assert {i for i, n in loads.items() if n > HEAVY_THRESHOLD} <= set(heavy.tolist())
+        assert not {i for i, n in loads.items() if n <= HEAVY_THRESHOLD} & set(heavy.tolist())
+        assert {0, w - 1, w} <= set(heavy.tolist())  # the wrapped corners of the last pixel
+    # the light and the heavy walk read every (entry, corner) once between them
+    visits = _walk_visits(t, heavy, w, HEAVY_THRESHOLD)
+    assert visits.shape == (len(t.over_src), 4) and (visits == 1).all()
+
+
+def test_spread_tables_without_overflow_have_an_empty_heavy_list(specs):
+    rng = np.random.default_rng(8)
+    idx = rng.permutation(90)[:12, None].astype(np.int32)  # one quad per source pixel
+    w4 = rng.random((12, 1, 4)).astype(np.float32)
+    t = build_vjp_tables(idx, w4, 96)
+    assert len(t.over_src) == 0
+    tables = SpreadTables.create(t, 8, 12, CPU)
+    assert tables.heavy.numel() == 0 and tables.over_ptr is None
+    # the direct constructor (no overflow) still builds
+    assert SpreadTables(tables.idx_t, tables.w_t, 8, 12).heavy is None
+
+
+def test_spread_straddling_tables_match_xla():
+    t, _ = straddling_tables(HEAVY_THRESHOLD)
+    tables = SpreadTables.create(t, 64, 4096, CPU)
+    cot = np.random.default_rng(9).random((2, 3, 4096), dtype=np.float32)
+    want = transposed_quad_gather_blend(
+        jnp.asarray(cot), *(jnp.asarray(getattr(t, f)) for f in
+                            ("idx_t", "w_t", "over_src", "over_dst", "over_w")),
+        tables.n_in, 64, channel_first=True,
+    )
+    got = quad_spread_plain(torch.from_numpy(cot), tables)
+    # sums of up to 5,000 products of values in [0, 1): f32 rounding
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)

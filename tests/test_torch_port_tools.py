@@ -1,6 +1,6 @@
 """The port's measurement entry points run end to end on the CPU, at
 64x128 ERP, patch 32, batch 1 (full-depth model, seeded weights), and print
-what their users read: omnifusion_torch/bench.py and the three tools under
+what their users read: omnifusion_torch/bench.py and the four tools under
 omnifusion_torch/tools/. On the card they time with CUDA events
 (chip_smoke.py runs them at the flagship); here the times are the CPU's and
 say so."""
@@ -10,7 +10,7 @@ import json
 import pytest
 
 from omnifusion_torch import bench
-from omnifusion_torch.tools import bench_components, bench_merge, profile_forward
+from omnifusion_torch.tools import bench_components, bench_kernels, bench_merge, profile_forward
 
 SMALL = ["--device", "cpu", "--erp_size", "64,128", "--patchsize", "32", "--batch", "1"]
 
@@ -71,6 +71,21 @@ def test_profile_forward(capsys, train):
         assert stages == {"e2p", "points", "encoder", "transformer", "decoder", "heads", "merge"}
     assert abs(sum(s["share"] for s in result["host_stages"]) - 1.0) < 1e-6
     assert len(result["top_ops"]) == 5 and all(r["ms_per_rep"] > 0 for r in result["top_ops"])
+
+
+def test_bench_kernels(capsys):
+    bench_kernels.main(SMALL[:-2] + ["--batch", "1", "--train_batch", "1", "--iters", "1"])
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 1
+    line = json.loads(out[0])
+    assert line["gpu"] is None and line["timed_on"] == "cpu host clock"
+    assert line["quad_spread"]["shape"] == [1, 2, 64 * 128] and line["quad_spread"]["ms"] > 0
+    for recipe, dtypes in (("f32", ["float32"] * 5), ("bf16", ["float32"] + ["bfloat16"] * 4)):
+        rows = line["up2x"][recipe]["shapes"]
+        assert [r["dtype"] for r in rows] == dtypes
+        # patch 32: sides 1, 2, 4, 8, 16 (the flagship's 4 ... 64)
+        assert [r["shape"][2] for r in rows] == [1, 2, 4, 8, 16]
+        assert line["up2x"][recipe]["ms"] == pytest.approx(sum(r["ms"] for r in rows))
 
 
 def test_throughput_counts_items_per_second(monkeypatch):

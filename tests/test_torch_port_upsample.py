@@ -25,6 +25,8 @@ SHAPES = [  # NCHW
     (2, 4, 2, 6),
     (2, 3, 1, 1),  # patch-32 configs reach 1x1 -> 2x2
     (1, 2, 1, 4),
+    (5, 3, 7, 33),  # odd sides, and not a power of two
+    (2, 4, 1, 9),
 ]
 
 
