@@ -23,14 +23,15 @@ and the bf16 recipe's dtypes), then drives the paths at the flagship config
   timings), the merge shootout (omnifusion_torch/tools/bench_merge.py,
   which launches the probe first), the component times
   (omnifusion_torch/tools/bench_components.py), the profiler
-  (omnifusion_torch/tools/profile_forward.py) and the quad_spread and up2x
-  times (omnifusion_torch/tools/bench_kernels.py).
+  (omnifusion_torch/tools/profile_forward.py) and the quad_blend,
+  quad_spread and up2x times (omnifusion_torch/tools/bench_kernels.py).
 
 Then it times each kernel beside its bound, its plain version and one
-library call that computes the same function (quad_spread also split into
-its light and heavy launches by the profiler, and swept over the heavy
-threshold), and the forward (f32, TF32, bf16 recipe) and the train step end
-to end.
+library call that computes the same function (quad_blend also at bench.py's
+batches 8, 64 and 256, and swept over its tile shape, its staged rows and
+staging itself; quad_spread also split into its light and heavy launches by
+the profiler, and swept over the heavy threshold), and the forward (f32,
+TF32, bf16 recipe) and the train step end to end.
 
 Prints one JSON object per phase, then the card's name and power limit as
 nvidia-smi gives them, then the last line
@@ -92,6 +93,11 @@ WITNESS_STAGES = ((64, 1, 1), (128, 1, 2), (256, 1, 2), (512, 1, 2))
 # quad_spread's time rows: the heavy threshold T and the load above which a
 # heavy pixel takes a whole block, swept
 HEAVY_SWEEP, WIDE_SWEEP = (16, 32, 64), (128, 256, 512)
+# quad_blend's sweep: output tiles (rows, columns); staged, with R source
+# rows staged per step; or gathered from global memory, with the source rows
+# a block takes (None: all)
+TILE_SWEEP, CHUNK_SWEEP, UNIT_SWEEP = ((8, 32), (4, 64), (4, 32), (16, 32)), (8, 16, 32), (24, None)
+BLEND_ROWS = (1, 3, 130)  # row counts no staged chunk divides
 # inputs in [0, 1): f32 sums of up to 2194 products per pixel (the merge's
 # longest overflow load), summed in another order by the plain version, whose
 # index_add_ order changes from run to run: rtol 2194 * 2^-24 = 1.3e-4;
@@ -395,9 +401,10 @@ def main() -> int:
     from omnifusion_torch.models import SphericalFusion, init_weights
     from omnifusion_torch.ops import _build
     from omnifusion_torch.ops.probe import probe, probe_plain
+    from omnifusion_torch.ops import quad_blend as qb
     from omnifusion_torch.ops.quad_blend import (
-        HEAVY_THRESHOLD, WIDE_LOAD, BlendTables, SpreadTables, heavy_pixels, overflow_load,
-        quad_blend, quad_blend_plain, quad_spread, quad_spread_plain,
+        CHUNK_ROWS, HEAVY_THRESHOLD, WIDE_LOAD, BlendTables, SpreadTables, heavy_pixels,
+        overflow_load, quad_blend, quad_blend_plain, quad_spread, quad_spread_plain,
     )
     from omnifusion_torch.ops.upsample import up2x, up2x_adjoint, up2x_adjoint_plain, up2x_plain
     from omnifusion_torch.projection import ProjectionSpec
@@ -444,12 +451,27 @@ def main() -> int:
     spec = ProjectionSpec.create(ERP, PATCH, (FOV, FOV), NROWS)
     t0 = time.perf_counter()
     t_e2p, t_p2e = equi2pers_tables(spec, dev), pers2equi_tables(spec, dev)
+    tables_s = time.perf_counter() - t0
+    tile_s = {}  # the host seconds of quad_blend's tile tables, built again
+    for name, t in (("e2p", t_e2p), ("merge", t_p2e)):
+        t0 = time.perf_counter()
+        t.with_tiles(t.tiles.shape)
+        tile_s[name] = time.perf_counter() - t0
     seg = t_p2e.vjp.over_ptr.diff()
-    emit({"phase": "tables", "seconds": time.perf_counter() - t0,
+    tail_len = t_p2e.tail_ptr.diff()
+    emit({"phase": "tables", "seconds": tables_s, "tile_tables_seconds": tile_s,
           "e2p": {"n_out": t_e2p.n_out, "k": t_e2p.k, "n_in": t_e2p.n_in,
-                  "k_t": t_e2p.vjp.k_t, "overflow": t_e2p.vjp.n_over},
+                  "k_t": t_e2p.vjp.k_t, "overflow": t_e2p.vjp.n_over,
+                  "tile": list(t_e2p.tiles.shape), "tiles": t_e2p.tiles.n_tiles,
+                  "max_footprint_pixels": t_e2p.tiles.pitch,
+                  "footprint_per_output": t_e2p.tiles.footprint, "entries": t_e2p.tiles.entries},
           "merge": {"n_out": t_p2e.n_out, "k": t_p2e.k, "n_in": t_p2e.n_in,
-                    "tail_entries": t_p2e.n_tail, "k_t": t_p2e.vjp.k_t,
+                    "tail_entries": t_p2e.n_tail,
+                    "tail_length_histogram": torch.bincount(tail_len).tolist(),
+                    "tile": list(t_p2e.tiles.shape), "tiles": t_p2e.tiles.n_tiles,
+                    "max_footprint_pixels": t_p2e.tiles.pitch,
+                    "footprint_per_output": t_p2e.tiles.footprint, "entries": t_p2e.tiles.entries,
+                    "k_t": t_p2e.vjp.k_t,
                     "overflow": t_p2e.vjp.n_over,
                     "max_overflow_per_pixel": int(seg.max().item()),
                     # quad_spread walks the segments of a pixel's four corners
@@ -491,6 +513,42 @@ def main() -> int:
     x_wrap = torch.rand(BATCH, 3, n_erp, device=dev, generator=g)
     note("quad_blend", check("quad_blend", "wrapped_corners", quad_blend(x_wrap, wrap),
                              quad_blend_plain(x_wrap, wrap), BLEND_TOL, tail_entries=wrap.n_tail))
+    # row counts that no chunk of staged rows divides, each dtype and layout
+    # (channel-last: batches of 3 rows), staged and not at the most rows; the e2p's
+    # store in the source dtype, bit for bit the cast of its f32 result; and
+    # the same bits from three calls
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        for rows in BLEND_ROWS:
+            for case, shape, tables, cl in (("e2p", (rows, n_erp, 3), t_e2p, True),
+                                            ("merge", (1, rows, t_p2e.n_in), t_p2e, False)):
+                x = torch.rand(shape, device=dev, generator=g).to(dtype)
+                want = quad_blend_plain(x, tables, channel_last=cl)
+                note("quad_blend", check("quad_blend", f"{case}_{str(dtype)[6:]}_{rows}",
+                                         quad_blend(x, tables, channel_last=cl), want, BLEND_TOL))
+                if rows == BLEND_ROWS[-1]:  # the path the plan did not take
+                    for staged in (True, False):
+                        note("quad_blend", check(
+                            "quad_blend", f"{case}_{str(dtype)[6:]}_{rows}_staged_{staged}",
+                            qb._blend_kernel(x, tables, cl, staged=staged), want, BLEND_TOL))
+    for dtype in (torch.float16, torch.bfloat16):
+        x = x_e2p.to(dtype)
+        calls = [quad_blend(x, t_e2p, channel_last=True, out_dtype=dtype) for _ in range(3)]
+        cast = quad_blend(x, t_e2p, channel_last=True).to(dtype)
+        torch.cuda.synchronize()
+        same = torch.equal(calls[0], cast) and all(torch.equal(calls[0], c) for c in calls[1:])
+        emit({"phase": "check", "kernel": "quad_blend", "case": f"e2p_{str(dtype)[6:]}_store",
+              "calls": 3, "bitwise_equal_to_cast_and_run_to_run": same})
+        if not same:
+            raise AssertionError(f"quad_blend e2p {dtype} store: differs from the cast or a call")
+    x = x_merge.half()
+    calls = [quad_blend(x, t_p2e) for _ in range(3)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(calls[0], c) for c in calls[1:])
+    emit({"phase": "check", "kernel": "quad_blend", "case": "merge_f16_run_to_run", "calls": 3,
+          "bitwise_equal": same})
+    if not same:
+        raise AssertionError("quad_blend merge: calls differ")
+    del calls, cast, x, want
 
     # the transposed blend: the merge's backward at batch 8 (f32 cotangent;
     # 16-bit cotangents), equi2pers's backward, wrapped corners, and the
@@ -787,26 +845,60 @@ def main() -> int:
     # ---- kernel timings: the f32 path's calls (on_path), and the bf16
     # recipe's (recipe "bf16": e2p in bf16, the merge in f16, the decoder's
     # upsamples in bf16 but the first) ----
+    # (the e2p's bf16 calls store bf16, as equi2pers does); then bench.py's
+    # batches 64 and 256, and the sweep ----
     rows = {k: [] for k in errs}
-    for name, x, tables, cl, recipe in (
-        ("e2p", x_e2p, t_e2p, True, None), ("merge_f32", x_merge, t_p2e, False, None),
-        ("e2p_bf16", x_e2p.bfloat16(), t_e2p, True, "bf16"),
-        ("merge_f16", x_merge.half(), t_p2e, False, "bf16"),
-    ):
-        out = quad_blend(x, tables, channel_last=cl)
+    blend_cases = [("e2p", x_e2p, t_e2p, True, None), ("merge_f32", x_merge, t_p2e, False, None),
+                   ("e2p_bf16", x_e2p.bfloat16(), t_e2p, True, "bf16"),
+                   ("merge_f16", x_merge.half(), t_p2e, False, "bf16")]
+    for b in BENCH_BATCHES:
+        blend_cases += [
+            (f"e2p_bf16_b{b}", lambda b=b: torch.rand(b, n_erp, 3, device=dev, generator=g)
+             .bfloat16(), t_e2p, True, "bf16"),
+            (f"merge_f16_b{b}", lambda b=b: torch.rand(b, 2, t_p2e.n_in, device=dev, generator=g)
+             .half(), t_p2e, False, "bf16"),
+        ]
+    sweep = []
+    for name, x, tables, cl, recipe in blend_cases:
+        x = x() if callable(x) else x
+        out_dtype = x.dtype if cl else None  # equi2pers stores the ERP's dtype
+        out = quad_blend(x, tables, channel_last=cl, out_dtype=out_dtype)
         b_ms, b_by = blend_bound(x, tables, out)
         w_csr = blend_matrix(tables, x.dtype)
         dense = (x.permute(1, 0, 2) if cl else x.permute(2, 0, 1)).reshape(tables.n_in, -1).contiguous()
         lib_out = torch.sparse.mm(w_csr, dense)
         want_out = out.permute(1, 0, 2) if cl else out.permute(2, 0, 1)
-        lib_err = (lib_out.float() - want_out.reshape(tables.n_out, -1)).abs().max().item()
+        lib_err = (lib_out.float() - want_out.reshape(tables.n_out, -1).float()).abs().max().item()
+        del out, lib_out, want_out
         rows["quad_blend"].append({
-            "case": name, "shape": list(x.shape), "on_path": recipe is None, "recipe": recipe,
-            "ms": timer(lambda: quad_blend(x, tables, channel_last=cl)),
-            "plain_ms": timer(lambda: quad_blend_plain(x, tables, channel_last=cl), iters=10),
+            "case": name, "shape": list(x.shape), "batch": x.shape[0], "on_path": recipe is None,
+            "recipe": recipe, "out_dtype": str(out_dtype or torch.float32),
+            "ms": timer(lambda: quad_blend(x, tables, channel_last=cl, out_dtype=out_dtype)),
+            "plain_ms": timer(lambda: quad_blend_plain(x, tables, channel_last=cl, out_dtype=out_dtype),
+                              iters=10 if x.shape[0] == BATCH else 3, warmup=1),
             "library_ms": timer(lambda: torch.sparse.mm(w_csr, dense)),
             "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by,
         })
+        del w_csr, dense
+        if recipe == "bf16":  # the sweep, at the recipe's dtypes and each batch
+            cpu = 3 if cl else 1
+            units = x.shape[0] if cl else x.shape[0] * x.shape[1]
+            plan = qb.blend_plan(tables.tiles, units, cpu, x.element_size())
+            rows["quad_blend"][-1].update(tile=list(tables.tiles.shape), staged=plan[0],
+                                          chunk_units=plan[1], unit_block=plan[2])
+            for shape in TILE_SWEEP:
+                t_sw = tables.with_tiles(shape)
+                for staged, r, ub in ([(True, r, None) for r in CHUNK_SWEEP]
+                                      + [(False, CHUNK_ROWS, ub) for ub in UNIT_SWEEP]):
+                    ub = units if ub is None else max(1, ub // cpu)
+                    sweep.append({"case": name, "tile": list(shape), "staged": staged,
+                                  "R": r if staged else None, "unit_block": None if staged else ub,
+                                  "ms": timer(lambda: qb._blend_kernel(
+                                      x, t_sw, cl, out_dtype, staged, r, None if staged else ub))})
+            del t_sw
+        torch.cuda.empty_cache()
+    emit({"phase": "sweep", "kernel": "quad_blend", "gpu": gpu,
+          "kept": "each time row's tile, staged, chunk_units and unit_block", "rows": sweep})
     for name, cot, t, cl, on_path in (("merge_f32_b8", cot_merge, t_p2e.vjp, False, True),
                                       ("e2p_b8", cot_e2p, t_e2p.vjp, True, False)):
         out = quad_spread(cot, t, channel_last=cl)
@@ -961,8 +1053,8 @@ def main() -> int:
     res = json.loads(run_tool(bench_kernels.main, ["--iters", "10"])[0])
     launches = counts()
     emit({"phase": "bench_kernels", **res, "launches": launches})
-    if not (launches["quad_spread"] > 0 and launches["up2x"] > 0
-            and launches["quad_blend"] == launches["up2x_adjoint"] == launches["probe"] == 0):
+    if not (launches["quad_blend"] > 0 and launches["quad_spread"] > 0 and launches["up2x"] > 0
+            and launches["up2x_adjoint"] == launches["probe"] == 0):
         raise AssertionError(f"bench_kernels launches {launches}")
 
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as tmp:
@@ -999,7 +1091,7 @@ def main() -> int:
     ):
         rs = [r for r in rows[name] if r["on_path"]]
         bys = {r["bound_by"] for r in rs}
-        recipe = [r for r in rows[name] if r.get("recipe") == "bf16"]
+        recipe = [r for r in rows[name] if r.get("recipe") == "bf16" and r.get("batch", BATCH) == BATCH]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": train_launches[name],

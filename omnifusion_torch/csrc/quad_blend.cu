@@ -10,27 +10,61 @@
 //                   sum_q tail_w[m, q] * src[d, (tail_idx[m] + off_q) mod N_in]
 //
 // with off = {0, 1, row_stride, row_stride + 1}, accumulated in f32 and
-// stored as f32.
+// stored as f32 or, on request, rounded once to the source's dtype.
 //
-// Bound on the card: bytes. Each output does 4*K (+4 per tail entry)
-// multiply-adds on data it gathers, far below the H100's ~20 flop/byte
-// balance point, so the least time is (source + output + tables) / 3.35 TB/s.
+// Bound on the card: bytes. Each output does 4 multiply-adds per quad on
+// gathered data, far below the H100's ~20 flop/byte balance point, so the
+// least time is (source + output + tables) / 3.35 TB/s. At the merge of
+// 128 f16 rows that is 0.110 ms, two thirds of it the f32 output.
+//
+// What held the first design back: one thread per output pixel and 8 rows,
+// with grid.y walking the row groups, so the tables were read again for
+// every 8 rows (336 MB of L2 reads for the merge's 21 MB at 128 rows), and
+// every corner was a scalar 2-byte gather from a plane N_in elements away:
+// a warp's 8 loads per row touched ~52 L1 wavefronts where ~15 sectors held
+// the data.
 //
 // Design:
-// - one thread per output pixel and up to kRows source rows: the thread
-//   reads its table row once (one 16-byte load per quad weight) and reads
-//   the four corners straight from the source, so there is no packed copy
-//   of the source (the TPU kernel's _pack_dmajor and per-K column gathers)
-//   and no padding of D;
-// - the COO tail is walked as the pixel's own CSR segment, so the sum needs
-//   one writer per output and is deterministic;
-// - corner addresses wrap modulo N_in, exactly as the JAX roll does: the
-//   corners idx+1, idx+W, idx+W+1 of the last row of the source point past
-//   its end with weight 0;
-// - src and out are addressed by (batch, channel, pixel) strides, so one
-//   kernel serves the channel-first merge (B, C, N) and the channel-last
-//   equi2pers (B, N, C) with no transposes;
-// - every offset is 64-bit: B * C * N_in passes 2^31 at large batch.
+// - one block owns a tile of th x tw output pixels (8 x 32 for the merge,
+//   4 x 32 for equi2pers; one pixel per thread, a warp's store is 32
+//   consecutive pixels of one output row) and loops over its source rows
+//   inside the kernel, so each thread reads its quads (K slots, then its CSR
+//   tail, at most `entries` in all) once per call and keeps them in
+//   registers;
+// - staged = 1 (the merge): the source rows a tile reads
+//   are staged through shared memory. The host lists, per tile, the 8-pixel
+//   groups its corners touch (the footprint, 1.4 pixels per output pixel at
+//   the merge) and the local position of every corner in it (4 int16 per
+//   quad), so the corners +1 and +W need no global addresses here. Per chunk
+//   of `chunk` units the block copies the footprint's groups with 16-byte
+//   cp.async, double-buffered, so the next chunk's copy overlaps this
+//   chunk's blend; the gathers then hit shared memory, where the corners of
+//   neighbouring pixels sit on neighbouring banks;
+// - staged = 0 (equi2pers): the same tiles and
+//   registers, every corner gathered from global memory at (idx + off_q)
+//   mod N_in. equi2pers samples the ERP at about one pixel in three, so its
+//   footprint (4.6 pixels per output pixel) costs more to stage than to
+//   gather; a block then takes `unit_block` units (grid.y the rest), so that
+//   the units in flight across the card stay in L2;
+// - a unit is one source row of a (B, C, N) source, or the C interleaved
+//   rows of one batch of a (B, N, C) source: pixel p, channel c of unit u is
+//   element (u * N_in + p) * cpu + c of the source, cpu = 1 or C, and the
+//   output is addressed the same way, so one kernel serves the channel-first
+//   merge and the channel-last equi2pers with no transposes. A unit's
+//   channels are unrolled (cpu = 1 known when compiling for the merge);
+// - the tail is each pixel's own CSR segment, added after its slots: each
+//   output has one writer and a fixed order of summation (slot, corner,
+//   then tail), with no atomics, so two calls give the same bits;
+// - a corner of zero weight is still read and multiplied, as the plain
+//   version does, so a non-finite source gives the same NaN in both;
+// - corners wrap modulo N_in, exactly as the JAX roll does: the host's
+//   footprint holds the wrapped pixel;
+// - a group that is not 16-byte aligned in memory (an odd source stride) or
+//   runs past N_in is copied element by element.
+// What bounds it now (tools/blend_variants.py; numbers in PERF.md): at the
+// merge, its stores and staging take most of the time, its gathers from
+// shared memory (one 2- or 4-byte load per corner and row) the rest; at
+// equi2pers, its gathers from global memory.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -40,125 +74,292 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 8;
+constexpr int kGroup = 8;  // pixels per staged group (ops/quad_blend.py: GROUP)
+constexpr int kMaxThreads = 512;
+constexpr int kMaxSmem = 227 * 1024;  // bytes a block may use on an H100
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-__device__ __forceinline__ int64_t wrap(int64_t j, int64_t n_in) {
-  return j >= n_in ? j - n_in : j;
+template <typename O>
+__device__ __forceinline__ O from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half_rn(v); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__device__ __forceinline__ void add_quad(float (&acc)[kRows], const T* __restrict__ src,
-                                         const int64_t (&base)[kRows], int rows,
-                                         int64_t j, float4 w, int64_t row_stride,
-                                         int64_t n_in, int64_t s_p) {
-  const int64_t j0 = j * s_p;
-  const int64_t j1 = wrap(j + 1, n_in) * s_p;
-  const int64_t j2 = wrap(j + row_stride, n_in) * s_p;
-  const int64_t j3 = wrap(j + row_stride + 1, n_in) * s_p;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+struct Args {
+  const float4* w4;        // (N_out, K) quad weights
+  const short4* off;       // (N_out, K) corners' local pixels in the tile's footprint
+  const int32_t* idx;      // (N_out, K) top-left corners (staged = 0)
+  const int32_t* tail_ptr;  // (N_out + 1) CSR pointers of the tail, or null
+  const float4* tail_w;
+  const short4* tail_off;
+  const int32_t* tail_idx;
+  const int32_t* grp_ptr;  // (n_tiles + 1) CSR pointers of the footprints
+  const int32_t* grp;      // the footprints' 8-pixel groups, ascending per tile
+  int k_slots, cpu, tiles_x, pitch, chunk;  // pitch: pixels of a staged unit
+  int64_t n_units, unit_block, n_in, n_out, row_stride, out_w;
+};
+
+// ONE: one element per pixel (cpu = 1, a (B, C, N) source), known when
+// compiling, so a unit's blend is straight-line code
+template <typename T, typename O, int NE, bool STAGED, bool ONE>
+__global__ void __launch_bounds__(kMaxThreads)
+quad_blend_kernel(const T* __restrict__ src, O* __restrict__ out, const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* stage = reinterpret_cast<T*>(smem_raw);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int n_threads = blockDim.x * blockDim.y;
+  const int tile = blockIdx.x;
+  const int64_t col = static_cast<int64_t>(tile % a.tiles_x) * blockDim.x + threadIdx.x;
+  const int64_t n =
+      (static_cast<int64_t>(tile / a.tiles_x) * blockDim.y + threadIdx.y) * a.out_w + col;
+  const bool live = col < a.out_w && n < a.n_out;
+  const int cpu = ONE ? 1 : a.cpu;
+
+  // the pixel's quads, K slots then its tail: weights, and each corner's
+  // element offset in a unit (staged: in the tile's footprint)
+  float4 w[NE];
+  int off[NE][4];
+  int n_e = 0;
+  int t0 = 0;
+  if (live) {
+    if (a.tail_ptr != nullptr) {
+      t0 = a.tail_ptr[n];
+      n_e = a.tail_ptr[n + 1] - t0;
+    }
+    n_e += a.k_slots;
+  }
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (r < rows) {
-      const T* s = src + base[r];
-      acc[r] += w.x * to_f32(s[j0]) + w.y * to_f32(s[j1]) + w.z * to_f32(s[j2]) +
-                w.w * to_f32(s[j3]);
+  for (int e = 0; e < NE; ++e) {
+    w[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    off[e][0] = off[e][1] = off[e][2] = off[e][3] = 0;
+    if (e < n_e) {
+      const bool slot = e < a.k_slots;
+      const int64_t m = slot ? n * a.k_slots + e : t0 + (e - a.k_slots);
+      w[e] = slot ? a.w4[m] : a.tail_w[m];
+      if (STAGED) {
+        const short4 o = slot ? a.off[m] : a.tail_off[m];
+        off[e][0] = o.x * cpu;
+        off[e][1] = o.y * cpu;
+        off[e][2] = o.z * cpu;
+        off[e][3] = o.w * cpu;
+      } else {
+        const int64_t j = slot ? a.idx[m] : a.tail_idx[m];
+        const int64_t c[4] = {j, j + 1, j + a.row_stride, j + a.row_stride + 1};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          off[e][q] = static_cast<int>(c[q] >= a.n_in ? c[q] - a.n_in : c[q]) * cpu;
+        }
+      }
     }
   }
-}
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-quad_blend_kernel(const T* __restrict__ src, float* __restrict__ out,
-                  const int32_t* __restrict__ idx, const float4* __restrict__ w4, int k_slots,
-                  const int32_t* __restrict__ tail_ptr, const int32_t* __restrict__ tail_idx,
-                  const float4* __restrict__ tail_w, int64_t n_rows, int64_t channels,
-                  int64_t n_in, int64_t n_out, int64_t row_stride, int64_t s_b, int64_t s_c,
-                  int64_t s_p, int64_t o_b, int64_t o_c, int64_t o_p) {
-  const int64_t n = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (n >= n_out) return;
-  const int64_t d0 = static_cast<int64_t>(blockIdx.y) * kRows;
-  const int rows = static_cast<int>(n_rows - d0 < kRows ? n_rows - d0 : kRows);
-
-  int64_t base[kRows];
-  int64_t obase[kRows];
-  float acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int64_t d = d0 + (r < rows ? r : 0);
-    const int64_t b = d / channels;
-    const int64_t c = d - b * channels;
-    base[r] = b * s_b + c * s_c;
-    obase[r] = b * o_b + c * o_c;
-    acc[r] = 0.0f;
+  const int64_t unit_in = a.n_in * cpu;  // elements of one source unit
+  const int64_t unit_out = a.n_out * cpu;
+  const int pitch = a.pitch * cpu;  // elements of one staged unit
+  // this block's units: all, or a slice of unit_block units per grid.y
+  const int64_t u_lo = static_cast<int64_t>(blockIdx.y) * a.unit_block;
+  const int64_t u_hi = a.n_units - u_lo < a.unit_block ? a.n_units : u_lo + a.unit_block;
+  const int64_t n_chunks = (u_hi - u_lo + a.chunk - 1) / a.chunk;
+  constexpr int kVec = 16 / sizeof(T);
+  int g0 = 0, per_unit = 0, per_group = 1;
+  if (STAGED) {
+    g0 = a.grp_ptr[tile];
+    per_group = kGroup * cpu / kVec;  // 16-byte copies per group
+    per_unit = (a.grp_ptr[tile + 1] - g0) * per_group;
   }
 
-  for (int k = 0; k < k_slots; ++k) {
-    const int64_t slot = n * k_slots + k;
-    add_quad(acc, src, base, rows, static_cast<int64_t>(idx[slot]), w4[slot], row_stride,
-             n_in, s_p);
-  }
-  if (tail_ptr != nullptr) {
-    const int32_t m1 = tail_ptr[n + 1];
-    for (int32_t m = tail_ptr[n]; m < m1; ++m) {
-      add_quad(acc, src, base, rows, static_cast<int64_t>(tail_idx[m]), tail_w[m],
-               row_stride, n_in, s_p);
+  // copy the footprint of chunk c's units into buffer c & 1: each thread
+  // takes 16-byte pieces h of groups j, and copies them for every unit
+  auto stage_chunk = [&](int64_t c) {
+    const int64_t u0 = u_lo + c * a.chunk;
+    const int nu = static_cast<int>(u_hi - u0 < a.chunk ? u_hi - u0 : a.chunk);
+    T* buf = stage + (c & 1) * a.chunk * pitch;
+    for (int i = tid; i < per_unit; i += n_threads) {
+      const int j = i / per_group;
+      const int h = i - j * per_group;
+      const int64_t e = static_cast<int64_t>(a.grp[g0 + j]) * kGroup * cpu + h * kVec;
+      const T* g = src + u0 * unit_in + e;
+      T* s = buf + j * kGroup * cpu + h * kVec;
+      const bool whole = e + kVec <= unit_in;
+      for (int r = 0; r < nu; ++r, g += unit_in, s += pitch) {
+        if (whole && (reinterpret_cast<uintptr_t>(g) & 15) == 0) {
+          cp_async16(s, g);
+        } else {
+          for (int v = 0; v < kVec; ++v) {
+            if (e + v < unit_in) s[v] = g[v];
+          }
+        }
+      }
     }
-  }
+  };
 
+  if (STAGED) {
+    stage_chunk(0);
+    cp_async_commit();
+  }
+  for (int64_t c = 0; c < n_chunks; ++c) {
+    if (STAGED) {
+      if (c + 1 < n_chunks) stage_chunk(c + 1);
+      cp_async_commit();
+      cp_async_wait_prev();
+      __syncthreads();
+    }
+    const int64_t u0 = u_lo + c * a.chunk;
+    const int nu = static_cast<int>(u_hi - u0 < a.chunk ? u_hi - u0 : a.chunk);
+    if (live) {
+      const T* base0 = STAGED ? stage + (c & 1) * a.chunk * pitch : src + u0 * unit_in;
+      const int64_t step = STAGED ? pitch : unit_in;
+      O* o0 = out + u0 * unit_out + n * cpu;
+      // channels 4 at a time, unrolled; the unit loop is not unrolled (it
+      // measured slower so on the H100, staged or not)
+      for (int c0 = 0; c0 < cpu; c0 += 4) {
+#pragma unroll 1
+        for (int r = 0; r < nu; ++r) {
+          const T* base = base0 + r * step + c0;
+          O* o = o0 + r * unit_out + c0;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (r < rows) out[obase[r] + n * o_p] = acc[r];
+          for (int ch = 0; ch < (ONE ? 1 : 4); ++ch) {
+            if (ch == 0 || c0 + ch < cpu) {
+              float acc = 0.0f;
+#pragma unroll
+              for (int e = 0; e < NE; ++e) {
+                if (e < n_e) {
+                  acc += w[e].x * to_f32(base[off[e][0] + ch]) +
+                         w[e].y * to_f32(base[off[e][1] + ch]) +
+                         w[e].z * to_f32(base[off[e][2] + ch]) +
+                         w[e].w * to_f32(base[off[e][3] + ch]);
+                }
+              }
+              o[ch] = from_f32<O>(acc);
+            }
+          }
+        }
+      }
+    }
+    if (STAGED) __syncthreads();
   }
 }
 
+template <typename T, typename O, int NE, bool STAGED, bool ONE>
+int launch(const void* src, void* out, const Args& a, int64_t n_tiles, int tile_h, int tile_w,
+           cudaStream_t stream) {
+  const int64_t smem = STAGED ? 2LL * a.chunk * a.pitch * a.cpu * sizeof(T) : 0;
+  const int64_t unit_blocks = (a.n_units + a.unit_block - 1) / a.unit_block;
+  if (smem > kMaxSmem || tile_h * tile_w > kMaxThreads || tile_w % 32 != 0 ||
+      unit_blocks > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = quad_blend_kernel<T, O, NE, STAGED, ONE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<dim3(static_cast<unsigned>(n_tiles), static_cast<unsigned>(unit_blocks)),
+           dim3(tile_w, tile_h), static_cast<size_t>(smem), stream>>>(static_cast<const T*>(src), static_cast<O*>(out), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename O, int NE>
+int by_layout(bool staged, const void* src, void* out, const Args& a, int64_t n_tiles,
+              int tile_h, int tile_w, cudaStream_t s) {
+  if (a.cpu == 1) {
+    return staged ? launch<T, O, NE, true, true>(src, out, a, n_tiles, tile_h, tile_w, s)
+                  : launch<T, O, NE, false, true>(src, out, a, n_tiles, tile_h, tile_w, s);
+  }
+  return staged ? launch<T, O, NE, true, false>(src, out, a, n_tiles, tile_h, tile_w, s)
+                : launch<T, O, NE, false, false>(src, out, a, n_tiles, tile_h, tile_w, s);
+}
+
+template <typename T, typename O>
+int by_entries(int entries, bool staged, const void* src, void* out, const Args& a,
+               int64_t n_tiles, int tile_h, int tile_w, cudaStream_t s) {
+  if (entries <= 2) return by_layout<T, O, 2>(staged, src, out, a, n_tiles, tile_h, tile_w, s);
+  if (entries <= 4) return by_layout<T, O, 4>(staged, src, out, a, n_tiles, tile_h, tile_w, s);
+  if (entries <= 8) return by_layout<T, O, 8>(staged, src, out, a, n_tiles, tile_h, tile_w, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
-void launch(const void* src, float* out, const int32_t* idx, const float* w4, int k_slots,
-            const int32_t* tail_ptr, const int32_t* tail_idx, const float* tail_w,
-            int64_t n_rows, int64_t channels, int64_t n_in, int64_t n_out, int64_t row_stride,
-            int64_t s_b, int64_t s_c, int64_t s_p, int64_t o_b, int64_t o_c, int64_t o_p,
-            cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((n_out + kThreads - 1) / kThreads),
-                  static_cast<unsigned>((n_rows + kRows - 1) / kRows));
-  quad_blend_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(src), out, idx, reinterpret_cast<const float4*>(w4), k_slots,
-      tail_ptr, tail_idx, reinterpret_cast<const float4*>(tail_w), n_rows, channels, n_in,
-      n_out, row_stride, s_b, s_c, s_p, o_b, o_c, o_p);
+int by_output(bool same, int entries, bool staged, const void* src, void* out, const Args& a,
+              int64_t n_tiles, int tile_h, int tile_w, cudaStream_t s) {
+  return same ? by_entries<T, T>(entries, staged, src, out, a, n_tiles, tile_h, tile_w, s)
+              : by_entries<T, float>(entries, staged, src, out, a, n_tiles, tile_h, tile_w, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16. tail_ptr == nullptr: no tail.
-// n_rows = B * C rows, each at src + b*s_b + c*s_c with pixel stride s_p.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int omnifusion_quad_blend(const void* src, int dtype, float* out, const int32_t* idx,
-                                     const float* w4, int k_slots, const int32_t* tail_ptr,
-                                     const int32_t* tail_idx, const float* tail_w,
-                                     int64_t n_rows, int64_t channels, int64_t n_in,
-                                     int64_t n_out, int64_t row_stride, int64_t s_b,
-                                     int64_t s_c, int64_t s_p, int64_t o_b, int64_t o_c,
-                                     int64_t o_p, void* stream) {
-  if (n_out == 0 || n_rows == 0) return static_cast<int>(cudaGetLastError());
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16; out_dtype: 0 or dtype.
+// The source is n_units units of n_in pixels of cpu elements each, the output
+// n_units units of n_out pixels. tail_ptr == nullptr: no tail. entries: the
+// most quads (slots + tail) of any output pixel, at most 8. The tile tables
+// (off, tail_off, grp_ptr, grp, pitch) come from ops/quad_blend.py:
+// tile_tables; staged = 0 reads idx and tail_idx instead. Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int omnifusion_quad_blend(
+    const void* src, int dtype, void* out, int out_dtype, const float* w4, const int16_t* off,
+    const int32_t* idx, int k_slots, const int32_t* tail_ptr, const float* tail_w,
+    const int16_t* tail_off, const int32_t* tail_idx, const int32_t* grp_ptr, const int32_t* grp,
+    int64_t n_tiles, int tiles_x, int tile_h, int tile_w, int pitch, int64_t n_units,
+    int64_t unit_block, int cpu,
+    int64_t n_in, int64_t n_out, int64_t row_stride, int64_t out_w, int entries, int chunk,
+    int staged, void* stream) {
+  if (n_out == 0 || n_units == 0) return static_cast<int>(cudaGetLastError());
+  if (chunk < 1 || unit_block < 1 || k_slots > entries ||
+      (out_dtype != 0 && out_dtype != dtype)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a;
+  a.w4 = reinterpret_cast<const float4*>(w4);
+  a.off = reinterpret_cast<const short4*>(off);
+  a.idx = idx;
+  a.tail_ptr = tail_ptr;
+  a.tail_w = reinterpret_cast<const float4*>(tail_w);
+  a.tail_off = reinterpret_cast<const short4*>(tail_off);
+  a.tail_idx = tail_idx;
+  a.grp_ptr = grp_ptr;
+  a.grp = grp;
+  a.k_slots = k_slots;
+  a.cpu = cpu;
+  a.tiles_x = tiles_x;
+  a.pitch = pitch;
+  a.chunk = chunk;
+  a.n_units = n_units;
+  a.unit_block = unit_block;
+  a.n_in = n_in;
+  a.n_out = n_out;
+  a.row_stride = row_stride;
+  a.out_w = out_w;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool same = out_dtype != 0;
   switch (dtype) {
     case 0:
-      launch<float>(src, out, idx, w4, k_slots, tail_ptr, tail_idx, tail_w, n_rows, channels,
-                    n_in, n_out, row_stride, s_b, s_c, s_p, o_b, o_c, o_p, s);
-      break;
+      return by_entries<float, float>(entries, staged != 0, src, out, a, n_tiles, tile_h, tile_w,
+                                      s);
     case 1:
-      launch<__half>(src, out, idx, w4, k_slots, tail_ptr, tail_idx, tail_w, n_rows, channels,
-                     n_in, n_out, row_stride, s_b, s_c, s_p, o_b, o_c, o_p, s);
-      break;
+      return by_output<__half>(same, entries, staged != 0, src, out, a, n_tiles, tile_h, tile_w,
+                               s);
     case 2:
-      launch<__nv_bfloat16>(src, out, idx, w4, k_slots, tail_ptr, tail_idx, tail_w, n_rows,
-                            channels, n_in, n_out, row_stride, s_b, s_c, s_p, o_b, o_c, o_p,
-                            s);
-      break;
+      return by_output<__nv_bfloat16>(same, entries, staged != 0, src, out, a, n_tiles, tile_h,
+                                      tile_w, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

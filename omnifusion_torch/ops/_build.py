@@ -41,9 +41,13 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGNATURES = {
     "omnifusion_quad_blend": (
-        _P, _I, _P, _P, _P, _I, _P, _P, _P,  # src, dtype, out, idx, w4, k, tail ptr/idx/w
-        _L, _L, _L, _L, _L,  # n_rows, channels, n_in, n_out, row_stride
-        _L, _L, _L, _L, _L, _L,  # src strides (b, c, pixel), out strides
+        _P, _I, _P, _I,  # src, dtype, out, out dtype
+        _P, _P, _P, _I,  # w4, corner offsets, idx, k
+        _P, _P, _P, _P,  # tail ptr, w, offsets, idx
+        _P, _P, _L, _I, _I, _I, _I,  # footprints (ptr, groups), n_tiles, tiles_x, tile h, w, pitch
+        _L, _L, _I,  # n_units, units per block (grid.y), elements per pixel
+        _L, _L, _L, _L,  # n_in, n_out, row_stride, out_w
+        _I, _I, _I,  # entries, chunk, staged
         _P,  # stream
     ),
     "omnifusion_quad_spread": (

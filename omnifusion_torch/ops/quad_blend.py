@@ -39,9 +39,12 @@ What lives here:
   plain PyTorch. Autograd never differentiates them: both run inside the
   Function, with autograd off.
 - ``BlendTables`` and ``SpreadTables``: the tables as tensors on one device;
-  ``SpreadTables`` also carries the ``heavy`` list of the pixels whose
-  overflow load is above ``HEAVY_THRESHOLD`` (``heavy_pixels``), which the
-  kernel's second launch walks.
+  ``BlendTables`` also carries ``tiles`` (``TileTables``, built by
+  ``tile_tables``): the output tiles of the kernel's blocks, each tile's
+  source footprint and every corner's place in it; ``SpreadTables`` carries
+  the ``heavy`` list of the pixels whose overflow load is above
+  ``HEAVY_THRESHOLD`` (``heavy_pixels``), which the kernel's second launch
+  walks.
 
 Bound on the card, both directions: bytes (source + output + tables over
 3.35 TB/s). See the CUDA sources for the designs.
@@ -58,7 +61,28 @@ from torch.autograd.function import once_differentiable
 
 from omnifusion_torch.ops import _build
 
-_MAX_ROWS = 8 * 65535  # grid.y = ceil(rows / 8) must fit the launch limit
+_MAX_ROWS = 8 * 65535  # quad_spread: grid.y = ceil(rows / 8) must fit the launch limit
+# quad_blend (csrc/quad_blend.cu): a block blends a TILE of (rows, columns)
+# output pixels over every source row, staging CHUNK_ROWS source rows at a
+# time (a chunk of C-row units for a (B, N, C) source) of the tile's
+# footprint, the GROUP-pixel groups its corners touch, in shared memory
+# (double-buffered); fewer rows where the largest footprint would take more
+# than BLOCK_SMEM bytes (four blocks of 256 threads on an SM), and the call
+# raises where one row does not fit SMEM_BYTES, a block's most; a pixel keeps
+# at most MAX_ENTRIES quads (slots + tail) in registers. The staging pays
+# where the footprint holds at most STAGE_MAX_FOOTPRINT staged pixels per
+# output pixel (the merge: 1.4, at every batch); else (equi2pers, 4.6: it
+# samples the ERP at about one pixel in three) the kernel gathers from
+# global memory, a block taking GLOBAL_UNIT_ROWS rows and grid.y the rest,
+# so that the rows in flight stay in L2 (the H100 sweep in PERF.md)
+GROUP = 8
+TILE = (8, 32)
+CHUNK_ROWS = 16
+BLOCK_SMEM = 56 * 1024
+SMEM_BYTES = 227 * 1024
+MAX_ENTRIES = 8
+STAGE_MAX_FOOTPRINT = 2.0
+GLOBAL_UNIT_ROWS = 24
 # quad_spread: a source pixel whose overflow load L(i) (the summed length of
 # the four CSR segments its thread would walk) is above HEAVY_THRESHOLD goes
 # to the kernel's heavy launch: a warp per pixel and row group, or a block of
@@ -151,6 +175,101 @@ class SpreadTables:
         return 0 if self.over_src is None else self.over_src.shape[0]
 
 
+def tile_tables(
+    idx, row_stride: int, n_in: int, out_w: Optional[int] = None, shape=TILE,
+    tail_ptr=None, tail_pix=None, tail_idx=None,
+) -> dict:
+    """The kernel's tile tables of a quad table, in numpy.
+
+    The N_out output pixels are rows of ``out_w`` (default: the tile's
+    width, so a tile is a run of consecutive pixels), cut into tiles of
+    ``shape`` = (rows, columns), row-major; ragged edges belong to partial
+    tiles. A tile's footprint is the ascending list of GROUP-pixel groups
+    (pixels GROUP*g .. GROUP*g + GROUP - 1 of the source) that its quads'
+    corners (idx + off_q) mod N_in touch, for off = (0, 1, W, W + 1), slots
+    and tail. Returns ``grp_ptr`` (n_tiles + 1) and ``grp``, the footprints
+    as CSR; ``off`` (N_out, K, 4) and ``tail_off`` (M, 4) int16, each
+    corner's pixel in its tile's staged footprint (GROUP * its group's place
+    + its place in the group); ``pitch``, the pixels of the largest
+    footprint; ``footprint``, the staged pixels per output pixel, over all
+    tiles; ``entries``, the most quads (slots + tail) of one pixel; and
+    ``shape``, ``out_w``, ``tiles_x``, ``n_tiles``."""
+    idx = np.asarray(idx, np.int64)
+    n_out, k = idx.shape
+    th, tw = shape
+    out_w = tw if out_w is None else int(out_w)
+    tiles_x = -(-out_w // tw)
+    n_tiles = tiles_x * -(-(-(-n_out // out_w)) // th)
+    n_groups = -(-n_in // GROUP)
+    # int32 where the keys fit: the sort below is most of the build's time
+    itype = np.int32 if n_tiles * n_groups < 2**31 and n_in + row_stride < 2**30 else np.int64
+
+    def tile_of(n):
+        n = np.asarray(n, itype)
+        return (n // out_w // th) * tiles_x + (n % out_w) // tw
+
+    def wrapped(j):  # (j + off_q) mod N_in, for 0 <= j < N_in
+        c = np.asarray(j, itype)[..., None] + np.array([0, 1, row_stride, row_stride + 1], itype)
+        return np.where(c >= n_in, c - n_in, c)
+
+    corners = [wrapped(idx)]  # (N_out, K, 4)
+    tiles = [np.broadcast_to(tile_of(np.arange(n_out))[:, None, None], corners[0].shape)]
+    has_tail = tail_idx is not None and len(tail_idx) > 0
+    if has_tail:
+        corners.append(wrapped(tail_idx))  # (M, 4)
+        tiles.append(np.broadcast_to(tile_of(tail_pix)[:, None], corners[1].shape))
+    corner = np.concatenate([c.ravel() for c in corners])
+    keys = np.concatenate([t.ravel() for t in tiles]) * itype(n_groups) + corner // GROUP
+    uniq, inv = np.unique(keys, return_inverse=True)
+    tile_u = uniq // n_groups
+    grp_ptr = np.searchsorted(tile_u, np.arange(n_tiles + 1))
+    pos = (np.arange(len(uniq), dtype=itype) - grp_ptr[tile_u].astype(itype))[inv.ravel()]
+    pos = pos * GROUP + corner % GROUP
+    pitch = GROUP * int(np.diff(grp_ptr).max(initial=1))
+    if pitch > 2**15:
+        raise ValueError(f"quad_blend: a tile's footprint of {pitch} pixels passes int16 offsets")
+    n_slot = n_out * k * 4
+    tail_len = np.diff(np.asarray(tail_ptr, np.int64)) if has_tail else np.zeros(1, np.int64)
+    return {
+        "grp_ptr": grp_ptr.astype(np.int32),
+        "grp": (uniq % n_groups).astype(np.int32),
+        "off": pos[:n_slot].reshape(n_out, k, 4).astype(np.int16),
+        "tail_off": pos[n_slot:].reshape(-1, 4).astype(np.int16) if has_tail else None,
+        "pitch": pitch,
+        "footprint": GROUP * len(uniq) / n_out,
+        "entries": k + int(tail_len.max()),
+        "shape": (th, tw), "out_w": out_w, "tiles_x": tiles_x, "n_tiles": n_tiles,
+    }
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TileTables:
+    """``tile_tables`` as tensors on one device: what csrc/quad_blend.cu
+    reads besides the quad weights."""
+
+    grp_ptr: torch.Tensor
+    grp: torch.Tensor
+    off: torch.Tensor
+    tail_off: Optional[torch.Tensor]
+    pitch: int
+    footprint: float
+    entries: int
+    shape: tuple
+    out_w: int
+    tiles_x: int
+    n_tiles: int
+
+    @classmethod
+    def create(cls, device, **kw) -> "TileTables":
+        """From ``tile_tables(**kw)``."""
+        t = tile_tables(**kw)
+        for name, dtype in (("grp_ptr", np.int32), ("grp", np.int32), ("off", np.int16),
+                            ("tail_off", np.int16)):
+            if t[name] is not None:
+                t[name] = _tensor(t[name], dtype, device)
+        return cls(**t)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class BlendTables:
     """Quad tables of one static sparse map, as tensors on one device.
@@ -159,7 +278,8 @@ class BlendTables:
     in [00, 01, 10, 11] order; an optional sorted COO tail with its CSR row
     pointers ``tail_ptr`` (N_out + 1); the source's pixel count ``n_in`` and
     row stride; ``vjp``, the transposed tables of the same map, which the
-    backward needs (None: the map cannot be differentiated)."""
+    backward needs (None: the map cannot be differentiated); ``tiles``, the
+    kernel's tile tables (``TileTables``), which the kernel needs."""
 
     idx: torch.Tensor
     w4: torch.Tensor
@@ -170,18 +290,24 @@ class BlendTables:
     tail_idx: Optional[torch.Tensor] = None
     tail_w: Optional[torch.Tensor] = None
     vjp: Optional[SpreadTables] = None
+    tiles: Optional[TileTables] = None
 
     @classmethod
     def create(
         cls, idx, w4, row_stride: int, n_in: int, device,
-        tail_ptr=None, tail_pix=None, tail_idx=None, tail_w=None, vjp=None,
+        tail_ptr=None, tail_pix=None, tail_idx=None, tail_w=None, vjp=None, out_w=None,
+        tile=TILE,
     ) -> "BlendTables":
-        """``vjp``: the map's projection/spec.py TransposedTables, or None."""
+        """``vjp``: the map's projection/spec.py TransposedTables, or None;
+        ``out_w``: the width of the output image, along which the kernel's
+        tiles of ``tile`` (rows, columns) lie (None: tiles of consecutive
+        pixels)."""
         idx = np.asarray(idx)
         assert idx.ndim == 2 and np.asarray(w4).shape == idx.shape + (4,), (
             idx.shape, np.asarray(w4).shape,
         )
         has_tail = tail_ptr is not None and len(tail_idx) > 0
+        tail = {"tail_ptr": tail_ptr, "tail_pix": tail_pix, "tail_idx": tail_idx} if has_tail else {}
         return cls(
             idx=_tensor(idx, np.int32, device),
             w4=_tensor(w4, np.float32, device),
@@ -192,7 +318,19 @@ class BlendTables:
             tail_idx=_tensor(tail_idx, np.int32, device) if has_tail else None,
             tail_w=_tensor(tail_w, np.float32, device) if has_tail else None,
             vjp=None if vjp is None else SpreadTables.create(vjp, row_stride, idx.shape[0], device),
+            tiles=TileTables.create(device, idx=idx, row_stride=row_stride, n_in=n_in,
+                                    out_w=out_w, shape=tile, **tail),
         )
+
+    def with_tiles(self, shape) -> "BlendTables":
+        """These tables with tiles of another ``shape`` (rows, columns)."""
+        cpu = lambda t: None if t is None else t.cpu().numpy()  # noqa: E731
+        tiles = TileTables.create(
+            self.idx.device, idx=cpu(self.idx), row_stride=self.row_stride, n_in=self.n_in,
+            out_w=self.tiles.out_w, shape=shape, tail_ptr=cpu(self.tail_ptr),
+            tail_pix=cpu(self.tail_pix), tail_idx=cpu(self.tail_idx),
+        )
+        return dataclasses.replace(self, tiles=tiles)
 
     @property
     def n_out(self) -> int:
@@ -231,12 +369,13 @@ def _corners(row_stride: int):
 
 
 def quad_blend_plain(
-    src: torch.Tensor, tables: BlendTables, channel_last: bool = False
+    src: torch.Tensor, tables: BlendTables, channel_last: bool = False, out_dtype=None
 ) -> torch.Tensor:
     """The gather-blend in plain PyTorch: the kernel's reference.
 
     src (B, C, N_in), or (B, N_in, C) when ``channel_last``; returns f32
-    (f64 for an f64 source) (B, C, N_out), or (B, N_out, C)."""
+    (f64 for an f64 source), or ``out_dtype``, (B, C, N_out), or (B, N_out,
+    C)."""
     b, c, s = _rows(src, tables.n_in, channel_last)
     n_in = tables.n_in
     idx = tables.idx.long()
@@ -251,7 +390,8 @@ def quad_blend_plain(
             for q, off in _corners(tables.row_stride)
         )  # (D, M)
         out.index_add_(1, tables.tail_pix.long(), vals)
-    return _unrows(out, b, c, channel_last)
+    out = _unrows(out, b, c, channel_last)
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 def quad_spread_plain(
@@ -292,41 +432,93 @@ def _check_cuda(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: need a contiguous 3-D tensor, got {tuple(x.shape)}")
 
 
-def _blend_kernel(src: torch.Tensor, tables: BlendTables, channel_last: bool) -> torch.Tensor:
-    """Launch csrc/quad_blend.cu."""
+def blend_plan(
+    tiles: TileTables, units: int, cpu: int, elem_size: int, staged: Optional[bool] = None,
+    chunk_rows: int = CHUNK_ROWS, unit_block: Optional[int] = None,
+) -> tuple[bool, int, int]:
+    """How csrc/quad_blend.cu runs a call of ``units`` units of ``cpu``
+    elements per pixel: (staged, units staged per step, units per block).
+    Arguments left None follow the module's rule; raises where a staged
+    footprint does not fit shared memory."""
+    if staged is None:
+        staged = tiles.footprint <= STAGE_MAX_FOOTPRINT
+    if unit_block is None:
+        unit_block = units if staged else max(1, GLOBAL_UNIT_ROWS // cpu)
+    unit_block = max(unit_block, -(-units // 65535))  # grid.y's limit
+    unit_bytes = tiles.pitch * cpu * elem_size  # one staged unit
+    if staged and 2 * unit_bytes > SMEM_BYTES:
+        raise ValueError(f"quad_blend: a tile's footprint of {tiles.pitch} pixels does not fit "
+                         f"shared memory twice")
+    chunk = max(1, min(chunk_rows // cpu, units, unit_block, BLOCK_SMEM // (2 * unit_bytes)))
+    return staged, chunk, unit_block
+
+
+def _blend_kernel(
+    src: torch.Tensor, tables: BlendTables, channel_last: bool, out_dtype=None,
+    staged: Optional[bool] = None, chunk_rows: int = CHUNK_ROWS,
+    unit_block: Optional[int] = None,
+) -> torch.Tensor:
+    """Launch csrc/quad_blend.cu: one launch, a block per output tile and
+    ``unit_block`` units. ``staged``: stage the footprint in shared memory,
+    or gather from global memory; ``chunk_rows``: the source rows staged
+    per step. None: the module's rule for the one and the other."""
     _check_cuda(src, "quad_blend")
     if tables.idx.device != src.device:
         raise ValueError(f"tables on {tables.idx.device}, source on {src.device}")
-    b, c, n_in, s_b, s_c, s_p = _strides(src, channel_last)
-    shape = (b, tables.n_out, c) if channel_last else (b, c, tables.n_out)
-    out = torch.empty(shape, dtype=torch.float32, device=src.device)
-    _, _, _, o_b, o_c, o_p = _strides(out, channel_last)
+    tiles = tables.tiles
+    if tiles is None:
+        raise ValueError("quad_blend: tables without their tile tables (BlendTables.create)")
+    if channel_last:
+        b, n_in, c = src.shape
+        units, cpu = b, c
+    else:
+        b, c, n_in = src.shape
+        units, cpu = b * c, 1
     if n_in != tables.n_in:
         raise ValueError(f"source has {n_in} pixels, the tables {tables.n_in}")
-    if b * c > _MAX_ROWS:
-        raise ValueError(f"quad_blend: {b * c} source rows exceed {_MAX_ROWS}")
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    if out_dtype not in (torch.float32, src.dtype):
+        raise TypeError(f"quad_blend: stores f32 or the source's dtype, not {out_dtype}")
+    if tiles.entries > MAX_ENTRIES:
+        raise ValueError(f"quad_blend: {tiles.entries} quads for one pixel, at most {MAX_ENTRIES}")
+    if n_in * cpu >= 2**31:
+        raise ValueError(f"quad_blend: {n_in} pixels of {cpu} elements pass 32-bit offsets")
+    staged, chunk, unit_block = blend_plan(tiles, units, cpu, src.element_size(), staged,
+                                           chunk_rows, unit_block)
+    shape = (b, tables.n_out, c) if channel_last else (b, c, tables.n_out)
+    out = torch.empty(shape, dtype=out_dtype, device=src.device)
     tail = tables.n_tail > 0
+    th, tw = tiles.shape
     err = _build.library().omnifusion_quad_blend(
         src.data_ptr(),
         _build.DTYPE_CODES[src.dtype],
         out.data_ptr(),
-        tables.idx.data_ptr(),
+        _build.DTYPE_CODES[out_dtype],
         tables.w4.data_ptr(),
+        tiles.off.data_ptr(),
+        tables.idx.data_ptr(),
         tables.k,
         tables.tail_ptr.data_ptr() if tail else None,
-        tables.tail_idx.data_ptr() if tail else None,
         tables.tail_w.data_ptr() if tail else None,
-        b * c,
-        c,
+        tiles.tail_off.data_ptr() if tail else None,
+        tables.tail_idx.data_ptr() if tail else None,
+        tiles.grp_ptr.data_ptr(),
+        tiles.grp.data_ptr(),
+        tiles.n_tiles,
+        tiles.tiles_x,
+        th,
+        tw,
+        tiles.pitch,
+        units,
+        unit_block,
+        cpu,
         n_in,
         tables.n_out,
         tables.row_stride,
-        s_b,
-        s_c,
-        s_p,
-        o_b,
-        o_c,
-        o_p,
+        tiles.out_w,
+        tiles.entries,
+        chunk,
+        int(staged),
         torch.cuda.current_stream(src.device).cuda_stream,
     )
     _build.check(err, "quad_blend")
@@ -402,11 +594,11 @@ def quad_spread(
 
 class _QuadBlend(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, src, tables, channel_last):
+    def forward(ctx, src, tables, channel_last, out_dtype):
         ctx.tables, ctx.channel_last, ctx.src_dtype = tables, channel_last, src.dtype
         if _build.on_cuda(src, "quad_blend"):
-            return _blend_kernel(src, tables, channel_last)
-        return quad_blend_plain(src, tables, channel_last)
+            return _blend_kernel(src, tables, channel_last, out_dtype)
+        return quad_blend_plain(src, tables, channel_last, out_dtype)
 
     @staticmethod
     @once_differentiable
@@ -414,18 +606,20 @@ class _QuadBlend(torch.autograd.Function):
         if ctx.tables.vjp is None:
             raise RuntimeError("quad_blend: these tables carry no transposed tables")
         g = quad_spread(cot.contiguous(), ctx.tables.vjp, ctx.channel_last)
-        return g.to(ctx.src_dtype), None, None
+        return g.to(ctx.src_dtype), None, None, None
 
 
 def quad_blend(
-    src: torch.Tensor, tables: BlendTables, channel_last: bool = False
+    src: torch.Tensor, tables: BlendTables, channel_last: bool = False, out_dtype=None
 ) -> torch.Tensor:
     """Gather-blend ``src`` through ``tables``; see the module docstring.
 
     src (B, C, N_in) contiguous, or (B, N_in, C) when ``channel_last``, in
-    f32, f16 or bf16; returns f32 (B, C, N_out), or (B, N_out, C).
-    Differentiable in ``src`` when the tables carry ``vjp``."""
-    return _QuadBlend.apply(src, tables, channel_last)
+    f32, f16 or bf16; returns f32 (B, C, N_out), or (B, N_out, C), or the
+    f32 sums rounded once to ``out_dtype`` (the kernel stores f32 or the
+    source's dtype). Differentiable in ``src`` when the tables carry
+    ``vjp``."""
+    return _QuadBlend.apply(src, tables, channel_last, out_dtype)
 
 
 quad_blend.launches = 0

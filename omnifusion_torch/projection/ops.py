@@ -30,11 +30,17 @@ from omnifusion_torch.projection.spec import (
 )
 
 
+# the blend kernel's output tile for equi2pers, which gathers from global
+# memory: 4 x 32 patch pixels (the merge keeps quad_blend.TILE; PERF.md)
+E2P_TILE = (4, 32)
+
+
 @functools.lru_cache(maxsize=None)
 def equi2pers_tables(spec: ProjectionSpec, device: torch.device) -> BlendTables:
     g = build_equi2pers_grids(spec)
     return BlendTables.create(
-        g.idx, g.w4, spec.erp_w, spec.erp_h * spec.erp_w, device, vjp=g.vjp
+        g.idx, g.w4, spec.erp_w, spec.erp_h * spec.erp_w, device, vjp=g.vjp,
+        out_w=spec.patch_w, tile=E2P_TILE,
     )
 
 
@@ -43,27 +49,31 @@ def pers2equi_tables(spec: ProjectionSpec, device: torch.device) -> BlendTables:
     g = build_pers2equi_grids(spec)
     n_in = spec.n_patches * spec.patch_h * spec.patch_w
     if g.capped is None:
-        return BlendTables.create(g.idx, g.w4, spec.patch_w, n_in, device, vjp=g.vjp)
+        return BlendTables.create(
+            g.idx, g.w4, spec.patch_w, n_in, device, vjp=g.vjp, out_w=spec.erp_w
+        )
     # the capped map is the dense one re-packed: one transposed table serves both
     c = g.capped
     return BlendTables.create(
         c.idx, c.w4, spec.patch_w, n_in, device,
         tail_ptr=c.tail_ptr, tail_pix=c.tail_pix, tail_idx=c.tail_idx, tail_w=c.tail_w,
-        vjp=g.vjp,
+        vjp=g.vjp, out_w=spec.erp_w,
     )
 
 
 def equi2pers(erp: torch.Tensor, grids: Equi2PersGrids) -> torch.Tensor:
     """Project an ERP image onto all tangent patches.
 
-    erp: (B, H, W, C) -> (B, P, h, w, C) in erp's dtype."""
+    erp: (B, H, W, C) -> (B, P, h, w, C) in erp's dtype: the blend's f32
+    sums rounded once (on the card, by the kernel's store)."""
     spec = grids.spec
     b, h, w, c = erp.shape
     if (h, w) != (spec.erp_h, spec.erp_w):
         raise ValueError(f"ERP {tuple(erp.shape)} does not match {spec}")
     src = erp.contiguous().reshape(b, h * w, c)
-    out = quad_blend(src, equi2pers_tables(spec, erp.device), channel_last=True)
-    return out.to(erp.dtype).reshape(b, spec.n_patches, spec.patch_h, spec.patch_w, c)
+    out = quad_blend(src, equi2pers_tables(spec, erp.device), channel_last=True,
+                     out_dtype=erp.dtype)
+    return out.reshape(b, spec.n_patches, spec.patch_h, spec.patch_w, c)
 
 
 def pers2equi_cf(pers_cf: torch.Tensor, grids: Pers2EquiGrids) -> torch.Tensor:

@@ -1,10 +1,15 @@
-"""Times of quad_spread and up2x at the main paths' shapes, one JSON line.
+"""Times of quad_blend, quad_spread and up2x at the main paths' shapes, one
+JSON line.
 
     python -m omnifusion_torch.tools.bench_kernels
     PYTHONPATH=other_checkout python omnifusion_torch/tools/bench_kernels.py
     python -m omnifusion_torch.tools.bench_kernels --device cpu --erp_size 64,128 --patchsize 32
 
 At the flagship config (512x1024 ERP, patch 128, fov 80, nrows 4):
+quad_blend at the merge (2 channels, f16 and f32) and at equi2pers (3
+channels, bf16 and f32) at each of ``--blend_batches`` panoramas, beside its
+bound (``blend_bound``) and torch.sparse.mm on a pixel-major copy of the
+source; equi2pers itself (the blend and its result in the ERP's dtype);
 quad_spread at the merge's backward (f32 cotangent, ``--train_batch``
 panoramas) and up2x summed over the decoder's five upsamples (``--batch``
 panoramas), in f32 and in the bf16 recipe (the first upsample f32, the rest
@@ -27,11 +32,14 @@ import torch
 import omnifusion_torch
 from omnifusion_torch.cli.infer import pair_arg
 from omnifusion_torch.device import resolve_device
-from omnifusion_torch.ops.quad_blend import quad_spread
+from omnifusion_torch.ops.quad_blend import quad_blend, quad_spread
 from omnifusion_torch.ops.upsample import up2x
-from omnifusion_torch.projection import ProjectionSpec
-from omnifusion_torch.projection.ops import pers2equi_tables
-from omnifusion_torch.utils.profiling import bound_ms, gpu_line, nbytes, time_ms
+from omnifusion_torch.projection import ProjectionSpec, equi2pers
+from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
+from omnifusion_torch.projection.spec import build_equi2pers_grids
+from omnifusion_torch.utils.profiling import (
+    blend_bound, blend_matrix, bound_ms, gpu_line, nbytes, time_ms,
+)
 
 # the decoder's upsamples: (channels, input side / patch side); the
 # flagship's patch 128 gives sides 4, 8, 16, 32, 64
@@ -42,6 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="quad_spread and up2x times (PyTorch port)")
     ap.add_argument("--batch", type=int, default=2, help="panoramas per forward (up2x)")
     ap.add_argument("--train_batch", type=int, default=8, help="panoramas per step (quad_spread)")
+    ap.add_argument("--blend_batches", default="2,64,256", help="panoramas per quad_blend call")
     ap.add_argument("--erp_size", type=pair_arg, default=(512, 1024))
     ap.add_argument("--patchsize", type=pair_arg, default=(128, 128))
     ap.add_argument("--iters", type=int, default=20)
@@ -54,6 +63,34 @@ def run(args) -> dict:
     timer = lambda fn: time_ms(fn, device, iters=args.iters, warmup=3)  # noqa: E731
     spec = ProjectionSpec.create(args.erp_size, args.patchsize, (80.0, 80.0), 4)
     rng = np.random.default_rng(0)
+    blend = {}
+    grids = build_equi2pers_grids(spec)
+    for case, tables, c, cl, dtypes in (
+        ("merge", pers2equi_tables(spec, device), 2, False, (torch.float16, torch.float32)),
+        ("e2p", equi2pers_tables(spec, device), 3, True, (torch.bfloat16, torch.float32)),
+    ):
+        for b in (int(v) for v in args.blend_batches.split(",")):
+            shape = (b, tables.n_in, c) if cl else (b, c, tables.n_in)
+            x32 = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(device)
+            for dtype in dtypes:
+                x = x32.to(dtype)
+                out = quad_blend(x, tables, channel_last=cl)
+                row = {"shape": list(shape), "ms": timer(lambda: quad_blend(x, tables, channel_last=cl)),
+                       "bound_ms": blend_bound(x, tables, out)[0]}
+                del out
+                if cl:  # the public op: its result in the ERP's dtype
+                    erp = x.reshape(b, spec.erp_h, spec.erp_w, c)
+                    row["equi2pers_ms"] = timer(lambda: equi2pers(erp, grids))
+                if device.type == "cuda":  # the CPU has no 16-bit sparse product
+                    w_csr = blend_matrix(tables, dtype)
+                    dense = (x.permute(1, 0, 2) if cl else x.permute(2, 0, 1)).reshape(tables.n_in, -1)
+                    dense = dense.contiguous()
+                    row["library_ms"] = timer(lambda: torch.sparse.mm(w_csr, dense))
+                    del w_csr, dense
+                blend[f"{case}_{str(dtype)[6:]}_b{b}"] = row
+            del x32, x
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
     t = pers2equi_tables(spec, device).vjp
     cot = torch.from_numpy(rng.random((args.train_batch, 2, t.n_out), dtype=np.float32)).to(device)
     spread = {"shape": list(cot.shape), "ms": timer(lambda: quad_spread(cot, t))}
@@ -77,7 +114,7 @@ def run(args) -> dict:
         "port": os.path.dirname(os.path.abspath(omnifusion_torch.__file__)),
         "gpu": gpu_line() if device.type == "cuda" else None,
         "timed_on": "cuda events" if device.type == "cuda" else "cpu host clock",
-        "quad_spread": spread, "up2x": ups,
+        "quad_blend": blend, "quad_spread": spread, "up2x": ups,
     }
 
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from omnifusion_torch.ops import quad_blend as qb
 from omnifusion_torch.ops.quad_blend import (
     HEAVY_THRESHOLD,
     BlendTables,
@@ -23,9 +24,11 @@ from omnifusion_torch.ops.quad_blend import (
 )
 from omnifusion_torch.ops.probe import probe, probe_plain
 from omnifusion_torch.ops.upsample import up2x, up2x_adjoint, up2x_adjoint_plain, up2x_plain
-from omnifusion_torch.projection import ProjectionSpec
+from omnifusion_torch.projection import ProjectionSpec, equi2pers
 from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
-from omnifusion_torch.projection.spec import TransposedTables, build_vjp_tables
+from omnifusion_torch.projection.spec import (
+    TransposedTables, build_equi2pers_grids, build_vjp_tables,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -111,6 +114,116 @@ def test_kernel_wraps_corners_modulo_n_in(cuda):
     got = quad_blend(x, tables)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, quad_blend_plain(x, tables), rtol=0, atol=2e-6)
+    # with a tail at the last pixel and ragged tiles (1,000 outputs in rows
+    # of 50), in every dtype
+    n_out = 1000
+    idx = rng.integers(n_in - 2 * w, n_in, size=(n_out, 2)).astype(np.int32)
+    tables = BlendTables.create(
+        idx, rng.random((n_out, 2, 4)).astype(np.float32) / 8, w, n_in, cuda,
+        tail_ptr=np.arange(n_out + 1, dtype=np.int32), tail_pix=np.arange(n_out, dtype=np.int32),
+        tail_idx=np.full(n_out, n_in - 1, np.int32),
+        tail_w=rng.random((n_out, 4)).astype(np.float32) / 8, out_w=50,
+    )
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        x = torch.rand(3, 5, n_in, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+        torch.testing.assert_close(quad_blend(x, tables), quad_blend_plain(x, tables),
+                                   rtol=0, atol=2e-6)
+
+
+def _blend_source(tables, rows: int, channel_last: bool, dtype, seed: int = 11):
+    """A source of ``rows`` rows: (rows, N_in, 3) channel-last batches of 3
+    rows each, or (1, rows, N_in) channel-first."""
+    shape = (rows, tables.n_in, 3) if channel_last else (1, rows, tables.n_in)
+    return torch.rand(shape, generator=torch.Generator().manual_seed(seed)).to("cuda", dtype)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["merge", "e2p"])
+def test_blend_kernel_rows_past_the_chunk(cuda, layout, dtype, rows):
+    # row counts that no chunk of staged rows divides: the last chunk is short
+    cl = layout == "e2p"
+    tables = equi2pers_tables(SPEC, cuda) if cl else pers2equi_tables(SPEC, cuda)
+    x = _blend_source(tables, rows, cl, dtype)
+    before = quad_blend.launches
+    got = quad_blend(x, tables, channel_last=cl)
+    torch.cuda.synchronize()
+    assert quad_blend.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, quad_blend_plain(x, tables, channel_last=cl), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_blend_kernel_five_quads_per_pixel(cuda, staged):
+    # nrows 5 (a golden configuration): capped K = 3 plus up to 2 tail
+    # entries, past the 4 quads a pixel of the flagship keeps in registers
+    tables = pers2equi_tables(ProjectionSpec.create((128, 256), (32, 32), (80, 80), 5), cuda)
+    assert tables.tiles.entries == 5
+    x = _blend_source(tables, 40, False, torch.float16)
+    torch.testing.assert_close(qb._blend_kernel(x, tables, False, staged=staged),
+                               quad_blend_plain(x, tables), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("layout", ["merge", "e2p"])
+def test_blend_kernel_768_rows(cuda, layout):
+    # bench.py's widest call: 768 rows (e2p, bf16) and the merge's 512 and more
+    cl = layout == "e2p"
+    tables = equi2pers_tables(SPEC, cuda) if cl else pers2equi_tables(SPEC, cuda)
+    dtype = torch.bfloat16 if cl else torch.float16
+    x = _blend_source(tables, 256 if cl else 768, cl, dtype)
+    torch.testing.assert_close(quad_blend(x, tables, channel_last=cl),
+                               quad_blend_plain(x, tables, channel_last=cl), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_blend_kernel_stores_the_source_dtype(cuda, dtype):
+    # equi2pers's store: the f32 sums rounded once, bit for bit the cast of
+    # the f32 result; and two calls give the same bits
+    tables = equi2pers_tables(SPEC, cuda)
+    x = _blend_source(tables, 5, True, dtype)
+    got = quad_blend(x, tables, channel_last=True, out_dtype=dtype)
+    again = quad_blend(x, tables, channel_last=True, out_dtype=dtype)
+    f32 = quad_blend(x, tables, channel_last=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got, f32.to(dtype)) and torch.equal(got, again)
+    erp = torch.rand(2, SPEC.erp_h, SPEC.erp_w, 3, device=cuda).to(dtype)
+    out = equi2pers(erp, build_equi2pers_grids(SPEC))
+    assert out.dtype == dtype
+    assert torch.equal(out.reshape(2, -1, 3),
+                       quad_blend(erp.reshape(2, -1, 3), tables, channel_last=True).to(dtype))
+
+
+@pytest.mark.parametrize("layout", ["merge", "e2p"])
+def test_blend_kernel_same_bits_every_call(cuda, layout):
+    cl = layout == "e2p"
+    tables = equi2pers_tables(SPEC, cuda) if cl else pers2equi_tables(SPEC, cuda)
+    x = _blend_source(tables, 9, cl, torch.float32)
+    first, second = (quad_blend(x, tables, channel_last=cl) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_blend_kernel_gathers_from_global_memory_too(cuda):
+    # the unstaged variant (measurement only) computes the same function
+    for cl, tables in ((False, pers2equi_tables(SPEC, cuda)), (True, equi2pers_tables(SPEC, cuda))):
+        x = _blend_source(tables, 7, cl, torch.bfloat16)
+        got = qb._blend_kernel(x, tables, cl, staged=False)
+        torch.testing.assert_close(got, quad_blend_plain(x, tables, channel_last=cl),
+                                   rtol=0, atol=2e-6)
+
+
+def test_blend_kernel_reads_zero_weight_corners(cuda):
+    # a NaN read with weight 0 gives NaN, in the kernel as in the plain version
+    tables = pers2equi_tables(SPEC, cuda)
+    x = _blend_source(tables, 2, False, torch.float32)
+    w4 = tables.w4.cpu()
+    n, k, q = [int(v[0]) for v in torch.nonzero(w4 == 0, as_tuple=True)]
+    j = (int(tables.idx[n, k]) + (0, 1, SPEC.patch_w, SPEC.patch_w + 1)[q]) % tables.n_in
+    x[0, 0, j] = float("nan")
+    got, want = quad_blend(x, tables), quad_blend_plain(x, tables)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[0, 0, n])) and bool(torch.isnan(want[0, 0, n]))
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
 
 
 UP2X_SHAPES = [(3, 8, 4, 4), (2, 32, 16, 16), (1, 3, 7, 5), (2, 3, 1, 1), (1, 2, 1, 4),

@@ -74,11 +74,21 @@ def test_profile_forward(capsys, train):
 
 
 def test_bench_kernels(capsys):
-    bench_kernels.main(SMALL[:-2] + ["--batch", "1", "--train_batch", "1", "--iters", "1"])
+    bench_kernels.main(SMALL[:-2] + ["--batch", "1", "--train_batch", "1", "--iters", "1",
+                                     "--blend_batches", "1,3"])
     out = capsys.readouterr().out.splitlines()
     assert len(out) == 1
     line = json.loads(out[0])
     assert line["gpu"] is None and line["timed_on"] == "cpu host clock"
+    blend = line["quad_blend"]
+    assert sorted(blend) == sorted(f"{case}_b{b}" for case in ("merge_float16", "merge_float32",
+                                                              "e2p_bfloat16", "e2p_float32")
+                                   for b in (1, 3))
+    assert blend["merge_float16_b3"]["shape"] == [3, 2, 18 * 32 * 32]
+    assert blend["e2p_float32_b1"]["shape"] == [1, 64 * 128, 3]
+    for r in blend.values():
+        assert r["ms"] > 0 and r["bound_ms"] > 0 and "library_ms" not in r  # no card, no library
+    assert all(r["equi2pers_ms"] > 0 for k, r in blend.items() if k.startswith("e2p"))
     assert line["quad_spread"]["shape"] == [1, 2, 64 * 128] and line["quad_spread"]["ms"] > 0
     for recipe, dtypes in (("f32", ["float32"] * 5), ("bf16", ["float32"] + ["bfloat16"] * 4)):
         rows = line["up2x"][recipe]["shapes"]
@@ -123,3 +133,17 @@ def test_blend_matrix_is_the_blend():
     n_bytes = sum(x.numel() * x.element_size() for x in (
         src, want, t.idx, t.w4, t.tail_ptr, t.tail_idx, t.tail_w))
     assert by == "bytes" and ms == n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def test_blend_variants_patch_the_kernel_as_it_stands():
+    # each copy takes out one part of csrc/quad_blend.cu by a text patch, so
+    # each patched text occurs there once; the tool needs the card
+    from omnifusion_torch.ops import _build
+    from omnifusion_torch.tools import blend_variants
+
+    with open(f"{_build.CSRC}/quad_blend.cu") as f:
+        text = f.read()
+    assert [text.count(old) for _, old, _ in blend_variants.PATCHES] == [1] * 3
+    assert blend_variants.build_parser().parse_args([]).batches == "64,256"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        blend_variants.main([])
