@@ -6,8 +6,11 @@
 Builds the port's CUDA kernels from omnifusion_torch/csrc/ (one nvcc per
 source, started together), launches the toolchain probe, holds each kernel
 against its plain PyTorch version at the shapes the main paths give it (f32
-and the bf16 recipe's dtypes), then drives the paths at the flagship config
-(512x1024 ERP, patch 128, fov 80, nrows 4, seeded random weights):
+and the bf16 recipe's dtypes; the iterative model's quarter-resolution
+equi2pers of a 1-channel depth and its channel-last backward; the merge at
+nrows 6, fov 90, whose pixels hold more quads than the blend kernel keeps
+in registers), then drives the paths at the flagship config (512x1024 ERP,
+patch 128, fov 80, nrows 4, seeded random weights):
 
 - serving: a few panoramas through omnifusion_torch.cli.infer.run_infer in
   f32, checked against the same forward with the plain versions on the card
@@ -17,6 +20,12 @@ and the bf16 recipe's dtypes), then drives the paths at the flagship config
   through omnifusion_torch.cli.train.run_training, and one train step
   checked against the same step with every kernel and backward on its plain
   version, and against the CPU at a small size;
+- the iterative model (2 passes): serve_iterative serves the panoramas
+  through run_infer --model iterative in f32 and the bf16 recipe, held as
+  serving and serve_bf16 hold the one-shot model's, every pass;
+  train_iterative trains a few steps at batch 8, validates and saves through
+  run_training --model iterative, and holds one step against the plain
+  versions;
 - the measurement entry points, each in this process and each with its
   kernel launches counted: omnifusion_torch/bench.py at batches 2, 8, 64
   and 256 (its batch-2 and batch-8 runs are the bf16 rows of the forward
@@ -30,8 +39,9 @@ Then it times each kernel beside its bound, its plain version and one
 library call that computes the same function (quad_blend also at bench.py's
 batches 8, 64 and 256, and swept over its tile shape, its staged rows and
 staging itself; quad_spread also split into its light and heavy launches by
-the profiler, and swept over the heavy threshold), and the forward (f32,
-TF32, bf16 recipe) and the train step end to end.
+the profiler, and swept over the heavy threshold; the iterative model's
+calls and the nrows 6 merge too), and the forward (f32, TF32, bf16 recipe)
+and the train step end to end, of both models.
 
 Prints one JSON object per phase, then the card's name and power limit as
 nvidia-smi gives them, then the last line
@@ -47,6 +57,7 @@ except the timings labelled tf32; the bf16 recipe's convolutions are bf16.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import dataclasses
@@ -89,6 +100,14 @@ UP2X_BF16_RTOL = 2.0**-7
 # checks of each kernel against its plain version (the check phase)
 BF16_RATIO, BF16_RATIO_CPU, BF16_SHARE = 1.5, 2.0, 1e-4
 WITNESS_ERP, WITNESS_DEPTH = (256, 512), 2
+# the iterative model: passes; the quarter-resolution equi2pers's batches in
+# the check phase; the merge whose pixels hold more quads than the blend
+# kernel keeps in registers (9 at 512x1024, patch 128)
+ITERS, E2P_Q_BATCHES = 2, (2, 8, 64)
+# serve_iterative's bf16 statistics pool the batch and copies of it moved
+# by one bf16 ulp at a random half of its values, one per seed
+BF16_NUDGES = (5, 6, 7)
+N6_FOV, N6_NROWS = 90.0, 6
 WITNESS_STAGES = ((64, 1, 1), (128, 1, 2), (256, 1, 2), (512, 1, 2))
 # quad_spread's time rows: the heavy threshold T and the load above which a
 # heavy pixel takes a whole block, swept
@@ -243,12 +262,18 @@ def counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def per_run(forwards: int, steps: int = 0) -> dict:
+def per_run(forwards: int, steps: int = 0, passes: int = 1) -> dict:
     """The launches of ``forwards`` forwards and ``steps`` train steps (each
-    step one forward more, and its backward)."""
+    step one forward more, and its backward) of a model of ``passes``
+    passes (the one-shot model: 1). A forward blends the ERP into patches,
+    and per pass runs the decoder's 5 upsamples and one merge; each pass
+    after the first blends the previous depth into quarter-resolution
+    patches. The backward spreads through every blend but the first (the
+    ERP takes no gradient) and runs each upsample's adjoint."""
     fwd = forwards + steps
-    return {"quad_blend": 2 * fwd, "up2x": 5 * fwd, "quad_spread": steps,
-            "up2x_adjoint": 5 * steps, "probe": 0}
+    return {"quad_blend": 2 * passes * fwd, "up2x": 5 * passes * fwd,
+            "quad_spread": (2 * passes - 1) * steps, "up2x_adjoint": 5 * passes * steps,
+            "probe": 0}
 
 
 def straddling_tables(threshold: int, row_stride: int = 128, rows: int = 512,
@@ -341,28 +366,35 @@ def nudged(batch: dict, seed: int) -> dict:
 
 
 def as_f64(model, batch: dict, state_dict: dict):
-    """The arguments of loss_and_grads in float64 (the model in place)."""
+    """The arguments of loss_and_grads in float64 (the model in place, its
+    buffers too)."""
     model = model.double()
-    model.geo = model.geo.double()
     return (model, {k: v.double() for k, v in batch.items()},
             {k: v.double() if v.is_floating_point() else v for k, v in state_dict.items()})
 
 
-def loss_and_grads(model, batch, state_dict, train: bool = True) -> tuple[float, dict]:
+def loss_and_grads(model, batch, state_dict, train: bool = True,
+                   confidence: bool = True) -> tuple[float, dict]:
     """One forward, BerHu loss and backward from ``state_dict``: in train
     mode (the train step's), or with the BatchNorms on the running
-    statistics of ``state_dict``."""
+    statistics of ``state_dict``. The iterative model's loss is the mean
+    over its passes, as the trainer's; the gradients of the parameters
+    that take none (its confidence head without ``confidence``) are left
+    out."""
     from omnifusion_torch.losses import berhu_loss
     from omnifusion_torch.training import forward_loss
 
     model.load_state_dict(state_dict)
     model.zero_grad(set_to_none=True)
     if train:
-        loss, _ = forward_loss(model, batch)
+        loss, _ = forward_loss(model, batch, confidence)
     else:
-        loss = berhu_loss(model.eval()(batch["rgb"]), batch["depth"], batch["mask"])
+        out = model.eval()(batch["rgb"], confidence=confidence)
+        preds = out if isinstance(out, list) else [out]
+        loss = torch.stack([berhu_loss(p, batch["depth"], batch["mask"]) for p in preds]).mean()
     loss.backward()
-    return loss.item(), {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+    return loss.item(), {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()
+                         if p.grad is not None}
 
 
 def grad_parity(a, b) -> dict:
@@ -398,7 +430,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from omnifusion_torch import bench
     from omnifusion_torch.cli import infer, train
-    from omnifusion_torch.models import SphericalFusion, init_weights
+    from omnifusion_torch.models import SphericalFusion, SphericalFusionIterative, init_weights
     from omnifusion_torch.ops import _build
     from omnifusion_torch.ops.probe import probe, probe_plain
     from omnifusion_torch.ops import quad_blend as qb
@@ -407,9 +439,9 @@ def main() -> int:
         overflow_load, quad_blend, quad_blend_plain, quad_spread, quad_spread_plain,
     )
     from omnifusion_torch.ops.upsample import up2x, up2x_adjoint, up2x_adjoint_plain, up2x_plain
-    from omnifusion_torch.projection import ProjectionSpec
+    from omnifusion_torch.projection import ProjectionSpec, equi2pers
     from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
-    from omnifusion_torch.projection.spec import build_vjp_tables
+    from omnifusion_torch.projection.spec import build_equi2pers_grids, build_vjp_tables
     from omnifusion_torch.tools import bench_components, bench_kernels, bench_merge, profile_forward
     from omnifusion_torch.training import create_train_state, train_step
     from omnifusion_torch.utils.profiling import (
@@ -645,6 +677,63 @@ def main() -> int:
     del x
     torch.cuda.empty_cache()
 
+    # ---- the iterative model's call patterns, and the merge at nrows 6,
+    # fov 90, whose pixels hold up to 9 quads (one past the kernel's
+    # register budget: the rest are read from global memory) ----
+    spec_q = spec.with_patch_scale(4)
+    spec_n6 = ProjectionSpec.create(ERP, PATCH, (N6_FOV, N6_FOV), N6_NROWS)
+    t0 = time.perf_counter()
+    t_q, t_n6 = equi2pers_tables(spec_q, dev), pers2equi_tables(spec_n6, dev)
+    emit({"phase": "tables_iterative", "seconds": time.perf_counter() - t0,
+          "e2p_q": {"patch": spec_q.patch_h, "n_out": t_q.n_out, "k": t_q.k,
+                    "tile": list(t_q.tiles.shape), "entries": t_q.tiles.entries,
+                    "footprint_per_output": t_q.tiles.footprint,
+                    "staged": t_q.tiles.footprint <= qb.STAGE_MAX_FOOTPRINT,
+                    "k_t": t_q.vjp.k_t, "overflow": t_q.vjp.n_over,
+                    "heavy_pixels": t_q.vjp.heavy.numel()},
+          "merge_n6": {"nrows": N6_NROWS, "fov": N6_FOV, "k": t_n6.k,
+                       "tail_entries": t_n6.n_tail, "entries": t_n6.tiles.entries,
+                       "register_budget": qb.MAX_ENTRIES,
+                       "footprint_per_output": t_n6.tiles.footprint,
+                       "staged": t_n6.tiles.footprint <= qb.STAGE_MAX_FOOTPRINT}})
+    if t_n6.tiles.entries <= qb.MAX_ENTRIES:
+        raise AssertionError(f"the nrows 6 merge holds {t_n6.tiles.entries} quads per pixel")
+    x_n6 = torch.rand(BATCH, 2, t_n6.n_in, device=dev, generator=g)
+    for dtype in (torch.float32, torch.float16):
+        x = x_n6.to(dtype)
+        want = quad_blend_plain(x, t_n6)
+        note("quad_blend", check("quad_blend", f"merge_n6_{str(dtype)[6:]}", quad_blend(x, t_n6),
+                                 want, BLEND_TOL, entries=t_n6.tiles.entries))
+        for staged in (True, False):
+            note("quad_blend", check("quad_blend", f"merge_n6_{str(dtype)[6:]}_staged_{staged}",
+                                     qb._blend_kernel(x, t_n6, False, staged=staged), want,
+                                     BLEND_TOL, entries=t_n6.tiles.entries))
+    # the quarter-resolution equi2pers of a 1-channel f32 depth (the
+    # feedback), at each batch; its tables weight no wrapped corner, so the
+    # same call pattern (channel-last, 1 channel) goes through the wrapped
+    # table too
+    grids_q = build_equi2pers_grids(spec_q)
+    for b in E2P_Q_BATCHES:
+        depth = torch.rand(b, *ERP, 1, device=dev, generator=g) * 7 + 0.3
+        note("quad_blend", check(
+            "quad_blend", f"e2p_q_b{b}", equi2pers(depth, grids_q).reshape(b, -1, 1),
+            quad_blend_plain(depth.reshape(b, -1, 1), t_q, channel_last=True), BLEND_TOL,
+            BLEND_TOL))
+    x = torch.rand(BATCH, n_erp, 1, device=dev, generator=g)
+    note("quad_blend", check("quad_blend", "wrapped_corners_c1",
+                             quad_blend(x, wrap, channel_last=True),
+                             quad_blend_plain(x, wrap, channel_last=True), BLEND_TOL))
+    # its backward: channel-last quad_spread, 1 channel, on its transposed tables
+    atol, rtol = SPREAD_TOL[torch.float32]
+    for b in (BATCH, TRAIN_BATCH):
+        cot = torch.rand(b, t_q.n_out, 1, device=dev, generator=g)
+        note("quad_spread", check("quad_spread", f"e2p_q_b{b}",
+                                  quad_spread(cot, t_q.vjp, channel_last=True),
+                                  quad_spread_plain(cot, t_q.vjp, channel_last=True), atol, rtol,
+                                  overflow=t_q.vjp.n_over))
+    del x, x_n6, want, depth, cot
+    torch.cuda.empty_cache()
+
     # ---- serving: panoramas through the entry point ----
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as tmp:
         inputs = os.path.join(tmp, "panos")
@@ -842,6 +931,200 @@ def main() -> int:
         raise AssertionError(f"train step cuda vs cpu: {par}, {par_rs}")
     del m
 
+    # ---- serve_iterative: the iterative model (2 passes) through the entry
+    # point, f32 and the bf16 recipe, from the same panoramas. The seeded
+    # weights with their heads tamed (tame_heads) go in as a checkpoint:
+    # untamed, the first pass's depth reaches 1e3-6e4 and the second's
+    # overflows the recipe's f16 merge ----
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as tmp:
+        inputs = os.path.join(tmp, "panos")
+        os.makedirs(inputs)
+        for i, f in enumerate(frames):
+            np.save(os.path.join(inputs, f"pano{i}.npy"), f)
+        argv_it = ["--input", inputs, "--seed", "0", "--device", DEVICE, "--batch", str(BATCH),
+                   "--erp_size", f"{ERP[0]},{ERP[1]}", "--patchsize", str(PATCH),
+                   "--fov", str(FOV), "--nrows", str(NROWS), "--model", "iterative",
+                   "--iter", str(ITERS)]
+        ckpt = os.path.join(tmp, "iterative_tamed.pt")
+        sd_it = tame_heads(infer.build_model(infer.build_parser().parse_args(argv_it))
+                           .state_dict())
+        torch.save(sd_it, ckpt)
+        argv_it += ["--checkpoint", ckpt]
+        args_it = infer.build_parser().parse_args(argv_it + ["--save_path",
+                                                             os.path.join(tmp, "out")])
+        zero_counts()
+        t0 = time.perf_counter()
+        written_it = infer.run_infer(args_it)
+        serve_it_s = time.perf_counter() - t0
+        serve_it_launches = counts()
+        depths_it = [np.load(w) for w in written_it]
+        args_it_bf16 = infer.build_parser().parse_args(argv_it + [
+            "--bf16", "--merge_dtype", "f16", "--save_path", os.path.join(tmp, "out_bf16")])
+        zero_counts()
+        t0 = time.perf_counter()
+        written_it_bf16 = infer.run_infer(args_it_bf16)
+        serve_it_bf16_s = time.perf_counter() - t0
+        serve_it_bf16_launches = counts()
+        depths_it_bf16 = [np.load(w) for w in written_it_bf16]
+        # the served weights, for the parity below
+        model_it, model_it_bf16 = infer.build_model(args_it), infer.build_model(args_it_bf16)
+    per_forward_it = per_run(n_forwards, passes=ITERS)
+    for d in depths_it + depths_it_bf16:
+        if d.shape != ERP or not np.isfinite(d).all() or (d < 0).any():
+            raise AssertionError(f"bad depth: shape {d.shape}, finite {np.isfinite(d).all()}")
+    # f32: the same forward with the plain versions on the card, each pass
+    # and the served last pass, at serve's bounds
+    batch_it = torch.from_numpy(np.stack(frames[:BATCH])).to(dev)
+    with torch.inference_mode():
+        kern = [p[..., 0].cpu().numpy() for p in model_it(batch_it)]
+        with plain_versions():
+            plain = [p[..., 0].cpu().numpy() for p in model_it(batch_it)]
+    pass_stats = [rel_stats(k, p) for k, p in zip(kern, plain)]
+    served_stats = rel_stats(np.stack(depths_it[:BATCH]), plain[-1])
+    # the CUDA path against the CPU path at the small size, full depth,
+    # heads tamed (untamed, the depth there is 0 almost everywhere)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        m = SphericalFusionIterative(small, num_iters=ITERS, device=device)
+        m.load_state_dict(tame_heads(init_weights(m, 0).state_dict()))
+        m.eval()
+        with torch.inference_mode():
+            outs.append([p[..., 0].cpu().numpy() for p in m(x_small.to(device))])
+    small_stats = [rel_stats(c, h) for c, h in zip(*outs)]
+    # the recipe: each pass's distance from the f32 forward, kernels against
+    # plain versions, at the flagship and at the witness configuration (card
+    # against CPU), as serve_bf16 holds the one-shot's. Pass 2 reads pass
+    # 1's bf16 depth: three quarters of its pixels lie more than 0.02 from
+    # f32 and its share above 0.05 sits on a steep slope, which the rounding
+    # of pass 1 moves either way (one card, the same weights, the input and
+    # the input moved by one bf16 ulp at a random half of its values under
+    # three seeds: kernels 1.56, 1.12, 0.82, 1.28%, plain versions 1.00,
+    # 0.97, 1.02, 1.17%). So the statistics pool the batch and
+    # BF16_NUDGES such moved copies of it
+    inputs = [batch_it]
+    for seed in BF16_NUDGES:
+        rgb16 = batch_it.cpu().bfloat16()
+        pick = torch.rand(rgb16.shape, generator=torch.Generator().manual_seed(seed)) < 0.5
+        inputs.append(torch.where(pick, torch.nextafter(rgb16, rgb16 + 1), rgb16).float().to(dev))
+    def passes(model, x):  # per pass, the depth of every input, pooled
+        with torch.inference_mode():
+            out = [model(xi) for xi in x]
+        return [np.concatenate([o[i][..., 0].cpu().numpy() for o in out]) for i in range(ITERS)]
+
+    f32, kern16 = passes(model_it, inputs), passes(model_it_bf16, inputs)
+    with plain_versions():
+        plain16 = passes(model_it_bf16, inputs)
+    del model_it, model_it_bf16
+    k_stats = [rel_stats(k, f) for k, f in zip(kern16, f32)]
+    p_stats = [rel_stats(p, f) for p, f in zip(plain16, f32)]
+    w_out = {}
+    for device in (dev, torch.device("cpu")):
+        for dt, mdt in ((None, None), (torch.bfloat16, torch.float16)):
+            m = SphericalFusionIterative(wspec, num_iters=ITERS, depth=WITNESS_DEPTH,
+                                         encoder_stages=WITNESS_STAGES, dtype=dt, merge_dtype=mdt,
+                                         device=device)
+            m.load_state_dict(tame_heads(init_weights(m, 0).state_dict()))
+            with torch.inference_mode():
+                w_out[device.type, dt] = [p[..., 0].cpu().numpy()
+                                          for p in m.eval()(x_w.to(device))]
+    w_card, w_cpu = ([rel_stats(a, b) for a, b in zip(w_out[d, torch.bfloat16], w_out[d, None])]
+                     for d in (dev.type, "cpu"))
+    del m, w_out
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_iterative", "passes": ITERS, "panoramas": len(written_it),
+          "batch": BATCH, "forwards": n_forwards, "seconds_with_model_build": serve_it_s,
+          "launches": serve_it_launches, "launches_expected": per_forward_it,
+          "heads": "tamed",
+          "parity_vs_plain_on_card": {"precision": "f32 (tf32 off)", "passes": pass_stats,
+                                      "served": served_stats},
+          "parity_cuda_vs_cpu_small": {"erp": list(SMALL_ERP), "patch": SMALL_PATCH,
+                                       "passes": small_stats},
+          "bf16": {"recipe": "bf16 trunk + f16 merge", "panoramas": len(written_it_bf16),
+                   "seconds_with_model_build": serve_it_bf16_s,
+                   "launches": serve_it_bf16_launches,
+                   "pooled_inputs": len(inputs),
+                   "kernels_vs_f32": k_stats, "plain_vs_f32": p_stats,
+                   "kernels_vs_plain": [rel_stats(k, p) for k, p in zip(kern16, plain16)],
+                   "ratio_bound": BF16_RATIO,
+                   "witness_config": {"card_vs_f32": w_card, "cpu_vs_f32": w_cpu,
+                                      "ratio_bound": BF16_RATIO_CPU, "share_slack": BF16_SHARE},
+                   "served_vs_served_f32": rel_stats(np.stack(depths_it_bf16),
+                                                     np.stack(depths_it))}})
+    for launches in (serve_it_launches, serve_it_bf16_launches):
+        if launches != per_forward_it:
+            raise AssertionError(f"iterative serve launches {launches}, expected "
+                                 f"{ITERS * 2} blend and {ITERS * 5} up2x per forward")
+    for i, (ps, ss) in enumerate(zip(pass_stats, small_stats)):
+        assert_parity(ps, f"iterative pass {i + 1} vs plain forward")
+        assert_parity(ss, f"iterative pass {i + 1}, cuda vs cpu at the small size")
+    assert_parity(served_stats, "served iterative depth vs plain forward")
+    for i in range(ITERS):
+        for key in ("median_rel", "q999_rel", "frac_rel_gt_0.05"):
+            slack = BF16_SHARE if key == "frac_rel_gt_0.05" else 0.0
+            if not k_stats[i][key] <= BF16_RATIO * p_stats[i][key] + slack:
+                raise AssertionError(f"iterative bf16 pass {i + 1} {key}: kernels {k_stats[i]}, "
+                                     f"plain {p_stats[i]}")
+            if not w_card[i][key] <= BF16_RATIO_CPU * w_cpu[i][key] + slack:
+                raise AssertionError(f"iterative bf16 pass {i + 1} at the witness configuration "
+                                     f"{key}: card {w_card[i]}, cpu {w_cpu[i]}")
+
+    # ---- train_iterative: steps, a validation pass and checkpoints through
+    # the entry point, then one step held against the plain versions ----
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as tmp:
+        argv = ["--dataset", "synthetic", "--synthetic_size", str(n_train), "--epochs", "1",
+                "--batch", str(TRAIN_BATCH), "--erp_size", f"{ERP[0]},{ERP[1]}",
+                "--patchsize", str(PATCH), "--fov", str(FOV), "--nrows", str(NROWS),
+                "--seed", "0", "--device", DEVICE, "--workers", "4", "--model", "iterative",
+                "--iter", str(ITERS), "--save_path", os.path.join(tmp, "run")]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        history_it = train.run_training(train.build_parser().parse_args(argv))
+        train_it_s = time.perf_counter() - t0
+        train_it_launches = counts()
+        train_it_peak = torch.cuda.max_memory_allocated()
+        ckpts = sorted(os.listdir(os.path.join(tmp, "run", "ckpt")))
+    want_it = per_run(val_forwards, TRAIN_STEPS, ITERS)
+    emit({"phase": "train_iterative", "passes": ITERS, "batch": TRAIN_BATCH,
+          "steps": history_it["steps"], "validation_forwards": val_forwards,
+          "train_loss": history_it["train_loss"], "val": history_it["val"],
+          "checkpoints": ckpts, "seconds_with_model_build": train_it_s,
+          "max_memory_allocated_bytes": train_it_peak, "launches": train_it_launches,
+          "launches_expected": want_it})
+    if history_it["steps"] != TRAIN_STEPS or not np.isfinite(history_it["train_loss"]).all():
+        raise AssertionError(f"iterative train run: {history_it}")
+    if train_it_launches != want_it:
+        raise AssertionError(f"iterative train launches {train_it_launches}, expected {want_it}")
+    if ckpts != ["best.pt", "latest.pt"]:
+        raise AssertionError(f"checkpoints: {ckpts}")
+    # one step (the CLI's default merge, without the confidence), kernels
+    # against plain versions, with the float64 and one-ulp witnesses
+    model = init_weights(SphericalFusionIterative(spec, num_iters=ITERS, device=dev), 0)
+    sd0 = tame_heads(copy.deepcopy(model.state_dict()))
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic_cudnn():
+        kern = loss_and_grads(model, tb, sd0, confidence=False)
+        sd1 = copy.deepcopy(model.state_dict())
+        kern_rs = loss_and_grads(model, tb, sd1, train=False, confidence=False)
+        with plain_versions():
+            plain = [loss_and_grads(model, b, sd0, confidence=False) for b in (tb, tb_nudged)]
+            plain_rs = [loss_and_grads(model, b, sd1, train=False, confidence=False)
+                        for b in (tb, tb_nudged)]
+            f64 = loss_and_grads(*as_f64(model, tb, sd0), confidence=False)
+            f64_rs = loss_and_grads(*as_f64(model, tb, sd1), train=False, confidence=False)
+    del model
+    torch.cuda.empty_cache()
+    par, ok = step_parity(kern, plain[0], f64, plain[1])
+    par_rs, ok_rs = step_parity(kern_rs, plain_rs[0], f64_rs, plain_rs[1])
+    emit({"phase": "train_iterative_parity_vs_plain_on_card", "batch": TRAIN_BATCH,
+          "heads": "tamed", "confidence": False, "precision": "f32 (tf32 off), cuDNN deterministic",
+          "loss_tol": LOSS_TOL, "f64_ratio": F64_RATIO, "ulp_ratio": ULP_RATIO,
+          "median_tol_running_stats": GRAD_TOL, "train_mode": par, "running_stats": par_rs,
+          "max_memory_allocated_bytes_with_float64": torch.cuda.max_memory_allocated()})
+    if not (ok and ok_rs and par_rs["grad_rel_median"] < GRAD_TOL):
+        raise AssertionError(f"iterative train step vs plain versions: {par}, {par_rs}")
+    del kern, kern_rs, plain, plain_rs, f64, f64_rs
+
     # ---- kernel timings: the f32 path's calls (on_path), and the bf16
     # recipe's (recipe "bf16": e2p in bf16, the merge in f16, the decoder's
     # upsamples in bf16 but the first) ----
@@ -858,6 +1141,17 @@ def main() -> int:
             (f"merge_f16_b{b}", lambda b=b: torch.rand(b, 2, t_p2e.n_in, device=dev, generator=g)
              .half(), t_p2e, False, "bf16"),
         ]
+    # the iterative model's calls off the one-shot path (recipe names the
+    # path): the quarter-resolution equi2pers of an f32 depth, and the merge
+    # at nrows 6, fov 90
+    blend_cases += [(f"e2p_q_b{b}", lambda b=b: torch.rand(b, n_erp, 1, device=dev, generator=g)
+                     * 7 + 0.3, t_q, True, "iterative") for b in E2P_Q_BATCHES]
+    blend_cases += [
+        ("merge_n6_f32", lambda: torch.rand(BATCH, 2, t_n6.n_in, device=dev, generator=g), t_n6,
+         False, "nrows6"),
+        (f"merge_n6_f16_b{MERGE_BATCH}", lambda: torch.rand(
+            MERGE_BATCH, 2, t_n6.n_in, device=dev, generator=g).half(), t_n6, False, "nrows6"),
+    ]
     sweep = []
     for name, x, tables, cl, recipe in blend_cases:
         x = x() if callable(x) else x
@@ -880,7 +1174,9 @@ def main() -> int:
             "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by,
         })
         del w_csr, dense
-        if recipe == "bf16":  # the sweep, at the recipe's dtypes and each batch
+        # the sweep, at the recipe's dtypes and each batch, and at the
+        # nrows 6 merge's widest call
+        if recipe == "bf16" or name == f"merge_n6_f16_b{MERGE_BATCH}":
             cpu = 3 if cl else 1
             units = x.shape[0] if cl else x.shape[0] * x.shape[1]
             plan = qb.blend_plan(tables.tiles, units, cpu, x.element_size())
@@ -899,8 +1195,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     emit({"phase": "sweep", "kernel": "quad_blend", "gpu": gpu,
           "kept": "each time row's tile, staged, chunk_units and unit_block", "rows": sweep})
+    cot_q = torch.rand(TRAIN_BATCH, t_q.n_out, 1, device=dev, generator=g)
     for name, cot, t, cl, on_path in (("merge_f32_b8", cot_merge, t_p2e.vjp, False, True),
-                                      ("e2p_b8", cot_e2p, t_e2p.vjp, True, False)):
+                                      ("e2p_b8", cot_e2p, t_e2p.vjp, True, False),
+                                      (f"e2p_q_b{TRAIN_BATCH}", cot_q, t_q.vjp, True, False)):
         out = quad_spread(cot, t, channel_last=cl)
         n_entries = int((t.w_t.sum(-1) > 0).sum().item()) + t.n_over
         b_ms, b_by = bound(
@@ -1034,6 +1332,52 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
 
+    # ---- end to end, the iterative model (2 passes): the forward in f32,
+    # TF32 and the bf16 recipe, and the train step, with its peak memory ----
+    it_times = {}
+    for label, tf32, a in (("f32", False, args_it), ("tf32", True, args_it),
+                           ("bf16", False, args_it_bf16)):
+        # the served weights (their checkpoint went with its directory)
+        model = infer.build_model(argparse.Namespace(**{**vars(a), "checkpoint": None}))
+        model.load_state_dict(sd_it)
+        torch.backends.cudnn.allow_tf32 = tf32
+        for b in TIMED_BATCHES:
+            x = torch.rand(b, *ERP, 3, device=dev, generator=g)
+            with torch.inference_mode():
+                ms = timer(lambda: model(x), iters=5, warmup=2)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    model(x)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+            it_times[f"{label}_b{b}"] = {"device_ms": ms, "wall_ms": wall_ms,
+                                         "panos_per_s": b / (wall_ms / 1e3)}
+        del model
+    pin_f32()
+    emit({"phase": "forward_iterative", "gpu": gpu, "passes": ITERS, "erp": list(ERP),
+          "patch": PATCH, "bf16": "bf16 trunk + f16 merge", **it_times})
+    step_it_times = {}
+    state = create_train_state(init_weights(SphericalFusionIterative(spec, device=dev), 0))
+    for label, tf32 in (("f32", False), ("tf32", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.cuda.reset_peak_memory_stats()
+        ms = timer(lambda: train_step(state, tb, False), iters=5, warmup=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            train_step(state, tb, False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+        step_it_times[label] = {"device_ms": ms, "wall_ms": wall_ms,
+                                "panos_per_s": TRAIN_BATCH / (wall_ms / 1e3),
+                                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    pin_f32()
+    emit({"phase": "train_step_iterative", "gpu": gpu, "passes": ITERS, "batch": TRAIN_BATCH,
+          "erp": list(ERP), "patch": PATCH, "confidence": False, **step_it_times})
+    del state
+    torch.cuda.empty_cache()
+
     # ---- the other measurement entry points, each run in this process ----
     zero_counts()
     lines = run_tool(bench_merge.main,
@@ -1092,6 +1436,18 @@ def main() -> int:
         rs = [r for r in rows[name] if r["on_path"]]
         bys = {r["bound_by"] for r in rs}
         recipe = [r for r in rows[name] if r.get("recipe") == "bf16" and r.get("batch", BATCH) == BATCH]
+        # the iterative model's calls per forward at batch 2 or step at
+        # batch 8: (time row, calls)
+        case = {r["case"]: r for r in rows[name]}
+        if name == "quad_blend":
+            it_rows = [(case["e2p"], 1), (case["merge_f32"], ITERS),
+                       (case[f"e2p_q_b{BATCH}"], ITERS - 1)]
+        elif name == "quad_spread":
+            it_rows = [(rs[0], ITERS), (case[f"e2p_q_b{TRAIN_BATCH}"], ITERS - 1)]
+        else:
+            it_rows = [(r, ITERS) for r in rs]
+        iterative = {f"{k}_iterative": sum(r[k] * n for r, n in it_rows)
+                     for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": train_launches[name],
@@ -1107,6 +1463,13 @@ def main() -> int:
             "ms_per": "forward at batch 2" if per == "forward" else f"train step at batch {TRAIN_BATCH}",
             **({"ms_bf16_recipe": sum(r["ms"] for r in recipe),
                 "bound_ms_bf16_recipe": sum(r["bound_ms"] for r in recipe)} if recipe else {}),
+            "launches_iterative": train_it_launches[name],
+            "launches_iterative_of": f"iterative training run ({ITERS} passes): {TRAIN_STEPS} "
+                                     f"steps at batch {TRAIN_BATCH}, {val_forwards} validation "
+                                     f"forwards",
+            f"launches_per_iterative_{per}": train_it_launches[name] / n_per,
+            "launches_serve_iterative": serve_it_launches[name],
+            **iterative,
         })
     kernels.append({
         "name": "probe", "route": "cuda", "source": "omnifusion_torch/csrc/probe.cu",

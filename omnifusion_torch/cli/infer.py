@@ -3,15 +3,19 @@
     python -m omnifusion_torch.cli.infer --input panos/ --checkpoint model.pt
     python -m omnifusion_torch.cli.infer --input 'panos/*.npy' --seed 0 --batch 4
     python -m omnifusion_torch.cli.infer --input panos/ --bf16 --merge_dtype f16
+    python -m omnifusion_torch.cli.infer --input panos/ --model iterative --iter 2
 
-The port's counterpart of ``omnifusion_tpu/cli/infer.py`` for the one-shot
-model. It builds the model once, loads a ``.pt`` state dict (the port's
-keys, e.g. from ``models.convert.state_dict_from_jax``) or fills seeded
-weights, and answers batches of panoramas. Each input is a ``.npy`` ERP
-image (H, W, 3) f32 in [0, 1] at the ``--erp_size`` resolution; each output
-is ``<save_path>/<stem>_depth.npy``, (H, W) f32 metres. ``--bf16`` runs the
-trunk in bf16 (``SphericalFusion(dtype=torch.bfloat16)``); with
-``--merge_dtype f16`` that is the JAX package's serving recipe.
+The port's counterpart of ``omnifusion_tpu/cli/infer.py``. It builds the
+model once (``--model oneshot``, or ``iterative`` with ``--iter`` passes),
+loads a ``.pt`` state dict (the port's keys, e.g. from
+``models.convert.state_dict_from_jax``) or fills seeded weights, and
+answers batches of panoramas. Each input is a ``.npy`` ERP image (H, W, 3)
+f32 in [0, 1] at the ``--erp_size`` resolution; each output is
+``<save_path>/<stem>_depth.npy``, (H, W) f32 metres: the iterative model's
+last pass. The one-shot model always merges confidence-weighted, the
+iterative one only with ``--confidence``, as in the JAX package. ``--bf16``
+runs the trunk in bf16 (``dtype=torch.bfloat16``); with ``--merge_dtype
+f16`` that is the JAX package's serving recipe.
 
 Runs on the CUDA card unless ``--device`` names another device.
 """
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from omnifusion_torch.device import resolve_device
-from omnifusion_torch.models import SphericalFusion, init_weights
+from omnifusion_torch.models import SphericalFusion, SphericalFusionIterative, init_weights
 from omnifusion_torch.projection import ProjectionSpec
 
 MERGE_DTYPES = {"f32": None, "f16": torch.float16, "bf16": torch.bfloat16}
@@ -42,8 +46,9 @@ def pair_arg(value: str) -> tuple[int, int]:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description="OmniFusion one-shot depth inference (PyTorch)")
+    parser = argparse.ArgumentParser(description="OmniFusion depth inference (PyTorch)")
     parser.add_argument("--input", required=True, help=".npy panorama, directory, or glob")
+    add_model_args(parser)
     parser.add_argument("--save_path", default="./results/run")
     parser.add_argument("--checkpoint", default=None, help=".pt state dict (else seeded weights)")
     parser.add_argument("--seed", type=int, default=42, help="weight seed without --checkpoint")
@@ -56,6 +61,30 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--bf16", action="store_true", help="bf16 trunk (f32 parameters)")
     parser.add_argument("--merge_dtype", default="f32", choices=sorted(MERGE_DTYPES))
     return parser
+
+
+def add_model_args(parser: argparse.ArgumentParser) -> None:
+    """The model flags that ``cli/infer.py`` and ``cli/train.py`` share
+    (``omnifusion_tpu/cli/common.py:61-63``)."""
+    parser.add_argument("--model", default="oneshot", choices=["oneshot", "iterative"])
+    parser.add_argument("--iter", dest="iters", type=int, default=2,
+                        help="refinement passes of --model iterative")
+    parser.add_argument("--confidence", action="store_true",
+                        help="confidence-weighted merge for --model iterative "
+                        "(the one-shot model always merges so)")
+
+
+def make_model(args, spec: ProjectionSpec, device, dtype=None):
+    """The model ``--model`` names, with PyTorch's default init."""
+    kw = dict(dtype=dtype, merge_dtype=MERGE_DTYPES[args.merge_dtype], device=device)
+    if args.model == "iterative":
+        return SphericalFusionIterative(spec, num_iters=args.iters, **kw)
+    return SphericalFusion(spec, **kw)
+
+
+def uses_confidence(args) -> bool:
+    """Whether the model merges confidence-weighted."""
+    return args.model == "oneshot" or args.confidence
 
 
 def list_inputs(inp: str) -> list[str]:
@@ -82,16 +111,11 @@ def output_stems(paths: list[str], save_path: str) -> list[str]:
     return stems
 
 
-def build_model(args) -> SphericalFusion:
+def build_model(args):
     """The eval-mode model the flags describe, with its weights."""
     device = resolve_device(args.device)
     spec = ProjectionSpec.create(args.erp_size, args.patchsize, (args.fov, args.fov), args.nrows)
-    model = SphericalFusion(
-        spec,
-        dtype=torch.bfloat16 if args.bf16 else None,
-        merge_dtype=MERGE_DTYPES[args.merge_dtype],
-        device=device,
-    )
+    model = make_model(args, spec, device, torch.bfloat16 if args.bf16 else None)
     if args.checkpoint:
         sd = torch.load(args.checkpoint, map_location=device, weights_only=True)
         model.load_state_dict(sd, strict=True)
@@ -103,6 +127,7 @@ def build_model(args) -> SphericalFusion:
 def run_infer(args) -> list[str]:
     """Answer every input panorama; returns the written depth paths."""
     model = build_model(args)
+    confidence = uses_confidence(args)
     device = next(model.parameters()).device
     h, w = model.spec.erp_h, model.spec.erp_w
     paths = list_inputs(args.input)
@@ -118,7 +143,8 @@ def run_infer(args) -> list[str]:
                 raise ValueError(f"{p}: expected an ({h}, {w}, 3) panorama, got {f.shape}")
         with torch.inference_mode():
             rgb = torch.from_numpy(np.stack(frames)).to(device)
-            depth = model(rgb)[..., 0].cpu().numpy()
+            out = model(rgb, confidence=confidence)
+            depth = (out[-1] if isinstance(out, list) else out)[..., 0].cpu().numpy()
         for stem, d in zip(stems[start : start + args.batch], depth):
             np.save(stem + "_depth.npy", d)
             written.append(stem + "_depth.npy")

@@ -1,16 +1,19 @@
-"""Training entry point for the one-shot model.
+"""Training entry point for the one-shot and the iterative model.
 
     python -m omnifusion_torch.cli.train --dataset synthetic --epochs 2 --batch 8
     python -m omnifusion_torch.cli.train --dataset synthetic --device cpu \
         --erp_size 64,128 --patchsize 32 --batch 2 --synthetic_size 4 --epochs 1
+    python -m omnifusion_torch.cli.train --dataset synthetic --model iterative --iter 2
 
 The port's counterpart of ``omnifusion_tpu/cli/train.py`` with the flags of
 ``omnifusion_tpu/cli/common.py`` that this path uses. Per epoch: train steps
 over shuffled batches, a ``latest`` checkpoint of the full train state, and
 every ``--val_interval`` epochs (and after the last) a validation pass with
 the depth metrics, logged to ``<save_path>/result_log.csv``; the state with
-the best abs_rel is also saved as ``best``. ``--checkpoint`` resumes from a
-checkpoint file this entry point wrote.
+the best abs_rel is also saved as ``best``. ``--model iterative`` trains on
+the mean loss over its passes and validates its last pass; it merges
+confidence-weighted only with ``--confidence`` (the one-shot model always).
+``--checkpoint`` resumes from a checkpoint file this entry point wrote.
 
 Only ``--dataset synthetic`` is ported; the weights start from
 ``--seed``. Runs on the CUDA card unless ``--device`` names another device.
@@ -25,11 +28,17 @@ import time
 
 import numpy as np
 
-from omnifusion_torch.cli.infer import MERGE_DTYPES, pair_arg
+from omnifusion_torch.cli.infer import (
+    MERGE_DTYPES,
+    add_model_args,
+    make_model,
+    pair_arg,
+    uses_confidence,
+)
 from omnifusion_torch.data import DataLoader, SyntheticDataset
 from omnifusion_torch.device import resolve_device
 from omnifusion_torch.evaluation import MetricAccumulator
-from omnifusion_torch.models import SphericalFusion, init_weights
+from omnifusion_torch.models import init_weights
 from omnifusion_torch.projection import ProjectionSpec
 from omnifusion_torch.training import (
     CheckpointManager,
@@ -44,8 +53,9 @@ METRICS = ("abs_rel", "sq_rel", "lin_rms_sq", "log_rms_sq", "d1", "d2", "d3")
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description="OmniFusion one-shot training (PyTorch)")
+    parser = argparse.ArgumentParser(description="OmniFusion training (PyTorch)")
     parser.add_argument("--dataset", default="synthetic", choices=["synthetic"])
+    add_model_args(parser)
     parser.add_argument(
         "--synthetic_size", type=int, default=None,
         help="sample count for --dataset synthetic (default 32 train / 8 eval)",
@@ -76,7 +86,7 @@ def run_training(args) -> dict:
     loss, the validation metrics, the best abs_rel and the update count."""
     device = resolve_device(args.device)
     spec = ProjectionSpec.create(args.erp_size, args.patchsize, (args.fov, args.fov), args.nrows)
-    model = SphericalFusion(spec, merge_dtype=MERGE_DTYPES[args.merge_dtype], device=device)
+    model, confidence = make_model(args, spec, device), uses_confidence(args)
     init_weights(model, args.seed)
 
     def dataset(train: bool):
@@ -96,7 +106,7 @@ def run_training(args) -> dict:
         restore_file(state, args.checkpoint)
 
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"## model: oneshot  params: {n_params / 1e6:.1f}M  patches: {spec.n_patches}  "
+    print(f"## model: {args.model}  params: {n_params / 1e6:.1f}M  patches: {spec.n_patches}  "
           f"device: {device}")
 
     os.makedirs(args.save_path, exist_ok=True)
@@ -114,7 +124,7 @@ def run_training(args) -> dict:
             t0 = time.time()
             pending = []  # device scalars; read at the end of the epoch
             for batch in train_loader.to_device(device):
-                pending.append(train_step(state, batch)["loss"])
+                pending.append(train_step(state, batch, confidence)["loss"])
                 throughput.update(args.batch)
             losses = [float(v) for v in pending]
             mean_loss = float(np.mean(losses)) if losses else float("nan")
@@ -127,7 +137,7 @@ def run_training(args) -> dict:
             if (epoch + 1) % args.val_interval == 0 or epoch == args.epochs - 1:
                 acc = MetricAccumulator()
                 for batch in val_loader.to_device(device):
-                    m, n, _ = eval_step(model, batch)
+                    m, n, _ = eval_step(model, batch, confidence)
                     acc.update({k: float(v) for k, v in m.items()}, float(n))
                 avg = acc.averages()
                 history["val"].append({"epoch": epoch, **avg})

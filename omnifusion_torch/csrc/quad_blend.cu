@@ -60,7 +60,14 @@
 // - corners wrap modulo N_in, exactly as the JAX roll does: the host's
 //   footprint holds the wrapped pixel;
 // - a group that is not 16-byte aligned in memory (an odd source stride) or
-//   runs past N_in is copied element by element.
+//   runs past N_in is copied element by element;
+// - a pixel keeps at most 8 quads in registers (NE = 2, 4 or 8, the fewest
+//   that hold `entries`). Where a pixel holds more (nrows 6, fov 90: 9),
+//   one more instantiation (MORE) walks the quads past the 8th from global
+//   memory after the register-held ones, in the same row loop, reading their
+//   weights and offsets again for every row (L1 holds them): the order of
+//   summation stays slots, then tail in CSR order, and the paths with at
+//   most 8 quads compile as before.
 // What bounds it now (tools/blend_variants.py; numbers in PERF.md): at the
 // merge, its stores and staging take most of the time, its gathers from
 // shared memory (one 2- or 4-byte load per corner and row) the rest; at
@@ -116,9 +123,37 @@ struct Args {
   int64_t n_units, unit_block, n_in, n_out, row_stride, out_w;
 };
 
+// quad e of pixel n past the register-held ones (MORE), read from global
+// memory: its weights, and its corners' element offsets in a unit (staged:
+// in the tile's footprint). The kernel's register prologue keeps its own
+// copy of these loads: calling this there changed the machine code of the
+// instantiations without MORE
+template <bool STAGED>
+__device__ __forceinline__ float4 quad_from_global(const Args& a, int64_t n, int t0, int e,
+                                                   int cpu, int (&off)[4]) {
+  const bool slot = e < a.k_slots;
+  const int64_t m = slot ? n * a.k_slots + e : t0 + (e - a.k_slots);
+  if (STAGED) {
+    const short4 o = slot ? a.off[m] : a.tail_off[m];
+    off[0] = o.x * cpu;
+    off[1] = o.y * cpu;
+    off[2] = o.z * cpu;
+    off[3] = o.w * cpu;
+  } else {
+    const int64_t j = slot ? a.idx[m] : a.tail_idx[m];
+    const int64_t c[4] = {j, j + 1, j + a.row_stride, j + a.row_stride + 1};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      off[q] = static_cast<int>(c[q] >= a.n_in ? c[q] - a.n_in : c[q]) * cpu;
+    }
+  }
+  return slot ? a.w4[m] : a.tail_w[m];
+}
+
 // ONE: one element per pixel (cpu = 1, a (B, C, N) source), known when
-// compiling, so a unit's blend is straight-line code
-template <typename T, typename O, int NE, bool STAGED, bool ONE>
+// compiling, so a unit's blend is straight-line code. MORE: the pixels may
+// hold more than NE quads; those past the NE-th are read from global memory
+template <typename T, typename O, int NE, bool STAGED, bool ONE, bool MORE>
 __global__ void __launch_bounds__(kMaxThreads)
 quad_blend_kernel(const T* __restrict__ src, O* __restrict__ out, const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -247,6 +282,16 @@ quad_blend_kernel(const T* __restrict__ src, O* __restrict__ out, const Args a) 
                          w[e].w * to_f32(base[off[e][3] + ch]);
                 }
               }
+              if (MORE) {
+                for (int e = NE; e < n_e; ++e) {
+                  int off_e[4];
+                  const float4 w_e = quad_from_global<STAGED>(a, n, t0, e, cpu, off_e);
+                  acc += w_e.x * to_f32(base[off_e[0] + ch]) +
+                         w_e.y * to_f32(base[off_e[1] + ch]) +
+                         w_e.z * to_f32(base[off_e[2] + ch]) +
+                         w_e.w * to_f32(base[off_e[3] + ch]);
+                }
+              }
               o[ch] = from_f32<O>(acc);
             }
           }
@@ -257,7 +302,7 @@ quad_blend_kernel(const T* __restrict__ src, O* __restrict__ out, const Args a) 
   }
 }
 
-template <typename T, typename O, int NE, bool STAGED, bool ONE>
+template <typename T, typename O, int NE, bool STAGED, bool ONE, bool MORE>
 int launch(const void* src, void* out, const Args& a, int64_t n_tiles, int tile_h, int tile_w,
            cudaStream_t stream) {
   const int64_t smem = STAGED ? 2LL * a.chunk * a.pitch * a.cpu * sizeof(T) : 0;
@@ -266,7 +311,7 @@ int launch(const void* src, void* out, const Args& a, int64_t n_tiles, int tile_
       unit_blocks > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = quad_blend_kernel<T, O, NE, STAGED, ONE>;
+  auto kernel = quad_blend_kernel<T, O, NE, STAGED, ONE, MORE>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -277,15 +322,15 @@ int launch(const void* src, void* out, const Args& a, int64_t n_tiles, int tile_
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename O, int NE>
+template <typename T, typename O, int NE, bool MORE = false>
 int by_layout(bool staged, const void* src, void* out, const Args& a, int64_t n_tiles,
               int tile_h, int tile_w, cudaStream_t s) {
   if (a.cpu == 1) {
-    return staged ? launch<T, O, NE, true, true>(src, out, a, n_tiles, tile_h, tile_w, s)
-                  : launch<T, O, NE, false, true>(src, out, a, n_tiles, tile_h, tile_w, s);
+    return staged ? launch<T, O, NE, true, true, MORE>(src, out, a, n_tiles, tile_h, tile_w, s)
+                  : launch<T, O, NE, false, true, MORE>(src, out, a, n_tiles, tile_h, tile_w, s);
   }
-  return staged ? launch<T, O, NE, true, false>(src, out, a, n_tiles, tile_h, tile_w, s)
-                : launch<T, O, NE, false, false>(src, out, a, n_tiles, tile_h, tile_w, s);
+  return staged ? launch<T, O, NE, true, false, MORE>(src, out, a, n_tiles, tile_h, tile_w, s)
+                : launch<T, O, NE, false, false, MORE>(src, out, a, n_tiles, tile_h, tile_w, s);
 }
 
 template <typename T, typename O>
@@ -294,7 +339,7 @@ int by_entries(int entries, bool staged, const void* src, void* out, const Args&
   if (entries <= 2) return by_layout<T, O, 2>(staged, src, out, a, n_tiles, tile_h, tile_w, s);
   if (entries <= 4) return by_layout<T, O, 4>(staged, src, out, a, n_tiles, tile_h, tile_w, s);
   if (entries <= 8) return by_layout<T, O, 8>(staged, src, out, a, n_tiles, tile_h, tile_w, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_layout<T, O, 8, true>(staged, src, out, a, n_tiles, tile_h, tile_w, s);
 }
 
 template <typename T>
@@ -309,7 +354,8 @@ int by_output(bool same, int entries, bool staged, const void* src, void* out, c
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16; out_dtype: 0 or dtype.
 // The source is n_units units of n_in pixels of cpu elements each, the output
 // n_units units of n_out pixels. tail_ptr == nullptr: no tail. entries: the
-// most quads (slots + tail) of any output pixel, at most 8. The tile tables
+// most quads (slots + tail) of any output pixel (above 8, the quads past the
+// 8th are read from global memory for every row). The tile tables
 // (off, tail_off, grp_ptr, grp, pitch) come from ops/quad_blend.py:
 // tile_tables; staged = 0 reads idx and tail_idx instead. Returns the
 // cudaError_t of the launch (0 on success).

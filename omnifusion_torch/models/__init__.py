@@ -6,11 +6,13 @@ from omnifusion_torch.models.spherical_fusion import (
     init_weights,
 )
 from omnifusion_torch.models.convert import state_dict_from_jax
+from omnifusion_torch.models.iterative import SphericalFusionIterative
 from omnifusion_torch.models.resnet import ResNet34Encoder
 from omnifusion_torch.models.transformer import TransformerCascade
 
 __all__ = [
     "SphericalFusion",
+    "SphericalFusionIterative",
     "DepthTrunk",
     "MlpPoints",
     "confidence_merge",

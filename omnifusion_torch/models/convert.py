@@ -1,12 +1,15 @@
-"""Convert the JAX package's SphericalFusion variables to the port's state dict.
+"""Convert the JAX package's model variables to the port's state dict.
 
-``state_dict_from_jax(variables)`` takes the variables as a nested mapping of
-arrays (``{"params": ..., "batch_stats": ...}``, numpy or anything
-``np.asarray`` reads) and returns the port's state dict: the upstream
-checkpoint's key names (the names ``omnifusion_tpu/models/torch_export.py``
-writes) with 4-D conv kernels (O, I, kh, kw), plus ``up_proj.{weight,bias}``
-where the model has that projection. It loads into
-``omnifusion_torch.models.SphericalFusion`` with strict=True.
+``state_dict_from_jax(variables)`` takes the variables of a SphericalFusion
+or a SphericalFusionIterative as a nested mapping of arrays (``{"params":
+..., "batch_stats": ...}``, numpy or anything ``np.asarray`` reads) and
+returns the port's state dict: the upstream checkpoint's key names (the
+names ``omnifusion_tpu/models/torch_export.py`` writes) with 4-D conv
+kernels (O, I, kh, kw), plus ``up_proj.{weight,bias}`` where the model has
+that projection. The tree says which model it is: an iterative one has
+``mlp_points1`` and ``mlp_points2``, and its token projection goes to
+``down1``. The result loads into ``omnifusion_torch.models.SphericalFusion``
+or ``SphericalFusionIterative`` with strict=True.
 
 No JAX import: the mapping is names and axes only.
 """
@@ -82,12 +85,12 @@ def _transformer(sd, tp):
         i += 1
 
 
-def _trunk(sd, p, s):
+def _trunk(sd, p, s, down_name="down"):
     _encoder(sd, p["encoder"], s["encoder"])
-    for conv in ("down", "up_proj"):
+    for conv, name in (("down", down_name), ("up_proj", "up_proj")):
         if conv in p:
-            sd[f"{conv}.weight"] = _conv_w(p[conv]["kernel"])
-            sd[f"{conv}.bias"] = _t(p[conv]["bias"])
+            sd[f"{name}.weight"] = _conv_w(p[conv]["kernel"])
+            sd[f"{name}.bias"] = _t(p[conv]["bias"])
     _transformer(sd, p["transformer"])
     for stage in ("0_0", "0_1", "1_0", "1_1", "2_0", "2_1", "3_0", "3_1", "4_0"):
         t = f"de_conv{stage}"
@@ -98,17 +101,20 @@ def _trunk(sd, p, s):
         sd[f"{head}.bias"] = _t(p[head]["bias"])
 
 
-def _mlp_points(sd, p, s):
-    sd["mlp_points.0.weight"] = _conv_w(p["conv1"]["kernel"])
-    _bn(sd, "mlp_points.1", p["bn1"], s["bn1"])
-    sd["mlp_points.3.weight"] = _conv_w(p["conv2"]["kernel"])
-    _bn(sd, "mlp_points.4", p["bn2"], s["bn2"])
+def _mlp_points(sd, prefix, p, s):
+    sd[f"{prefix}.0.weight"] = _conv_w(p["conv1"]["kernel"])
+    _bn(sd, f"{prefix}.1", p["bn1"], s["bn1"])
+    sd[f"{prefix}.3.weight"] = _conv_w(p["conv2"]["kernel"])
+    _bn(sd, f"{prefix}.4", p["bn2"], s["bn2"])
 
 
 def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX SphericalFusion variables -> the port's SphericalFusion state dict."""
+    """JAX SphericalFusion or SphericalFusionIterative variables -> the
+    port's state dict of the same model."""
     p, s = variables["params"], variables["batch_stats"]
     sd: dict[str, torch.Tensor] = {}
-    _trunk(sd, p["trunk"], s["trunk"])
-    _mlp_points(sd, p["mlp_points"], s["mlp_points"])
+    iterative = "mlp_points1" in p
+    _trunk(sd, p["trunk"], s["trunk"], "down1" if iterative else "down")
+    for name in ("mlp_points1", "mlp_points2") if iterative else ("mlp_points",):
+        _mlp_points(sd, name, p[name], s[name])
     return sd

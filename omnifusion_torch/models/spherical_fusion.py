@@ -71,9 +71,12 @@ class DepthTrunk(ResNet34Encoder):
     """Shared encoder/transformer/decoder/heads over a folded patch stack.
 
     ``trunk(x, point_feat, b)``: x (B*P, 3, h, w) and point_feat
-    (P, 64, h/4, w/4) -> (pred, conf), each (B*P, 1, h, w), in ``dtype``
-    (None: f32).
+    (P, 64, h/4, w/4), shared by the batch, or (B*P, 64, h/4, w/4) ->
+    (pred, conf), each (B*P, 1, h, w), in ``dtype`` (None: f32). The token
+    projection sits at ``DOWN``, the upstream checkpoint's name for it.
     """
+
+    DOWN = "down"
 
     def __init__(
         self,
@@ -91,7 +94,7 @@ class DepthTrunk(ResNet34Encoder):
         c1, c2, c3, c4 = (s[0] for s in stages)
         hh, ww = patch_size[0] // 32, patch_size[1] // 32
         self.emb = 32 * hh * ww
-        self.down = torch_conv(c4, 32, 1, use_bias=True, dtype=dtype, device=device)
+        setattr(self, self.DOWN, torch_conv(c4, 32, 1, use_bias=True, dtype=dtype, device=device))
         self.transformer = TransformerCascade(
             self.emb, n_patches, depth=depth, num_heads=num_heads, device=device
         )
@@ -118,7 +121,9 @@ class DepthTrunk(ResNet34Encoder):
         p = bp // b
         if self.dtype is not None:
             x = x.to(self.dtype)
-        pf = point_feat.expand(b, *point_feat.shape).reshape(bp, *point_feat.shape[1:])
+        pf = point_feat
+        if pf.shape[0] != bp:  # one per patch, shared by the batch
+            pf = pf.expand(b, *pf.shape).reshape(bp, *pf.shape[1:])
         feats = self.encode(x, pf.to(x.dtype))
         conv1, l1, l2, l3, l4 = (
             feats[k] for k in ("conv1", "layer1", "layer2", "layer3", "layer4")
@@ -126,7 +131,7 @@ class DepthTrunk(ResNet34Encoder):
 
         # global fusion: one channel-major-flattened token per patch; the
         # tokens come out of the transformer in f32 (transformer.py)
-        tok = self.down(l4).reshape(b, p, self.emb)
+        tok = getattr(self, self.DOWN)(l4).reshape(b, p, self.emb)
         tok = self.transformer(tok)
         if self.emb == l4.shape[1]:
             # bf16 + f32 promotes to f32, as in JAX (spherical_fusion.py:147),

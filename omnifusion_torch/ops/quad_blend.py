@@ -69,7 +69,8 @@ _MAX_ROWS = 8 * 65535  # quad_spread: grid.y = ceil(rows / 8) must fit the launc
 # (double-buffered); fewer rows where the largest footprint would take more
 # than BLOCK_SMEM bytes (four blocks of 256 threads on an SM), and the call
 # raises where one row does not fit SMEM_BYTES, a block's most; a pixel keeps
-# at most MAX_ENTRIES quads (slots + tail) in registers. The staging pays
+# at most MAX_ENTRIES quads (slots + tail) in registers, and the kernel reads
+# those past them from global memory for every row. The staging pays
 # where the footprint holds at most STAGE_MAX_FOOTPRINT staged pixels per
 # output pixel (the merge: 1.4, at every batch); else (equi2pers, 4.6: it
 # samples the ERP at about one pixel in three) the kernel gathers from
@@ -479,8 +480,6 @@ def _blend_kernel(
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     if out_dtype not in (torch.float32, src.dtype):
         raise TypeError(f"quad_blend: stores f32 or the source's dtype, not {out_dtype}")
-    if tiles.entries > MAX_ENTRIES:
-        raise ValueError(f"quad_blend: {tiles.entries} quads for one pixel, at most {MAX_ENTRIES}")
     if n_in * cpu >= 2**31:
         raise ValueError(f"quad_blend: {n_in} pixels of {cpu} elements pass 32-bit offsets")
     staged, chunk, unit_block = blend_plan(tiles, units, cpu, src.element_size(), staged,

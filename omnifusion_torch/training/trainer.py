@@ -89,20 +89,27 @@ def create_train_state(
     )
 
 
-def forward_loss(model: nn.Module, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def forward_loss(
+    model: nn.Module, batch: dict, confidence: bool = True
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Train-mode forward and BerHu loss: (loss, pred). batch: rgb
-    (B, H, W, 3), depth and mask (B, H, W, 1)."""
+    (B, H, W, 3), depth and mask (B, H, W, 1). A model that returns a list
+    of predictions (the iterative one, a depth per pass) is trained on the
+    mean of their losses, and pred is the last pass (trainer.py:107-117 of
+    the JAX package)."""
     model.train()
-    pred = model(batch["rgb"])
-    return berhu_loss(pred, batch["depth"], batch["mask"]), pred
+    out = model(batch["rgb"], confidence=confidence)
+    preds = out if isinstance(out, (list, tuple)) else [out]
+    losses = [berhu_loss(p, batch["depth"], batch["mask"]) for p in preds]
+    return torch.stack(losses).mean(), preds[-1]
 
 
-def train_step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
+def train_step(state: TrainState, batch: dict, confidence: bool = True) -> dict[str, torch.Tensor]:
     """One update; returns loss, grad_norm (global L2 norm of all the
     gradients) and pred_mean as 0-d tensors on the model's device, so that
-    the caller decides when to sync."""
+    the caller decides when to sync. ``confidence``: the model's merge."""
     state.optimizer.zero_grad(set_to_none=True)
-    loss, pred = forward_loss(state.model, batch)
+    loss, pred = forward_loss(state.model, batch, confidence)
     loss.backward()
     grads = [p.grad for p in state.model.parameters() if p.grad is not None]
     grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -114,11 +121,12 @@ def train_step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
     return {"loss": loss.detach(), "grad_norm": grad_norm, "pred_mean": pred.detach().mean()}
 
 
-def eval_step(model: nn.Module, batch: dict):
-    """Eval-mode forward and the median-scaled depth metrics:
-    (metrics, N, pred)."""
+def eval_step(model: nn.Module, batch: dict, confidence: bool = True):
+    """Eval-mode forward and the median-scaled depth metrics of its
+    prediction, or of its last pass: (metrics, N, pred)."""
     model.eval()
     with torch.inference_mode():
-        pred = model(batch["rgb"])
+        out = model(batch["rgb"], confidence=confidence)
+        pred = out[-1] if isinstance(out, (list, tuple)) else out
         metrics, n = compute_depth_metrics(pred, batch["depth"], batch["mask"])
     return metrics, n, pred

@@ -244,11 +244,13 @@ def test_out_dtype_rounds_the_f32_sums_once():
 def test_kernel_wrapper_refuses_what_the_kernel_cannot_hold():
     # checked before any launch, so a CPU tensor shows it
     rng = np.random.default_rng(7)
+    # a source whose pixel count is not the tables' (the kernel takes any
+    # count of quads per pixel: tests/test_torch_port_blend_entries.py)
     n_out, k = 64, MAX_ENTRIES + 1
     many = BlendTables.create(rng.integers(0, 90, (n_out, k)), np.full((n_out, k, 4), 0.01),
                               8, 96, CPU)
-    with pytest.raises(ValueError, match="quads for one pixel"):
-        qb._blend_kernel(torch.rand(1, 1, 96), many, False)
+    with pytest.raises(ValueError, match="source has 95 pixels"):
+        qb._blend_kernel(torch.rand(1, 1, 95), many, False)
     # 256 pixels whose corners spread over 2^20 source pixels: a footprint
     # of thousands of groups, 8 channels of f32 each, fits no block twice
     n_in = 2**20

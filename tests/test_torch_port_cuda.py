@@ -73,6 +73,26 @@ def straddling_tables(threshold: int, row_stride: int = 64, rows: int = 128, n_o
     return t, loads
 
 
+def many_entries_tables(device, n_out: int = 1000, heavy: int = 18, seed: int = 4) -> BlendTables:
+    """Random quads, K = 2 slots and a tail of 0 to 3 entries per pixel, but
+    ``heavy`` on pixel 5 and on the last pixel (a ragged tile: rows of 50),
+    so that those pixels hold 2 + ``heavy`` quads (20 by default); the tail's
+    quads lie on the last two source rows, so their corners wrap past N_in."""
+    rng = np.random.default_rng(seed)
+    n_in, w = 2048, 64
+    counts = rng.integers(0, 4, size=n_out)
+    counts[[5, n_out - 1]] = heavy
+    m = int(counts.sum())
+    return BlendTables.create(
+        rng.integers(0, n_in, size=(n_out, 2)).astype(np.int32),
+        rng.random((n_out, 2, 4), dtype=np.float32) / 24, w, n_in, device,
+        tail_ptr=np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+        tail_pix=np.repeat(np.arange(n_out), counts).astype(np.int32),
+        tail_idx=rng.integers(n_in - 2 * w, n_in, size=m).astype(np.int32),
+        tail_w=rng.random((m, 4), dtype=np.float32) / 24, out_w=50,
+    )
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -161,6 +181,77 @@ def test_blend_kernel_five_quads_per_pixel(cuda, staged):
     x = _blend_source(tables, 40, False, torch.float16)
     torch.testing.assert_close(qb._blend_kernel(x, tables, False, staged=staged),
                                quad_blend_plain(x, tables), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("staged", [True, False])
+def test_blend_kernel_nine_quads_per_pixel(cuda, staged, dtype):
+    # nrows 6, fov 90 at 512x1024, patch 128: capped K = 6 plus up to 3 tail
+    # entries, one past the 8 quads a pixel keeps in registers; the merge's
+    # 2 rows of batch 2, and 40 rows
+    spec = ProjectionSpec.create((512, 1024), 128, (90, 90), 6)
+    tables = pers2equi_tables(spec, cuda)
+    assert tables.tiles.entries == 9 > qb.MAX_ENTRIES
+    for rows in (4, 40):
+        x = _blend_source(tables, rows, False, dtype)
+        got = qb._blend_kernel(x, tables, False, staged=staged)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, quad_blend_plain(x, tables), rtol=0, atol=2e-6)
+    # the wrapper's own plan, through the model's merge
+    before = quad_blend.launches
+    quad_blend(x, tables)
+    assert quad_blend.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("layout", ["merge", "e2p", "e2p_c1"])
+def test_blend_kernel_twenty_quads_in_one_pixel(cuda, layout, staged, dtype):
+    # 12 quads past the register budget, on a pixel of a full tile and on
+    # the last pixel of a ragged one, corners wrapping; channel-last too,
+    # with 3 channels and with 1 (the iterative model's feedback)
+    tables = many_entries_tables(cuda)
+    assert tables.tiles.entries == 20
+    cl = layout != "merge"
+    x = _blend_source(tables, 7, cl, dtype)
+    if layout == "e2p_c1":
+        x = x[..., :1].contiguous()
+    got = qb._blend_kernel(x, tables, cl, staged=staged)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, quad_blend_plain(x, tables, channel_last=cl), rtol=0,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("batch", [2, 8, 64])
+def test_quarter_res_equi2pers(cuda, batch):
+    # the iterative model's feedback: a 1-channel f32 depth at the quarter
+    # patch resolution (patch 32 at the flagship), through equi2pers (its
+    # tables weight no wrapped corner: test_blend_kernel_twenty_quads_in_one_pixel
+    # has them with one channel)
+    spec = ProjectionSpec.create((512, 1024), 128, (80, 80), 4).with_patch_scale(4)
+    tables = equi2pers_tables(spec, cuda)
+    assert not tables.tiles.footprint <= qb.STAGE_MAX_FOOTPRINT  # gathered from global memory
+    depth = torch.rand(batch, 512, 1024, 1, generator=torch.Generator().manual_seed(8)).to(cuda)
+    depth = depth * 7 + 0.3
+    got = equi2pers(depth, build_equi2pers_grids(spec))
+    torch.cuda.synchronize()
+    assert got.shape == (batch, spec.n_patches, 32, 32, 1) and got.dtype == torch.float32
+    want = quad_blend_plain(depth.reshape(batch, -1, 1), tables, channel_last=True)
+    torch.testing.assert_close(got.reshape(batch, -1, 1), want, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+def test_spread_kernel_on_quarter_res_e2p_tables(cuda, batch):
+    # the feedback's backward: channel-last quad_spread, C = 1, on the
+    # quarter-resolution equi2pers's transposed tables (with an overflow)
+    spec = ProjectionSpec.create((512, 1024), 128, (80, 80), 4).with_patch_scale(4)
+    tables = equi2pers_tables(spec, cuda).vjp
+    assert tables.n_over > 0
+    cot = torch.rand(batch, tables.n_out, 1, generator=torch.Generator().manual_seed(9)).to(cuda)
+    got = quad_spread(cot, tables, channel_last=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, quad_spread_plain(cot, tables, channel_last=True),
+                               rtol=1.3e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("layout", ["merge", "e2p"])

@@ -29,6 +29,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "omnifusion_torch.models.spherical_fusion" in result["modules"]
+    assert "omnifusion_torch.models.iterative" in result["modules"]
     assert "omnifusion_torch.cli.infer" in result["modules"]
     assert {"omnifusion_torch.cli.train", "omnifusion_torch.training.trainer",
             "omnifusion_torch.data.loader", "omnifusion_torch.evaluation.metrics",

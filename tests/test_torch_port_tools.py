@@ -75,17 +75,22 @@ def test_profile_forward(capsys, train):
 
 def test_bench_kernels(capsys):
     bench_kernels.main(SMALL[:-2] + ["--batch", "1", "--train_batch", "1", "--iters", "1",
-                                     "--blend_batches", "1,3"])
+                                     "--blend_batches", "1,3", "--e2p_q_batches", "2"])
     out = capsys.readouterr().out.splitlines()
     assert len(out) == 1
     line = json.loads(out[0])
     assert line["gpu"] is None and line["timed_on"] == "cpu host clock"
     blend = line["quad_blend"]
-    assert sorted(blend) == sorted(f"{case}_b{b}" for case in ("merge_float16", "merge_float32",
-                                                              "e2p_bfloat16", "e2p_float32")
-                                   for b in (1, 3))
+    assert sorted(blend) == sorted(
+        [f"{case}_b{b}" for case in ("merge_float16", "merge_float32", "e2p_bfloat16",
+                                     "e2p_float32", "merge_n6_float16", "merge_n6_float32")
+         for b in (1, 3)] + ["e2p_q_float32_b2"])
     assert blend["merge_float16_b3"]["shape"] == [3, 2, 18 * 32 * 32]
     assert blend["e2p_float32_b1"]["shape"] == [1, 64 * 128, 3]
+    # the iterative model's feedback: a 1-channel depth into patches of 8
+    assert blend["e2p_q_float32_b2"]["shape"] == [2, 64 * 128, 1]
+    assert line["quad_spread"]["e2p_q"]["shape"] == [1, 18 * 8 * 8, 1]
+    assert line["quad_spread"]["e2p_q"]["ms"] > 0
     for r in blend.values():
         assert r["ms"] > 0 and r["bound_ms"] > 0 and "library_ms" not in r  # no card, no library
     assert all(r["equi2pers_ms"] > 0 for k, r in blend.items() if k.startswith("e2p"))
@@ -113,13 +118,16 @@ def test_throughput_counts_items_per_second(monkeypatch):
 
 def test_blend_matrix_is_the_blend():
     """The library yardstick (torch.sparse.mm on utils.profiling.blend_matrix)
-    computes the blend, tail included, and blend_bound counts its bytes."""
+    computes the blend, tail included, and blend_bound counts its bytes:
+    the source pixels it reads, not the whole source."""
     import torch
 
     from omnifusion_torch.ops.quad_blend import quad_blend_plain
     from omnifusion_torch.projection import ProjectionSpec
-    from omnifusion_torch.projection.ops import pers2equi_tables
-    from omnifusion_torch.utils.profiling import HBM_BYTES_PER_S, blend_bound, blend_matrix
+    from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
+    from omnifusion_torch.utils.profiling import (
+        HBM_BYTES_PER_S, blend_bound, blend_matrix, source_pixels,
+    )
 
     tables = pers2equi_tables(ProjectionSpec.create((64, 128), (32, 32), (80, 80), 4), "cpu")
     assert tables.n_tail > 0
@@ -128,11 +136,28 @@ def test_blend_matrix_is_the_blend():
     got = torch.sparse.mm(blend_matrix(tables), src.permute(2, 0, 1).reshape(tables.n_in, -1))
     torch.testing.assert_close(got.reshape(tables.n_out, 3, 2).permute(1, 2, 0), want,
                                rtol=0, atol=2e-6)
+    def read(t):  # the source pixels that a corner with weight reads
+        offs = torch.tensor([0, 1, t.row_stride, t.row_stride + 1])
+        pix = set(((t.idx.long()[..., None] + offs) % t.n_in)[t.w4 != 0].tolist())
+        if t.n_tail:
+            pix |= set(((t.tail_idx.long()[:, None] + offs) % t.n_in)[t.tail_w != 0].tolist())
+        return len(pix)
+
     ms, by = blend_bound(src, tables, want)
     t = tables
-    n_bytes = sum(x.numel() * x.element_size() for x in (
-        src, want, t.idx, t.w4, t.tail_ptr, t.tail_idx, t.tail_w))
+    assert source_pixels(t) == read(t) > 0.95 * t.n_in
+    n_bytes = 3 * 2 * read(t) * 4 + sum(x.numel() * x.element_size() for x in (
+        want, t.idx, t.w4, t.tail_ptr, t.tail_idx, t.tail_w))
     assert by == "bytes" and ms == n_bytes / HBM_BYTES_PER_S * 1e3
+    # the iterative model's quarter-resolution equi2pers reads a small part
+    # of its source
+    spec = ProjectionSpec.create((64, 128), (32, 32), (80, 80), 4).with_patch_scale(4)
+    t = equi2pers_tables(spec, "cpu")
+    assert source_pixels(t) == read(t) < t.n_in / 2
+    depth = torch.rand(2, t.n_in, 1, generator=torch.Generator().manual_seed(1))
+    out = quad_blend_plain(depth, t, channel_last=True)
+    n_bytes = 2 * read(t) * 4 + sum(x.numel() * x.element_size() for x in (out, t.idx, t.w4))
+    assert blend_bound(depth, t, out) == (n_bytes / HBM_BYTES_PER_S * 1e3, "bytes")
 
 
 def test_blend_variants_patch_the_kernel_as_it_stands():
