@@ -137,6 +137,21 @@ SPREAD_TOL = {torch.float32: (1e-5, 1.3e-4), torch.float16: (1e-5, 1e-3),
 # the largest difference at most ULP_RATIO times that move; with the
 # BatchNorms on running statistics the median is also held to GRAD_TOL
 LOSS_TOL, GRAD_TOL, F64_RATIO, ULP_RATIO = 1e-5, 1e-3, 1.5, 2.0
+# eval: panoramas per run (2 batches); each metric of the kernels' run within
+# EVAL_TOL (relative, at least absolute) of the plain versions' and of the
+# CPU's. train_bf16: the bf16 step's loss within BF16_LOSS_TOL of the plain
+# versions' (its gradients as step_parity holds the f32 steps, with a float64
+# run of the same weights and a one-bf16-ulp nudge of the input as witnesses)
+EVAL_PANOS, EVAL_TOL, BF16_LOSS_TOL = 4, 1e-4, 1e-3
+# the small eval's head scale (tame_heads): at 64x128 the default 0.05 leaves
+# a quarter (one-shot) and a tenth (iterative) of the depth at the ReLU's
+# edge, below 1e-3, where log_rms_sq's log magnifies the f32 rounding of the
+# card against the CPU's (a gap of 1.2e-4 there); 0.01 keeps every pixel
+# live. The flagship eval keeps the default, as serve_iterative does
+HEAD_SCALE, SMALL_EVAL_HEAD_SCALE = 0.05, 0.01
+# eval_rate: panoramas per rate run (EVAL_RATE_PANOS / BATCH batches, the
+# rate taken after the first) and rate runs per model, for the spread
+EVAL_RATE_PANOS, EVAL_RATE_RUNS = 64, 3
 
 
 def emit(obj) -> None:
@@ -342,7 +357,7 @@ def synthetic_batch(spec, b: int, device) -> dict:
     return {k: torch.from_numpy(np.stack(c)).to(device) for k, c in zip(("rgb", "depth", "mask"), cols)}
 
 
-def tame_heads(state_dict) -> dict:
+def tame_heads(state_dict, scale: float = HEAD_SCALE) -> dict:
     """Random weights saturate the heads: most of the ReLU depth is 0 and
     takes no gradient, and the sigmoid confidence is 1, so the merge's
     weighting takes none either. Scaling both head kernels and offsetting
@@ -351,7 +366,7 @@ def tame_heads(state_dict) -> dict:
     (tests/test_torch_port_train.py)."""
     sd = dict(state_dict)
     for head in ("pred", "weight_pred"):
-        sd[f"{head}.weight"] = sd[f"{head}.weight"] * 0.05
+        sd[f"{head}.weight"] = sd[f"{head}.weight"] * scale
     sd["pred.bias"] = sd["pred.bias"] + 2.0
     return sd
 
@@ -363,6 +378,15 @@ def nudged(batch: dict, seed: int) -> dict:
     g = torch.Generator(device=rgb.device).manual_seed(seed)
     pick = torch.rand(rgb.shape, device=rgb.device, generator=g) < 0.5
     return dict(batch, rgb=torch.where(pick, torch.nextafter(rgb, rgb + 1), rgb))
+
+
+def bf16_nudged(rgb: torch.Tensor, seed: int) -> torch.Tensor:
+    """``rgb`` rounded to bf16 (as the bf16 recipe casts it) and moved up by
+    one bf16 ulp at a random half of its values, back in f32 on its device:
+    a witness of how far bf16 rounding alone moves a forward or a step."""
+    rgb16 = rgb.cpu().bfloat16()
+    pick = torch.rand(rgb16.shape, generator=torch.Generator().manual_seed(seed)) < 0.5
+    return torch.where(pick, torch.nextafter(rgb16, rgb16 + 1), rgb16).float().to(rgb.device)
 
 
 def as_f64(model, batch: dict, state_dict: dict):
@@ -397,6 +421,56 @@ def loss_and_grads(model, batch, state_dict, train: bool = True,
                          if p.grad is not None}
 
 
+def upstream_checkpoint(state_dict: dict, path: str) -> None:
+    """Write the port's ``state_dict`` in the upstream layout: the Conv3d
+    (k, k, 1) kernels of the upstream model (mlp_points' convs are 2-D
+    there), the DataParallel ``module.`` prefix, a ``state_dict`` wrapper."""
+    sd = {}
+    for k, t in state_dict.items():
+        if t.ndim == 4 and not k.startswith("mlp_points"):
+            t = t[..., None]
+        sd["module." + k] = t.detach().cpu().contiguous()
+    torch.save({"state_dict": sd}, path)
+
+
+def eval_run(argv: list[str]) -> tuple[dict, float, dict, np.ndarray]:
+    """omnifusion_torch.cli.test.run_eval on ``argv`` in this process: the
+    metrics, the panoramas/s it prints, the kernel launches and the depth
+    of its last batch (B, H, W)."""
+    import re
+
+    import omnifusion_torch.training as training
+    from omnifusion_torch.cli import test as test_cli
+
+    parser = argparse.ArgumentParser()
+    test_cli.add_common_args(parser, train=False)
+    args = parser.parse_args(argv)
+    real, seen = training.eval_step, {}
+
+    def eval_step(model, batch, confidence=True):
+        out = real(model, batch, confidence)
+        seen["pred"] = out[2]
+        return out
+
+    training.eval_step = eval_step  # run_eval imports it at the call
+    zero_counts()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            avg = test_cli.run_eval(args)
+    finally:
+        training.eval_step = real
+    launches = counts()
+    line = next(x for x in buf.getvalue().splitlines() if x.startswith("## eval:"))
+    rate = float(re.search(r"([0-9.]+) panos/s", line).group(1))
+    return avg, rate, launches, seen["pred"][..., 0].float().cpu().numpy()
+
+
+def metric_gaps(ours: dict, ref: dict) -> dict:
+    """Per metric, the gap between two runs, relative where it is above 1."""
+    return {k: abs(ours[k] - ref[k]) / max(1.0, abs(ref[k])) for k in ref}
+
+
 def grad_parity(a, b) -> dict:
     (la, ga), (lb, gb) = a, b
     rels = {n: float((ga[n] - gb[n]).norm() / gb[n].norm().clamp_min(1e-30)) for n in gb}
@@ -406,17 +480,17 @@ def grad_parity(a, b) -> dict:
             "grad_rel_worst": worst, "tensors": len(rels)}
 
 
-def step_parity(ours, ref, f64, ref_nudged) -> tuple[dict, bool]:
+def step_parity(ours, ref, f64, ref_nudged, loss_tol: float = LOSS_TOL) -> tuple[dict, bool]:
     """``ours`` against ``ref`` (loss_and_grads results) with the witnesses
     of the tolerance comment: ``f64``, the same step in float64, and
-    ``ref_nudged``, ``ref`` on the nudged batch. Returns the numbers and
-    whether they hold."""
+    ``ref_nudged``, ``ref`` on the nudged batch; the loss within
+    ``loss_tol``, relative. Returns the numbers and whether they hold."""
     par, near, far = grad_parity(ours, ref), grad_parity(ours, f64), grad_parity(ref, f64)
     wit = grad_parity(ref, ref_nudged)
     out = {**par, "ours_vs_f64": near, "ref_vs_f64": far, "ref_vs_ref_nudged": wit}
     # ref may land nearer float64 than its own move under the nudge (an
     # order of sums that happens to round well): then that move is the scale
-    ok = (par["loss_rel"] < LOSS_TOL
+    ok = (par["loss_rel"] < loss_tol
           and all(near[k] <= F64_RATIO * max(far[k], wit[k])
                   for k in ("grad_rel_max", "grad_rel_median"))
           and par["grad_rel_max"] <= ULP_RATIO * wit["grad_rel_max"])
@@ -643,6 +717,12 @@ def main() -> int:
         x = torch.rand(BATCH * p, c, s, s, device=dev, generator=g).bfloat16()
         check("up2x", "x".join(map(str, x.shape)) + "_bf16", up2x(x), up2x_plain(x), 1e-6,
               UP2X_BF16_RTOL)
+    # the bf16 train step's backward: the adjoint of each bf16 decoder stage
+    # on bf16 cotangents at batch 8 (the first stage's is f32, above)
+    for c, s in up_shapes[1:]:
+        gy = torch.rand(TRAIN_BATCH * p, c, 2 * s, 2 * s, device=dev, generator=g).bfloat16()
+        check("up2x_adjoint", "x".join(map(str, gy.shape)) + "_bf16", up2x_adjoint(gy),
+              up2x_adjoint_plain(gy), 1e-6, UP2X_BF16_RTOL)
     # odd sides and sides that are not powers of two (the stores are then
     # element by element), f32 and bf16
     for shape in ((5, 3, 7, 33), (2, 4, 1, 9)):
@@ -1001,11 +1081,7 @@ def main() -> int:
     # three seeds: kernels 1.56, 1.12, 0.82, 1.28%, plain versions 1.00,
     # 0.97, 1.02, 1.17%). So the statistics pool the batch and
     # BF16_NUDGES such moved copies of it
-    inputs = [batch_it]
-    for seed in BF16_NUDGES:
-        rgb16 = batch_it.cpu().bfloat16()
-        pick = torch.rand(rgb16.shape, generator=torch.Generator().manual_seed(seed)) < 0.5
-        inputs.append(torch.where(pick, torch.nextafter(rgb16, rgb16 + 1), rgb16).float().to(dev))
+    inputs = [batch_it] + [bf16_nudged(batch_it, seed) for seed in BF16_NUDGES]
     def passes(model, x):  # per pass, the depth of every input, pooled
         with torch.inference_mode():
             out = [model(xi) for xi in x]
@@ -1125,6 +1201,171 @@ def main() -> int:
         raise AssertionError(f"iterative train step vs plain versions: {par}, {par_rs}")
     del kern, kern_rs, plain, plain_rs, f64, f64_rs
 
+    # ---- eval: omnifusion_torch.cli.test.run_eval, both models, from an
+    # upstream-layout checkpoint of the seeded weights (heads tamed), held
+    # against the same run on the plain versions; then the same eval at the
+    # small size, card against CPU. No PNG dumps (--visualize_interval 0):
+    # these phases import no cv2, PIL or matplotlib. eval_rate: the flagship
+    # eval's panoramas/s, EVAL_RATE_RUNS runs of EVAL_RATE_PANOS each ----
+    import importlib.util
+
+    from omnifusion_torch.data import SyntheticDataset
+
+    eval_forwards = -(-EVAL_PANOS // BATCH)
+    eval_launches = {}
+    ds = SyntheticDataset(2, *ERP, seed=0)
+    ds[0]
+    t0 = time.perf_counter()
+    ds[1]
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as tmp:
+        for name, flags, passes in (("oneshot", [], 1),
+                                    ("iterative", ["--model", "iterative", "--iter", str(ITERS)],
+                                     ITERS)):
+            base = ["--dataset", "synthetic", "--batch", str(BATCH), "--visualize_interval", "0",
+                    "--fov", str(FOV), "--nrows", str(NROWS)] + flags
+            cls = SphericalFusionIterative if passes > 1 else SphericalFusion
+            res, argv = {}, {}
+            for size, erp, patch, scale in (("flagship", ERP, PATCH, HEAD_SCALE),
+                                            ("small", SMALL_ERP, SMALL_PATCH,
+                                             SMALL_EVAL_HEAD_SCALE)):
+                m = init_weights(cls(ProjectionSpec.create(erp, patch, (FOV, FOV), NROWS),
+                                     device=dev), 0)
+                ckpt = os.path.join(tmp, f"{name}_{size}.pth")
+                upstream_checkpoint(tame_heads(m.state_dict(), scale), ckpt)
+                del m
+                argv[size] = base + ["--checkpoint", ckpt, "--erp_size", f"{erp[0]},{erp[1]}",
+                                     "--patchsize", str(patch),
+                                     "--save_path", os.path.join(tmp, name)]
+                a = argv[size] + ["--synthetic_size", str(EVAL_PANOS)]
+                res[size] = eval_run(a + ["--device", DEVICE])
+                if size == "flagship":
+                    with plain_versions():
+                        res["plain"] = eval_run(a + ["--device", DEVICE])
+                else:
+                    res["cpu"] = eval_run(a + ["--device", "cpu"])
+            eval_launches[name] = res["flagship"][2]
+            want_l = per_run(eval_forwards, passes=passes)
+            gaps = metric_gaps(res["flagship"][0], res["plain"][0])
+            depth_stats = rel_stats(res["flagship"][3], res["plain"][3])
+            emit({"phase": "eval", "model": name, "passes": passes, "panoramas": EVAL_PANOS,
+                  "batch": BATCH, "checkpoint": "upstream layout (Conv3d kernels, module., "
+                  "state_dict), seeded weights, heads tamed", "head_scale": HEAD_SCALE,
+                  "cv2_importable": importlib.util.find_spec("cv2") is not None,
+                  "metrics": res["flagship"][0], "metrics_plain": res["plain"][0],
+                  "metric_gaps": gaps, "tol": EVAL_TOL, "last_batch_vs_plain": depth_stats,
+                  "launches": res["flagship"][2], "launches_expected": want_l, "gpu": gpu})
+            if res["flagship"][2] != want_l:
+                raise AssertionError(f"eval {name}: launches {res['flagship'][2]}, "
+                                     f"expected {want_l}")
+            if max(gaps.values()) > EVAL_TOL:
+                raise AssertionError(f"eval {name} vs plain versions: {gaps}")
+            assert_parity(depth_stats, f"eval {name}: last batch vs plain versions")
+            small_gaps = metric_gaps(res["small"][0], res["cpu"][0])
+            emit({"phase": "eval_cuda_vs_cpu_small", "model": name, "erp": list(SMALL_ERP),
+                  "patch": SMALL_PATCH, "head_scale": SMALL_EVAL_HEAD_SCALE,
+                  "metrics": res["small"][0], "metrics_cpu": res["cpu"][0],
+                  "metric_gaps": small_gaps, "tol": EVAL_TOL,
+                  "last_batch": rel_stats(res["small"][3], res["cpu"][3])})
+            if max(small_gaps.values()) > EVAL_TOL:
+                raise AssertionError(f"eval {name}, cuda vs cpu at the small size: {small_gaps}")
+            for r in res.values():
+                if not all(np.isfinite(v) for v in r[0].values()):
+                    raise AssertionError(f"eval {name}: {r[0]}")
+            rate_forwards = -(-EVAL_RATE_PANOS // BATCH)
+            rates = []
+            for _ in range(EVAL_RATE_RUNS):
+                avg, rate, launches, _ = eval_run(
+                    argv["flagship"] + ["--synthetic_size", str(EVAL_RATE_PANOS),
+                                        "--device", DEVICE])
+                if launches != per_run(rate_forwards, passes=passes):
+                    raise AssertionError(f"eval_rate {name}: launches {launches}")
+                if not all(np.isfinite(v) for v in avg.values()):
+                    raise AssertionError(f"eval_rate {name}: {avg}")
+                rates.append(rate)
+            med = float(np.median(rates))
+            emit({"phase": "eval_rate", "model": name, "passes": passes,
+                  "panoramas": EVAL_RATE_PANOS, "batch": BATCH, "runs": EVAL_RATE_RUNS,
+                  "panos_per_s": rates, "panos_per_s_median": med,
+                  "spread_rel": (max(rates) - min(rates)) / med,
+                  "panos_per_s_of": f"cli.test.run_eval, f32 (TF32 off), {rate_forwards - 1} batches "
+                                    "after the first (metric syncs and the 2-thread loader "
+                                    "making synthetic panoramas included)",
+                  "host_ms_per_synthetic_panorama": sample_ms, "gpu": gpu})
+    torch.cuda.empty_cache()
+
+    # ---- train_bf16: the bf16 trunk (f32 parameters) with the f16 merge
+    # through the entry point, 3 steps, a validation pass and checkpoints;
+    # one step held against the plain versions; the step timed ----
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as tmp:
+        argv = ["--dataset", "synthetic", "--synthetic_size", str(n_train), "--epochs", "1",
+                "--batch", str(TRAIN_BATCH), "--erp_size", f"{ERP[0]},{ERP[1]}",
+                "--patchsize", str(PATCH), "--fov", str(FOV), "--nrows", str(NROWS),
+                "--seed", "0", "--device", DEVICE, "--workers", "4", "--bf16",
+                "--merge_dtype", "f16", "--save_path", os.path.join(tmp, "run")]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        history_bf16 = train.run_training(train.build_parser().parse_args(argv))
+        train_bf16_s = time.perf_counter() - t0
+        train_bf16_launches = counts()
+        train_bf16_peak = torch.cuda.max_memory_allocated()
+        ckpts = sorted(os.listdir(os.path.join(tmp, "run", "ckpt")))
+    want = per_run(val_forwards, TRAIN_STEPS)
+    if history_bf16["steps"] != TRAIN_STEPS or not np.isfinite(history_bf16["train_loss"]).all():
+        raise AssertionError(f"bf16 train run: {history_bf16}")
+    if train_bf16_launches != want:
+        raise AssertionError(f"bf16 train launches {train_bf16_launches}, expected {want}")
+    if ckpts != ["best.pt", "latest.pt"]:
+        raise AssertionError(f"checkpoints: {ckpts}")
+    # one step, kernels against plain versions; witnesses: the same weights
+    # in float64 without the bf16 casts (the function the recipe rounds),
+    # and the plain versions on the input moved by one bf16 ulp
+    model = init_weights(SphericalFusion(spec, dtype=torch.bfloat16, merge_dtype=torch.float16,
+                                         device=dev), 0)
+    sd0 = tame_heads(copy.deepcopy(model.state_dict()))
+    tb16_nudged = dict(tb, rgb=bf16_nudged(tb["rgb"], 5))
+    with deterministic_cudnn():
+        kern = loss_and_grads(model, tb, sd0)
+        with plain_versions():
+            plain = [loss_and_grads(model, b, sd0) for b in (tb, tb16_nudged)]
+            f64 = loss_and_grads(*as_f64(SphericalFusion(spec, device=dev), tb, sd0))
+    del model
+    torch.cuda.empty_cache()
+    par, ok = step_parity(kern, plain[0], f64, plain[1], loss_tol=BF16_LOSS_TOL)
+    del kern, plain, f64
+    # the step's time, peak memory and the kernels' device time in it
+    state = create_train_state(init_weights(SphericalFusion(
+        spec, dtype=torch.bfloat16, merge_dtype=torch.float16, device=dev), 0))
+    torch.cuda.reset_peak_memory_stats()
+    ms = timer(lambda: train_step(state, tb), iters=5, warmup=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        train_step(state, tb)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+    step_peak = torch.cuda.max_memory_allocated()
+    bf16_split = kernel_split_ms(lambda: train_step(state, tb), (
+        "quad_blend_kernel", "up2x_kernel", "quad_spread_kernel", "quad_spread_heavy_kernel",
+        "up2x_adjoint_kernel"), iters=5)
+    del state
+    torch.cuda.empty_cache()
+    emit({"phase": "train_bf16", "recipe": "bf16 trunk on f32 parameters + f16 merge",
+          "batch": TRAIN_BATCH, "steps": history_bf16["steps"],
+          "train_loss": history_bf16["train_loss"], "val": history_bf16["val"],
+          "checkpoints": ckpts, "seconds_with_model_build": train_bf16_s,
+          "max_memory_allocated_bytes": train_bf16_peak, "launches": train_bf16_launches,
+          "launches_expected": want, "heads": "tamed", "loss_tol": BF16_LOSS_TOL,
+          "f64_ratio": F64_RATIO, "ulp_ratio": ULP_RATIO, "nudge": "one bf16 ulp",
+          "parity_vs_plain_on_card": par, "gpu": gpu,
+          "step": {"device_ms": ms, "wall_ms": wall_ms,
+                   "panos_per_s": TRAIN_BATCH / (wall_ms / 1e3),
+                   "max_memory_allocated_bytes": step_peak},
+          "kernel_ms_per_step": bf16_split, "kernel_ms_from": "torch.profiler, 5 steps"})
+    if not ok:
+        raise AssertionError(f"bf16 train step vs plain versions: {par}")
+
     # ---- kernel timings: the f32 path's calls (on_path), and the bf16
     # recipe's (recipe "bf16": e2p in bf16, the merge in f16, the decoder's
     # upsamples in bf16 but the first) ----
@@ -1235,7 +1476,7 @@ def main() -> int:
             "library_max_abs_err": (lib_out - want_out).abs().max().item(),
             "bound_ms": b_ms, "bound_by": b_by,
         })
-    for b, recipe in ((BATCH, None), (BATCH, "bf16"), (TRAIN_BATCH, None)):
+    for b, recipe in ((BATCH, None), (BATCH, "bf16"), (TRAIN_BATCH, None), (TRAIN_BATCH, "bf16")):
         for i, (c, s) in enumerate(up_shapes):
             shape = (b * p, c, s, s)
             x = torch.rand(shape, device=dev, generator=g)
@@ -1253,11 +1494,14 @@ def main() -> int:
                     "bound_ms": b_ms, "bound_by": b_by,
                 })
             else:
-                gy = torch.rand(b * p, c, 2 * s, 2 * s, device=dev, generator=g)
+                # the bf16 train step's cotangents are bf16 but the first
+                # stage's (recipe "bf16")
+                gy = torch.rand(b * p, c, 2 * s, 2 * s, device=dev, generator=g).to(x.dtype)
                 b_ms, b_by = bound(nbytes(gy) + nbytes(x), 2.0 * 20 * x.numel())
                 size = [b * p, c, s, s]
                 rows["up2x_adjoint"].append({
-                    "case": "x".join(map(str, shape)), "shape": list(gy.shape), "on_path": True,
+                    "case": "x".join(map(str, shape)) + ("_bf16" if x.dtype != torch.float32 else ""),
+                    "shape": list(gy.shape), "on_path": recipe is None, "recipe": recipe,
                     "ms": timer(lambda: up2x_adjoint(gy)),
                     "plain_ms": timer(lambda: up2x_adjoint_plain(gy), iters=10),
                     "library_ms": timer(lambda: torch.ops.aten.upsample_bilinear2d_backward(
@@ -1421,6 +1665,10 @@ def main() -> int:
     # forwards), and per forward or step; the times: per forward at batch 2
     # (forward kernels) or per train step at batch 8 (backward kernels),
     # summed over the kernel's calls in it
+    # the kernels of each device-time row of the bf16 train step
+    split_names = {"quad_blend": ("quad_blend_kernel",), "up2x": ("up2x_kernel",),
+                   "quad_spread": ("quad_spread_kernel", "quad_spread_heavy_kernel"),
+                   "up2x_adjoint": ("up2x_adjoint_kernel",)}
     kernels = []
     for name, source, replaces, per, n_per in (
         ("quad_blend", "omnifusion_torch/csrc/quad_blend.cu",
@@ -1470,6 +1718,14 @@ def main() -> int:
             f"launches_per_iterative_{per}": train_it_launches[name] / n_per,
             "launches_serve_iterative": serve_it_launches[name],
             **iterative,
+            "launches_eval": eval_launches["oneshot"][name],
+            "launches_eval_iterative": eval_launches["iterative"][name],
+            "launches_eval_of": f"cli.test.run_eval of {EVAL_PANOS} panoramas at batch {BATCH}",
+            "launches_train_bf16": train_bf16_launches[name],
+            "launches_train_bf16_of": f"--bf16 --merge_dtype f16 training run: {TRAIN_STEPS} "
+                                      f"steps at batch {TRAIN_BATCH}, {val_forwards} validation "
+                                      f"forwards",
+            "ms_train_bf16_step": sum(bf16_split[k] for k in split_names[name]),
         })
     kernels.append({
         "name": "probe", "route": "cuda", "source": "omnifusion_torch/csrc/probe.cu",

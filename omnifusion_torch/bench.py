@@ -31,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from omnifusion_torch.cli.infer import pair_arg
+from omnifusion_torch.cli.common import pair_arg
 from omnifusion_torch.device import resolve_device
 from omnifusion_torch.models import SphericalFusion, init_weights
 from omnifusion_torch.projection import ProjectionSpec

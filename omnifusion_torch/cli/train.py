@@ -1,121 +1,137 @@
-"""Training entry point for the one-shot and the iterative model.
+"""Training entry point (parity: train_erp_depth.py / train_erp_depth_iterative.py).
 
-    python -m omnifusion_torch.cli.train --dataset synthetic --epochs 2 --batch 8
+    python -m omnifusion_torch.cli.train --dataset stanford --input_dir ... \
+        --trainfile filenames/train_stanford2d3d.txt --testfile ... --batch 8
     python -m omnifusion_torch.cli.train --dataset synthetic --device cpu \
         --erp_size 64,128 --patchsize 32 --batch 2 --synthetic_size 4 --epochs 1
+    python -m omnifusion_torch.cli.train --dataset synthetic --bf16 --merge_dtype f16
     python -m omnifusion_torch.cli.train --dataset synthetic --model iterative --iter 2
 
-The port's counterpart of ``omnifusion_tpu/cli/train.py`` with the flags of
-``omnifusion_tpu/cli/common.py`` that this path uses. Per epoch: train steps
-over shuffled batches, a ``latest`` checkpoint of the full train state, and
-every ``--val_interval`` epochs (and after the last) a validation pass with
-the depth metrics, logged to ``<save_path>/result_log.csv``; the state with
-the best abs_rel is also saved as ``best``. ``--model iterative`` trains on
-the mean loss over its passes and validates its last pass; it merges
+The port's counterpart of ``omnifusion_tpu/cli/train.py``, with the flags of
+``cli/common.py``. Per epoch: train steps over shuffled batches of
+``--trainfile`` (flip and quarter-width roll augmentations), a ``latest``
+checkpoint of the full train state, and every ``--val_interval`` epochs (and
+after the last) a validation pass over ``--testfile`` with the depth
+metrics, logged to ``<save_path>/result_log.csv``; the state with the best
+abs_rel is also saved as ``best``. ``--model iterative`` trains on the mean
+loss over its passes and validates its last pass; it merges
 confidence-weighted only with ``--confidence`` (the one-shot model always).
-``--checkpoint`` resumes from a checkpoint file this entry point wrote.
 
-Only ``--dataset synthetic`` is ported; the weights start from
-``--seed``. Runs on the CUDA card unless ``--device`` names another device.
+The weights start from ``--seed``. ``--checkpoint`` resumes from a
+checkpoint this entry point wrote, or overlays an upstream ``.pth`` (or a
+state dict of the port's model) onto them: every entry the file has, each of
+the same shape (models/torch_import.py: merge_pretrained). ``--bf16``
+trains the bf16 trunk on f32 parameters, with the BatchNorms normalizing and
+the loss computed in f32; ``--merge_dtype`` sets the merge's source
+precision. ``--tensorboard_path`` logs the loss and gradient norm every
+``--visualize_interval`` steps, the validation metrics, and the first
+validation batch's RGB, ground truth and predicted depth.
+``--profile_dir`` writes a ``torch.profiler`` trace of steps 10-14 of epoch
+0. Runs on the CUDA card unless ``--device`` names another device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import os
 import time
 
 import numpy as np
+import torch
 
-from omnifusion_torch.cli.infer import (
-    MERGE_DTYPES,
-    add_model_args,
-    make_model,
-    pair_arg,
+from omnifusion_torch.cli.common import (
+    add_common_args,
+    build_dataset,
+    build_model,
+    dump_run_config,
+    is_train_checkpoint,
     uses_confidence,
 )
-from omnifusion_torch.data import DataLoader, SyntheticDataset
+from omnifusion_torch.data import DataLoader
 from omnifusion_torch.device import resolve_device
 from omnifusion_torch.evaluation import MetricAccumulator
 from omnifusion_torch.models import init_weights
-from omnifusion_torch.projection import ProjectionSpec
+from omnifusion_torch.models.torch_import import import_checkpoint, merge_pretrained
 from omnifusion_torch.training import (
     CheckpointManager,
     create_train_state,
     eval_step,
-    restore_file,
+    restore_state,
     train_step,
 )
-from omnifusion_torch.utils.profiling import Throughput
+from omnifusion_torch.utils.profiling import Throughput, trace
 
 METRICS = ("abs_rel", "sq_rel", "lin_rms_sq", "log_rms_sq", "d1", "d2", "d3")
+PROFILE_STEPS = (10, 14)  # --profile_dir: the first and last traced step of epoch 0
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="OmniFusion training (PyTorch)")
-    parser.add_argument("--dataset", default="synthetic", choices=["synthetic"])
-    add_model_args(parser)
-    parser.add_argument(
-        "--synthetic_size", type=int, default=None,
-        help="sample count for --dataset synthetic (default 32 train / 8 eval)",
-    )
-    parser.add_argument("--erp_size", type=pair_arg, default=(512, 1024))
-    parser.add_argument("--patchsize", type=pair_arg, default=(128, 128))
-    parser.add_argument("--fov", type=float, default=80.0)
-    parser.add_argument("--nrows", type=int, default=4, choices=[3, 4, 5, 6])
-    parser.add_argument("--batch", type=int, default=8)
-    parser.add_argument("--checkpoint", default=None, help="checkpoint file to resume from")
-    parser.add_argument("--save_path", default="./results/run")
-    parser.add_argument("--seed", type=int, default=42)
-    parser.add_argument("--merge_dtype", default="f32", choices=sorted(MERGE_DTYPES))
-    parser.add_argument("--epochs", type=int, default=100)
-    parser.add_argument("--lr", type=float, default=1e-4)
-    parser.add_argument("--weight_decay", type=float, default=0.01)
-    parser.add_argument("--t0", type=int, default=5, help="cosine warm restart T_0")
-    parser.add_argument("--t_mult", type=int, default=2)
-    parser.add_argument("--val_interval", type=int, default=2, help="epochs between validations")
-    parser.add_argument("--save_checkpoint", default=None, help="checkpoint dir (default save_path/ckpt)")
-    parser.add_argument("--workers", type=int, default=8)
-    parser.add_argument("--device", default=None, help="default: the CUDA card")
-    return parser
+    return add_common_args(parser, train=True)
+
+
+def restore_or_overlay(args, state) -> None:
+    """--checkpoint: resume a train checkpoint, or overlay a state dict."""
+    device = next(state.model.parameters()).device
+    ckpt = torch.load(args.checkpoint, map_location=device, weights_only=True)
+    if is_train_checkpoint(ckpt):
+        restore_state(state, ckpt)
+    else:
+        sd = merge_pretrained(state.model.state_dict(), import_checkpoint(ckpt))
+        state.model.load_state_dict(sd, strict=True)
+
+
+def log_images(writer, batch: dict, pred: torch.Tensor, epoch: int) -> None:
+    """The first panorama of a validation batch (train_erp_depth.py:281-290)."""
+    from omnifusion_torch.utils import colorize
+
+    writer.add_image("RGB", batch["rgb"][0].cpu().numpy(), epoch, dataformats="HWC")
+    writer.add_image("depth gt", colorize(batch["depth"][0].cpu().numpy()), epoch,
+                     dataformats="HWC")
+    writer.add_image("depth pred", colorize(pred[0].float().cpu().numpy()), epoch,
+                     dataformats="HWC")
 
 
 def run_training(args) -> dict:
     """Train as the flags say; returns the history: per-epoch mean train
     loss, the validation metrics, the best abs_rel and the update count."""
     device = resolve_device(args.device)
-    spec = ProjectionSpec.create(args.erp_size, args.patchsize, (args.fov, args.fov), args.nrows)
-    model, confidence = make_model(args, spec, device), uses_confidence(args)
-    init_weights(model, args.seed)
+    model = init_weights(build_model(args, device), args.seed)
+    confidence = uses_confidence(args)
+    spec = model.spec
 
-    def dataset(train: bool):
-        size = args.synthetic_size or (32 if train else 8)
-        return SyntheticDataset(size, spec.erp_h, spec.erp_w, seed=args.seed)
-
-    train_loader = DataLoader(
-        dataset(True), args.batch, shuffle=True, num_workers=args.workers, seed=args.seed
-    )
-    val_loader = DataLoader(dataset(False), args.batch, num_workers=2, drop_last=False)
+    train_loader = DataLoader(build_dataset(args, args.trainfile, train=True), args.batch,
+                              shuffle=True, num_workers=args.workers, seed=args.seed)
+    val_loader = DataLoader(build_dataset(args, args.testfile, train=False), args.batch,
+                            num_workers=2, drop_last=False)
     steps_per_epoch = max(len(train_loader), 1)
     state = create_train_state(
         model, args.lr, args.weight_decay, args.t0, args.t_mult, steps_per_epoch
     )
+    dump_run_config(args)
     mgr = CheckpointManager(args.save_checkpoint or os.path.join(args.save_path, "ckpt"))
     if args.checkpoint:
-        restore_file(state, args.checkpoint)
+        restore_or_overlay(args, state)
 
     n_params = sum(p.numel() for p in model.parameters())
     print(f"## model: {args.model}  params: {n_params / 1e6:.1f}M  patches: {spec.n_patches}  "
-          f"device: {device}")
+          f"device: {device}  bf16: {args.bf16}  merge: {args.merge_dtype}")
+    print(f"## patch size: {(spec.patch_h, spec.patch_w)}  fov: {args.fov}  nrows: {args.nrows}")
 
-    os.makedirs(args.save_path, exist_ok=True)
+    writer = None
+    if args.tensorboard_path:
+        from torch.utils.tensorboard import SummaryWriter
+
+        writer = SummaryWriter(log_dir=args.tensorboard_path)
+
     csv_path = os.path.join(args.save_path, "result_log.csv")
     new_csv = not os.path.exists(csv_path)
     history: dict = {"train_loss": [], "val": []}
     best_abs_rel = float("inf")
     first_epoch = state.step // steps_per_epoch
-    with open(csv_path, "a", newline="") as csvfile:
+    with open(csv_path, "a", newline="") as csvfile, contextlib.ExitStack() as profiling:
         csvwriter = csv.writer(csvfile)
         if new_csv:
             csvwriter.writerow(["epoch", "loss", *METRICS])
@@ -123,30 +139,48 @@ def run_training(args) -> dict:
         for epoch in range(first_epoch, args.epochs):
             t0 = time.time()
             pending = []  # device scalars; read at the end of the epoch
-            for batch in train_loader.to_device(device):
-                pending.append(train_step(state, batch, confidence)["loss"])
+            for it, batch in enumerate(train_loader.to_device(device)):
+                if args.profile_dir and epoch == 0 and it == PROFILE_STEPS[0]:
+                    profiling.enter_context(trace(args.profile_dir))
+                m = train_step(state, batch, confidence)
+                pending.append((m["loss"], m["grad_norm"]))
                 throughput.update(args.batch)
-            losses = [float(v) for v in pending]
+                if args.profile_dir and epoch == 0 and it == PROFILE_STEPS[1]:
+                    profiling.close()
+                    print(f"## wrote profiler trace to {args.profile_dir}")
+            profiling.close()  # an epoch 0 shorter than the window ends the trace
+            losses = [float(loss) for loss, _ in pending]
             mean_loss = float(np.mean(losses)) if losses else float("nan")
             history["train_loss"].append(mean_loss)
-            seconds = time.time() - t0
-            print(f"epoch {epoch}: loss {mean_loss:.4f}  ({seconds:.1f}s, {len(losses)} steps, "
-                  f"{throughput.per_sec:.1f} panos/s)")
+            if writer and args.visualize_interval:
+                for it in range(0, len(pending), args.visualize_interval):
+                    step = epoch * steps_per_epoch + it + 1
+                    writer.add_scalar("train/loss", losses[it], step)
+                    writer.add_scalar("train/grad_norm", float(pending[it][1]), step)
+            print(f"epoch {epoch}: loss {mean_loss:.4f}  ({time.time() - t0:.1f}s, "
+                  f"{len(losses)} steps, {throughput.per_sec:.1f} panos/s)")
             mgr.save(state, "latest")
 
             if (epoch + 1) % args.val_interval == 0 or epoch == args.epochs - 1:
                 acc = MetricAccumulator()
-                for batch in val_loader.to_device(device):
-                    m, n, _ = eval_step(model, batch, confidence)
+                for i, batch in enumerate(val_loader.to_device(device)):
+                    m, n, pred = eval_step(model, batch, confidence)
                     acc.update({k: float(v) for k, v in m.items()}, float(n))
+                    if writer and i == 0:
+                        log_images(writer, batch, pred, epoch)
                 avg = acc.averages()
                 history["val"].append({"epoch": epoch, **avg})
                 print("  val:", {k: round(v, 4) for k, v in avg.items()})
                 csvwriter.writerow([epoch, mean_loss] + [avg.get(k, "") for k in METRICS])
                 csvfile.flush()
+                if writer:
+                    for k, v in avg.items():
+                        writer.add_scalar(f"val/{k}", v, epoch)
                 if avg.get("abs_rel", float("inf")) < best_abs_rel:
                     best_abs_rel = avg["abs_rel"]
                     mgr.save(state, "best")  # "latest" holds this state already
+    if writer:
+        writer.close()
     history["best_abs_rel"] = best_abs_rel
     history["steps"] = state.step
     return history

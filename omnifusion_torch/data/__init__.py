@@ -1,4 +1,19 @@
-from omnifusion_torch.data.datasets import SyntheticDataset
+from omnifusion_torch.data.datasets import (
+    MatterportDataset,
+    PanoDepthDataset,
+    StanfordDataset,
+    SyntheticDataset,
+    ThreeSixtyDDataset,
+    make_dataset,
+)
 from omnifusion_torch.data.loader import DataLoader
 
-__all__ = ["DataLoader", "SyntheticDataset"]
+__all__ = [
+    "DataLoader",
+    "MatterportDataset",
+    "PanoDepthDataset",
+    "StanfordDataset",
+    "SyntheticDataset",
+    "ThreeSixtyDDataset",
+    "make_dataset",
+]

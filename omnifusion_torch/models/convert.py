@@ -6,9 +6,10 @@ or a SphericalFusionIterative as a nested mapping of arrays (``{"params":
 returns the port's state dict: the upstream checkpoint's key names (the
 names ``omnifusion_tpu/models/torch_export.py`` writes) with 4-D conv
 kernels (O, I, kh, kw), plus ``up_proj.{weight,bias}`` where the model has
-that projection. The tree says which model it is: an iterative one has
-``mlp_points1`` and ``mlp_points2``, and its token projection goes to
-``down1``. The result loads into ``omnifusion_torch.models.SphericalFusion``
+that projection, and without the token projection and the transformer where
+the model has none (``use_transformer=False``). The tree says which model
+it is: an iterative one has ``mlp_points1`` and ``mlp_points2``, and its
+token projection goes to ``down1``. The result loads into ``omnifusion_torch.models.SphericalFusion``
 or ``SphericalFusionIterative`` with strict=True.
 
 No JAX import: the mapping is names and axes only.
@@ -91,7 +92,8 @@ def _trunk(sd, p, s, down_name="down"):
         if conv in p:
             sd[f"{name}.weight"] = _conv_w(p[conv]["kernel"])
             sd[f"{name}.bias"] = _t(p[conv]["bias"])
-    _transformer(sd, p["transformer"])
+    if "transformer" in p:  # not under use_transformer=False
+        _transformer(sd, p["transformer"])
     for stage in ("0_0", "0_1", "1_0", "1_1", "2_0", "2_1", "3_0", "3_1", "4_0"):
         t = f"de_conv{stage}"
         sd[f"{t}.conv.weight"] = _conv_w(p[t]["conv"]["kernel"])

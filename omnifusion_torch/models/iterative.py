@@ -42,8 +42,8 @@ from omnifusion_torch.projection.spec import (
 class SphericalFusionIterative(DepthTrunk):
     """ERP (B, H, W, 3) -> list of ``num_iters`` depth maps (B, H, W, 1) f32.
 
-    ``dtype``, ``merge_dtype``, ``device`` and ``encoder_stages`` as in
-    ``SphericalFusion``. Parameters start from PyTorch's default init: load
+    ``dtype``, ``merge_dtype``, ``use_transformer``, ``device`` and
+    ``encoder_stages`` as in ``SphericalFusion``. Parameters start from PyTorch's default init: load
     a state dict, or call ``init_weights`` for seeded ones."""
 
     DOWN = "down1"
@@ -57,6 +57,7 @@ class SphericalFusionIterative(DepthTrunk):
         encoder_stages: Optional[Sequence[tuple[int, int, int]]] = None,
         dtype: Optional[torch.dtype] = None,
         merge_dtype: Optional[torch.dtype] = None,
+        use_transformer: bool = True,
         device=None,
     ):
         if num_iters < 1:
@@ -64,7 +65,7 @@ class SphericalFusionIterative(DepthTrunk):
         device = resolve_device(device)
         super().__init__(
             (spec.patch_h, spec.patch_w), spec.n_patches, depth, num_heads,
-            encoder_stages, dtype=dtype, device=device,
+            encoder_stages, dtype=dtype, use_transformer=use_transformer, device=device,
         )
         self.spec = spec
         self.spec_q = spec.with_patch_scale(4)

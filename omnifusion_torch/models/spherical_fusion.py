@@ -10,9 +10,12 @@ confidence-weighted merge back to ERP (pers2equi).
 The trunk runs NCHW with the patch axis folded into the batch. The modules
 sit at the upstream checkpoint's flat names (conv1, layer1, ..., down,
 transformer, de_conv*, pred, weight_pred, mlp_points; plus up_proj where the
-token width is not 512): ``DepthTrunk`` extends ``ResNet34Encoder`` and
-``SphericalFusion`` extends ``DepthTrunk``, so a state dict converted from
-the JAX variables (models/convert.py) loads with strict=True.
+token width is not 512; ``use_transformer=False``, the legacy variant of
+network_360d.py:330-335, has no down, transformer or up_proj and sends
+layer4 straight to the decoder): ``DepthTrunk`` extends
+``ResNet34Encoder`` and ``SphericalFusion`` extends ``DepthTrunk``, so a
+state dict converted from the JAX variables (models/convert.py) loads with
+strict=True.
 
 ``dtype=torch.bfloat16`` is the JAX package's serving recipe (bench.py:
 163-188): the ERP is cast before equi2pers, so the e2p blend reads bf16;
@@ -74,6 +77,8 @@ class DepthTrunk(ResNet34Encoder):
     (P, 64, h/4, w/4), shared by the batch, or (B*P, 64, h/4, w/4) ->
     (pred, conf), each (B*P, 1, h, w), in ``dtype`` (None: f32). The token
     projection sits at ``DOWN``, the upstream checkpoint's name for it.
+    ``use_transformer=False``: no global fusion (no token projection,
+    transformer or up_proj); layer4 goes straight to the decoder.
     """
 
     DOWN = "down"
@@ -86,23 +91,27 @@ class DepthTrunk(ResNet34Encoder):
         num_heads: int = 4,
         encoder_stages: Optional[Sequence[tuple[int, int, int]]] = None,
         dtype: Optional[torch.dtype] = None,
+        use_transformer: bool = True,
         device=None,
     ):
         stages = tuple(encoder_stages or RESNET34_STAGES)
         super().__init__(stages, dtype=dtype, device=device)
         self.dtype = dtype
+        self.use_transformer = use_transformer
         c1, c2, c3, c4 = (s[0] for s in stages)
         hh, ww = patch_size[0] // 32, patch_size[1] // 32
         self.emb = 32 * hh * ww
-        setattr(self, self.DOWN, torch_conv(c4, 32, 1, use_bias=True, dtype=dtype, device=device))
-        self.transformer = TransformerCascade(
-            self.emb, n_patches, depth=depth, num_heads=num_heads, device=device
-        )
-        # token elements are re-read as layer4 channels and broadcast over
-        # space when emb == layer4's width (patch 128); otherwise the tokens
-        # fold back to their source layout through a 1x1 projection
-        if self.emb != c4:
-            self.up_proj = torch_conv(32, c4, 1, use_bias=True, dtype=dtype, device=device)
+        if use_transformer:
+            setattr(self, self.DOWN,
+                    torch_conv(c4, 32, 1, use_bias=True, dtype=dtype, device=device))
+            self.transformer = TransformerCascade(
+                self.emb, n_patches, depth=depth, num_heads=num_heads, device=device
+            )
+            # token elements are re-read as layer4 channels and broadcast over
+            # space when emb == layer4's width (patch 128); otherwise the
+            # tokens fold back to their source layout through a 1x1 projection
+            if self.emb != c4:
+                self.up_proj = torch_conv(32, c4, 1, use_bias=True, dtype=dtype, device=device)
         kw = dict(dtype=dtype, device=device)
         self.de_conv0_0 = ConvBnReLU(c4, 256, **kw)
         self.de_conv0_1 = ConvBnReLU(256 + c3, 128, **kw)
@@ -116,9 +125,24 @@ class DepthTrunk(ResNet34Encoder):
         self.pred = torch_conv(32, 1, 3, 1, 1, use_bias=True, device=device)
         self.weight_pred = torch_conv(32, 1, 3, 1, 1, use_bias=True, device=device)
 
+    def fuse(self, l4, b: int):
+        """Global fusion: one channel-major-flattened token per patch; the
+        tokens come out of the transformer in f32 (transformer.py) and are
+        added to layer4."""
+        bp = l4.shape[0]
+        tok = getattr(self, self.DOWN)(l4).reshape(b, bp // b, self.emb)
+        tok = self.transformer(tok)
+        if self.emb == l4.shape[1]:
+            # bf16 + f32 promotes to f32, as in JAX (spherical_fusion.py:147),
+            # so under a bf16 trunk the first decoder upsample runs in f32
+            return l4 + tok.reshape(bp, self.emb, 1, 1)
+        # up_proj computes in the trunk's dtype: the sum keeps it
+        # (spherical_fusion.py:151-153)
+        hh, ww = l4.shape[-2:]
+        return l4 + self.up_proj(tok.reshape(bp, 32, hh, ww))
+
     def trunk(self, x, point_feat, b: int):
         bp, _, h, w = x.shape
-        p = bp // b
         if self.dtype is not None:
             x = x.to(self.dtype)
         pf = point_feat
@@ -129,19 +153,8 @@ class DepthTrunk(ResNet34Encoder):
             feats[k] for k in ("conv1", "layer1", "layer2", "layer3", "layer4")
         )
 
-        # global fusion: one channel-major-flattened token per patch; the
-        # tokens come out of the transformer in f32 (transformer.py)
-        tok = getattr(self, self.DOWN)(l4).reshape(b, p, self.emb)
-        tok = self.transformer(tok)
-        if self.emb == l4.shape[1]:
-            # bf16 + f32 promotes to f32, as in JAX (spherical_fusion.py:147),
-            # so under a bf16 trunk the first decoder upsample runs in f32
-            l4 = l4 + tok.reshape(bp, self.emb, 1, 1)
-        else:
-            # up_proj computes in the trunk's dtype: the sum keeps it
-            # (spherical_fusion.py:151-153)
-            hh, ww = l4.shape[-2:]
-            l4 = l4 + self.up_proj(tok.reshape(bp, 32, hh, ww))
+        if self.use_transformer:
+            l4 = self.fuse(l4, b)
 
         def up_stage(x, skip, conv0, conv1):
             x = conv0(resize_bilinear(x, skip.shape[-2:]))
@@ -196,7 +209,8 @@ class SphericalFusion(DepthTrunk):
 
     ``dtype``: the trunk's compute dtype (None: f32; ``torch.bfloat16``:
     the serving recipe, see the module's docstring). ``merge_dtype``: the
-    merge blend's source precision (None: f32). ``device``: where the
+    merge blend's source precision (None: f32). ``use_transformer``: as in
+    ``DepthTrunk`` (``--no_transformer``). ``device``: where the
     parameters live; None means the CUDA card, and raises when there is
     none. Parameters start from PyTorch's default init: load a state dict,
     or call ``init_weights`` for seeded ones."""
@@ -209,12 +223,13 @@ class SphericalFusion(DepthTrunk):
         encoder_stages: Optional[Sequence[tuple[int, int, int]]] = None,
         dtype: Optional[torch.dtype] = None,
         merge_dtype: Optional[torch.dtype] = None,
+        use_transformer: bool = True,
         device=None,
     ):
         device = resolve_device(device)
         super().__init__(
             (spec.patch_h, spec.patch_w), spec.n_patches, depth, num_heads,
-            encoder_stages, dtype=dtype, device=device,
+            encoder_stages, dtype=dtype, use_transformer=use_transformer, device=device,
         )
         self.spec = spec
         self.merge_dtype = merge_dtype

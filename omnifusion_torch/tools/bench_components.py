@@ -23,7 +23,7 @@ import json
 import numpy as np
 import torch
 
-from omnifusion_torch.cli.infer import MERGE_DTYPES, pair_arg
+from omnifusion_torch.cli.common import MERGE_DTYPES, pair_arg
 from omnifusion_torch.device import resolve_device
 from omnifusion_torch.models import SphericalFusion, confidence_merge, init_weights
 from omnifusion_torch.projection import ProjectionSpec

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 import omnifusion_torch
-from omnifusion_torch.cli.infer import pair_arg
+from omnifusion_torch.cli.common import pair_arg
 from omnifusion_torch.device import resolve_device
 from omnifusion_torch.ops.quad_blend import quad_blend, quad_spread
 from omnifusion_torch.ops.upsample import up2x

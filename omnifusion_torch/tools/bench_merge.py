@@ -30,7 +30,7 @@ import json
 
 import torch
 
-from omnifusion_torch.cli.infer import pair_arg
+from omnifusion_torch.cli.common import pair_arg
 from omnifusion_torch.device import resolve_device
 from omnifusion_torch.ops.probe import probe, probe_plain
 from omnifusion_torch.ops.quad_blend import quad_blend, quad_blend_plain

@@ -28,7 +28,7 @@ import tempfile
 import numpy as np
 import torch
 
-from omnifusion_torch.cli.infer import pair_arg
+from omnifusion_torch.cli.common import pair_arg
 from omnifusion_torch.device import resolve_device
 from omnifusion_torch.ops import _build
 from omnifusion_torch.ops import quad_blend as qb

@@ -42,7 +42,7 @@ import torch
 from torch.profiler import record_function
 
 import omnifusion_torch.models.spherical_fusion as sf
-from omnifusion_torch.cli.infer import MERGE_DTYPES, pair_arg
+from omnifusion_torch.cli.common import MERGE_DTYPES, pair_arg
 from omnifusion_torch.device import resolve_device
 from omnifusion_torch.models import SphericalFusion, init_weights
 from omnifusion_torch.projection import ProjectionSpec

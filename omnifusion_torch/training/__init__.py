@@ -1,4 +1,4 @@
-from omnifusion_torch.training.checkpoint import CheckpointManager, restore_file
+from omnifusion_torch.training.checkpoint import CheckpointManager, restore_file, restore_state
 from omnifusion_torch.training.schedule import CosineWarmRestarts, cosine_warm_restarts
 from omnifusion_torch.training.trainer import (
     TrainState,
@@ -21,5 +21,6 @@ __all__ = [
     "make_optimizer",
     "param_groups",
     "restore_file",
+    "restore_state",
     "train_step",
 ]

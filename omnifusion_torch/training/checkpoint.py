@@ -54,7 +54,12 @@ def restore_file(state, path: str):
     """Load the checkpoint file ``path`` into ``state`` (same model and
     optimizer layout); returns it."""
     device = next(state.model.parameters()).device
-    ckpt = torch.load(path, map_location=device, weights_only=True)
+    return restore_state(state, torch.load(path, map_location=device, weights_only=True))
+
+
+def restore_state(state, ckpt: dict):
+    """Load a checkpoint that ``CheckpointManager.save`` wrote, read with
+    ``torch.load``, into ``state``; returns it."""
     state.model.load_state_dict(ckpt["model"], strict=True)
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.schedule = CosineWarmRestarts(**ckpt["schedule"])

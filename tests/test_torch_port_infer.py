@@ -59,3 +59,34 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     inputs, _ = _panoramas(tmp_path, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         infer.main(["--input", str(inputs), "--save_path", str(tmp_path / "o"), *FLAGS])
+
+
+def test_infer_reads_images_and_writes_png_and_ply(tmp_path):
+    # an image goes through the datasets' RGB reader (cv2's BGR order,
+    # INTER_AREA resize, [0, 1]) and answers as its .npy array does
+    cv2 = pytest.importorskip("cv2")
+    from omnifusion_torch.data.datasets import _read_rgb
+    from omnifusion_torch.utils import ply
+
+    inputs = tmp_path / "imgs"
+    inputs.mkdir()
+    bgr = (np.random.default_rng(2).random((128, 256, 3)) * 255).astype(np.uint8)
+    cv2.imwrite(str(inputs / "room.png"), bgr)
+    frame = _read_rgb(str(inputs / "room.png"), (ERP[1], ERP[0])).astype(np.float32) / 255.0
+    np.save(tmp_path / "room.npy", frame)
+    common = ["--device", "cpu", "--seed", "3", *FLAGS]
+    (from_png,) = infer.run_infer(infer.build_parser().parse_args(
+        ["--input", str(inputs), "--save_path", str(tmp_path / "a"), "--save_ply", *common]))
+    (from_npy,) = infer.run_infer(infer.build_parser().parse_args(
+        ["--input", str(tmp_path / "room.npy"), "--save_path", str(tmp_path / "b"), *common]))
+    depth = np.load(from_png)
+    np.testing.assert_array_equal(depth, np.load(from_npy))
+    png = cv2.imread(str(tmp_path / "a" / "room_depth.png"))
+    assert png.shape == (*ERP, 3) and png.dtype == np.uint8
+    cloud = ply.read_ply(str(tmp_path / "a" / "room.ply"))
+    assert len(cloud) == ERP[0] * ERP[1]
+    np.testing.assert_allclose(np.linalg.norm(np.stack([cloud[c] for c in "xyz"], -1), axis=-1),
+                               depth.reshape(-1), rtol=1e-5, atol=1e-6)
+    # colours flipped to RGB for the red/green/blue labels
+    np.testing.assert_array_equal(cloud["red"], (frame[..., 2].reshape(-1) * 255).astype(np.uint8))
+    assert not (tmp_path / "b" / "room.ply").exists()
