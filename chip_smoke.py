@@ -26,6 +26,14 @@ patch 128, fov 80, nrows 4, seeded random weights):
   train_iterative trains a few steps at batch 8, validates and saves through
   run_training --model iterative, and holds one step against the plain
   versions;
+- segmentation (13 classes): serve_seg runs SphericalFusionSeg's forward on
+  the panoramas, held against the same forward with the plain versions;
+  train_sem trains one epoch at batch 8 (the CLI's fixed 32-panorama
+  synthetic set: 4 steps), validates by mIoU and saves through
+  omnifusion_torch.cli.train_sem, and one step is held against the plain
+  versions; the check phase holds the 14-row merge, its spread, the
+  perspective views (omnifusion_torch/projection/perspective.py, forward and
+  backward) and the channel-last pers2equi to the plain versions;
 - the measurement entry points, each in this process and each with its
   kernel launches counted: omnifusion_torch/bench.py at batches 2, 8, 64
   and 256 (its batch-2 and batch-8 runs are the bf16 rows of the forward
@@ -40,8 +48,9 @@ library call that computes the same function (quad_blend also at bench.py's
 batches 8, 64 and 256, and swept over its tile shape, its staged rows and
 staging itself; quad_spread also split into its light and heavy launches by
 the profiler, and swept over the heavy threshold; the iterative model's
-calls and the nrows 6 merge too), and the forward (f32, TF32, bf16 recipe)
-and the train step end to end, of both models.
+calls, the nrows 6 merge, the segmentation merge and the perspective views
+too), and the forward (f32, TF32, bf16 recipe) and the train step end to
+end, of the three models.
 
 Prints one JSON object per phase, then the card's name and power limit as
 nvidia-smi gives them, then the last line
@@ -152,6 +161,18 @@ HEAD_SCALE, SMALL_EVAL_HEAD_SCALE = 0.05, 0.01
 # eval_rate: panoramas per rate run (EVAL_RATE_PANOS / BATCH batches, the
 # rate taken after the first) and rate runs per model, for the spread
 EVAL_RATE_PANOS, EVAL_RATE_RUNS = 64, 3
+# segmentation: classes (the merge blends SEG_CLASSES + 1 rows per
+# panorama); cli.train_sem's fixed synthetic sets (32 to train, 8 to
+# validate); the train-parity batch
+SEG_CLASSES, SEM_TRAIN_SET, SEM_VAL_SET, SEM_PARITY_BATCH = 13, 32, 8, 8
+# the perspective views: 8 views of 256x256 at a 90 degree field of view
+# (the seam from both sides, near both poles, the equator), timed at batch
+# 2 with 3 channels; and 2 views at 120 degrees near the north pole and on
+# the seam, the widest footprints of the blend's tiles
+VIEW_CENTERS = ((0.5, 0.0), (90.0, 20.0), (180.0, 0.0), (270.0, -20.0), (359.5, 45.0),
+                (45.0, 88.0), (135.0, -88.0), (225.0, -45.0))
+VIEW_FOV, VIEW_SIZE = (90.0, 90.0), (256, 256)
+WIDE_VIEW_CENTERS, WIDE_VIEW_FOV = ((0.0, 89.0), (359.9, 0.0)), (120.0, 120.0)
 
 
 def emit(obj) -> None:
@@ -349,6 +370,15 @@ def zero_counts() -> None:
         fn.launches = 0
 
 
+def semantic_batch(spec, b: int, device, seed: int = 0) -> dict:
+    """rgb and labels of ``b`` panoramas of cli.train_sem's synthetic set."""
+    from omnifusion_torch.data import SyntheticSemanticDataset
+
+    ds = SyntheticSemanticDataset(b, spec.erp_h, spec.erp_w, SEG_CLASSES, seed=seed)
+    rgb, labels = (np.stack(c) for c in zip(*(ds[i] for i in range(b))))
+    return {"rgb": torch.from_numpy(rgb).to(device), "labels": torch.from_numpy(labels).to(device)}
+
+
 def synthetic_batch(spec, b: int, device) -> dict:
     from omnifusion_torch.data import SyntheticDataset
 
@@ -393,25 +423,30 @@ def as_f64(model, batch: dict, state_dict: dict):
     """The arguments of loss_and_grads in float64 (the model in place, its
     buffers too)."""
     model = model.double()
-    return (model, {k: v.double() for k, v in batch.items()},
+    return (model, {k: v.double() if v.is_floating_point() else v for k, v in batch.items()},
             {k: v.double() if v.is_floating_point() else v for k, v in state_dict.items()})
 
 
 def loss_and_grads(model, batch, state_dict, train: bool = True,
                    confidence: bool = True) -> tuple[float, dict]:
-    """One forward, BerHu loss and backward from ``state_dict``: in train
-    mode (the train step's), or with the BatchNorms on the running
-    statistics of ``state_dict``. The iterative model's loss is the mean
-    over its passes, as the trainer's; the gradients of the parameters
-    that take none (its confidence head without ``confidence``) are left
-    out."""
+    """One forward, loss and backward from ``state_dict``: in train mode
+    (the train step's), or with the BatchNorms on the running statistics of
+    ``state_dict``. The loss: BerHu, or for a batch with labels (a
+    segmentation model) the cross-entropy that ignores -1. The iterative
+    model's loss is the mean over its passes, as the trainer's; the
+    gradients of the parameters that take none (its confidence head without
+    ``confidence``) are left out."""
     from omnifusion_torch.losses import berhu_loss
-    from omnifusion_torch.training import forward_loss
+    from omnifusion_torch.models import cross_entropy_ignore
+    from omnifusion_torch.training import forward_loss, seg_forward_loss
 
     model.load_state_dict(state_dict)
     model.zero_grad(set_to_none=True)
+    seg = "labels" in batch
     if train:
-        loss, _ = forward_loss(model, batch, confidence)
+        loss, _ = seg_forward_loss(model, batch) if seg else forward_loss(model, batch, confidence)
+    elif seg:
+        loss = cross_entropy_ignore(model.eval()(batch["rgb"]), batch["labels"])
     else:
         out = model.eval()(batch["rgb"], confidence=confidence)
         preds = out if isinstance(out, list) else [out]
@@ -503,8 +538,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from omnifusion_torch import bench
-    from omnifusion_torch.cli import infer, train
-    from omnifusion_torch.models import SphericalFusion, SphericalFusionIterative, init_weights
+    from omnifusion_torch.cli import infer, train, train_sem
+    from omnifusion_torch.models import (
+        SphericalFusion, SphericalFusionIterative, SphericalFusionSeg, init_weights,
+    )
     from omnifusion_torch.ops import _build
     from omnifusion_torch.ops.probe import probe, probe_plain
     from omnifusion_torch.ops import quad_blend as qb
@@ -513,11 +550,16 @@ def main() -> int:
         overflow_load, quad_blend, quad_blend_plain, quad_spread, quad_spread_plain,
     )
     from omnifusion_torch.ops.upsample import up2x, up2x_adjoint, up2x_adjoint_plain, up2x_plain
-    from omnifusion_torch.projection import ProjectionSpec, equi2pers
+    from omnifusion_torch.projection import (
+        ProjectionSpec, build_pers2equi_grids, equi2pers, extract_views, insert_views, pers2equi,
+    )
     from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
+    from omnifusion_torch.projection.perspective import (
+        inverse_perspective_tables, perspective_tables,
+    )
     from omnifusion_torch.projection.spec import build_equi2pers_grids, build_vjp_tables
     from omnifusion_torch.tools import bench_components, bench_kernels, bench_merge, profile_forward
-    from omnifusion_torch.training import create_train_state, train_step
+    from omnifusion_torch.training import create_train_state, train_step, train_step_sem
     from omnifusion_torch.utils.profiling import (
         blend_bound, blend_matrix, bound_ms as bound, gpu_line, nbytes, time_ms,
     )
@@ -812,6 +854,108 @@ def main() -> int:
                                   quad_spread_plain(cot, t_q.vjp, channel_last=True), atol, rtol,
                                   overflow=t_q.vjp.n_over))
     del x, x_n6, want, depth, cot
+    torch.cuda.empty_cache()
+
+    # ---- the segmentation path's calls: the merge of SEG_CLASSES logits and
+    # the confidence, SEG_CLASSES + 1 channel-first f32 rows per panorama, at
+    # each timed batch, and its spread at the train batch; the perspective
+    # views, forward and backward, 1 and 3 channels, f32 and bf16 (stored in
+    # the source's dtype); the channel-last pers2equi ----
+    seg_rows = SEG_CLASSES + 1
+    for b in TIMED_BATCHES:
+        x = torch.rand(b, seg_rows, t_p2e.n_in, device=dev, generator=g)
+        note("quad_blend", check("quad_blend", f"merge_seg_b{b}", quad_blend(x, t_p2e),
+                                 quad_blend_plain(x, t_p2e), BLEND_TOL, rows=b * seg_rows))
+    cot_seg = torch.rand(TRAIN_BATCH, seg_rows, n_erp, device=dev, generator=g)
+    atol, rtol = SPREAD_TOL[torch.float32]
+    note("quad_spread", check("quad_spread", f"merge_seg_b{TRAIN_BATCH}",
+                              quad_spread(cot_seg, t_p2e.vjp), quad_spread_plain(cot_seg, t_p2e.vjp),
+                              atol, rtol, overflow=t_p2e.vjp.n_over))
+    t0 = time.perf_counter()
+    t_views = perspective_tables(VIEW_CENTERS, VIEW_FOV, VIEW_SIZE, ERP, dev)
+    t_views_inv, view_mask = inverse_perspective_tables(VIEW_CENTERS, VIEW_FOV, VIEW_SIZE, ERP, dev)
+    t_wide = perspective_tables(WIDE_VIEW_CENTERS, WIDE_VIEW_FOV, VIEW_SIZE, ERP, dev)
+    t_wide_inv, _ = inverse_perspective_tables(WIDE_VIEW_CENTERS, WIDE_VIEW_FOV, VIEW_SIZE, ERP,
+                                               dev)
+    views_s = time.perf_counter() - t0
+    emit({"phase": "tables_views", "seconds": views_s, **{
+        name: {"views": len(c), "fov": list(f), "size": list(VIEW_SIZE), "n_out": t.n_out,
+               "n_in": t.n_in, "tile": list(t.tiles.shape), "max_footprint_pixels": t.tiles.pitch,
+               "footprint_per_output": t.tiles.footprint,
+               "staged": t.tiles.footprint <= qb.STAGE_MAX_FOOTPRINT, "k_t": t.vjp.k_t,
+               "overflow": t.vjp.n_over, "heavy_pixels": t.vjp.heavy.numel()}
+        for name, c, f, t in (("extract", VIEW_CENTERS, VIEW_FOV, t_views),
+                              ("insert", VIEW_CENTERS, VIEW_FOV, t_views_inv),
+                              ("extract_wide", WIDE_VIEW_CENTERS, WIDE_VIEW_FOV, t_wide),
+                              ("insert_wide", WIDE_VIEW_CENTERS, WIDE_VIEW_FOV, t_wide_inv))},
+        "visible_share": view_mask.mean().item()})
+    n_views = len(VIEW_CENTERS)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = (BLEND_TOL, 0.0) if dtype == torch.float32 else (BLEND_TOL, UP2X_BF16_RTOL)
+        s_atol, s_rtol = SPREAD_TOL[dtype]
+        for c in (1, 3):
+            case = f"c{c}_{str(dtype)[6:]}"
+            erp = torch.rand(BATCH, *ERP, c, device=dev, generator=g).to(dtype).requires_grad_()
+            views = extract_views(erp, VIEW_CENTERS, VIEW_FOV, VIEW_SIZE)
+            want = quad_blend_plain(erp.detach().reshape(BATCH, n_erp, c), t_views, True, dtype)
+            err = check("quad_blend", f"extract_views_{case}", views.detach().reshape(want.shape),
+                        want, *tol, views=n_views)
+            equi, mask = insert_views(views, VIEW_CENTERS, VIEW_FOV, ERP)
+            want = quad_blend_plain(views.detach().reshape(BATCH, -1, c), t_views_inv, True, dtype)
+            err = max(err, check("quad_blend", f"insert_views_{case}",
+                                 equi.detach().reshape(want.shape), want, *tol, views=n_views))
+            if dtype == torch.float32:
+                note("quad_blend", err)
+            # backward through both: the spread of insert_views, then of
+            # extract_views, each held to the plain spread of its cotangent
+            cot = torch.rand(equi.shape, device=dev, generator=g).to(dtype)
+            v_grad, = torch.autograd.grad(equi, views, cot, retain_graph=True)
+            want = quad_spread_plain(cot.reshape(BATCH, -1, c), t_views_inv.vjp, True).to(dtype)
+            err = check("quad_spread", f"insert_views_{case}", v_grad.reshape(want.shape), want,
+                        s_atol, s_rtol, overflow=t_views_inv.vjp.n_over)
+            equi.backward(cot)
+            want = quad_spread_plain(v_grad.reshape(BATCH, -1, c), t_views.vjp, True).to(dtype)
+            err = max(err, check("quad_spread", f"extract_views_{case}",
+                                 erp.grad.reshape(want.shape), want, s_atol, s_rtol,
+                                 overflow=t_views.vjp.n_over))
+            if dtype == torch.float32:
+                note("quad_spread", err)
+    if view_mask.shape != (n_views, *ERP, 1) or not 0 < view_mask.mean().item() < 1:
+        raise AssertionError(f"insert_views mask: {tuple(view_mask.shape)}")
+    # the widest footprints: 120 degree views at the pole and the seam
+    x = torch.rand(BATCH, n_erp, 3, device=dev, generator=g)
+    note("quad_blend", check("quad_blend", "extract_views_wide",
+                             quad_blend(x, t_wide, channel_last=True),
+                             quad_blend_plain(x, t_wide, channel_last=True), BLEND_TOL,
+                             max_footprint_pixels=t_wide.tiles.pitch))
+    x = torch.rand(BATCH, t_wide_inv.n_in, 3, device=dev, generator=g)
+    note("quad_blend", check("quad_blend", "insert_views_wide",
+                             quad_blend(x, t_wide_inv, channel_last=True),
+                             quad_blend_plain(x, t_wide_inv, channel_last=True), BLEND_TOL,
+                             max_footprint_pixels=t_wide_inv.tiles.pitch))
+    # the channel-last merge on the flagship's tables: 1 and 3 channels
+    for c in (1, 3):
+        pers = torch.rand(BATCH, spec.n_patches, PATCH, PATCH, c, device=dev, generator=g)
+        note("quad_blend", check(
+            "quad_blend", f"pers2equi_c{c}", pers2equi(pers, build_pers2equi_grids(spec)),
+            quad_blend_plain(pers.reshape(BATCH, -1, c), t_p2e, True).reshape(BATCH, *ERP, c),
+            BLEND_TOL, tail_entries=t_p2e.n_tail))
+    # 16 f32 channels: the views' staged footprints do not fit a block's
+    # shared memory twice, so the plan gathers from global memory
+    for name, t_v in (("extract_views_c16", t_views), ("insert_views_c16", t_views_inv)):
+        x = torch.rand(1, t_v.n_in, 16, device=dev, generator=g)
+        staged = qb.blend_plan(t_v.tiles, 1, 16, 4)[0]
+        note("quad_blend", check("quad_blend", name, quad_blend(x, t_v, channel_last=True),
+                                 quad_blend_plain(x, t_v, channel_last=True), BLEND_TOL,
+                                 staged=staged))
+        if staged:
+            raise AssertionError(f"{name}: the plan stages a footprint that cannot fit")
+    # the views' tables (0.7 GB on the card with cot_seg) are built again
+    # for the time rows: the earlier phases' peak memory stays comparable
+    del x, erp, views, equi, mask, cot, v_grad, want, pers, cot_seg
+    del t_views, t_views_inv, t_v, view_mask, t_wide, t_wide_inv
+    perspective_tables.cache_clear()
+    inverse_perspective_tables.cache_clear()
     torch.cuda.empty_cache()
 
     # ---- serving: panoramas through the entry point ----
@@ -1366,6 +1510,113 @@ def main() -> int:
     if not ok:
         raise AssertionError(f"bf16 train step vs plain versions: {par}")
 
+    # ---- serve_seg: the segmentation model (SEG_CLASSES classes, full
+    # ResNet-34 and transformer, seeded weights, heads tamed) on the served
+    # panoramas, f32, TF32 off, held against the same forward with the plain
+    # versions on the card ----
+    model = init_weights(SphericalFusionSeg(spec, num_classes=SEG_CLASSES, device=dev), 0)
+    model.load_state_dict(tame_heads(model.state_dict()))
+    model.eval()
+    x = torch.from_numpy(np.stack(frames[:BATCH])).to(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits = model(x)
+        torch.cuda.synchronize()
+        seg_s = time.perf_counter() - t0
+        serve_seg_launches = counts()
+        with plain_versions():
+            ref = model(x)
+    if logits.shape != (BATCH, *ERP, SEG_CLASSES) or logits.dtype != torch.float32:
+        raise AssertionError(f"segmentation logits {tuple(logits.shape)} {logits.dtype}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("segmentation logits are not finite")
+    stats = rel_stats(logits.cpu().numpy(), ref.cpu().numpy())
+    agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    classes = torch.bincount(logits.argmax(-1).flatten(), minlength=SEG_CLASSES)
+    emit({"phase": "serve_seg", "classes": SEG_CLASSES, "batch": BATCH, "heads": "tamed",
+          "precision": "f32 (tf32 off)", "seconds_first_forward": seg_s,
+          "launches": serve_seg_launches, "launches_expected": per_run(1),
+          "logits_vs_plain": stats, "argmax_agreement": agree,
+          "argmax_agreement_note": "random-weight logits have near-ties: a number, not a bound",
+          "predicted_class_share": (classes.float() / classes.sum()).tolist()})
+    if serve_seg_launches != per_run(1):
+        raise AssertionError(f"serve_seg launches {serve_seg_launches}, expected {per_run(1)}")
+    assert_parity(stats, "segmentation logits vs plain forward")
+    del model, logits, ref, x
+    torch.cuda.empty_cache()
+
+    # ---- train_sem: one epoch of cli.train_sem --dataset synthetic at the
+    # flagship (its fixed set of SEM_TRAIN_SET panoramas: 4 steps at batch
+    # 8), a validation by mIoU over SEM_VAL_SET panoramas, checkpoints ----
+    sem_steps = SEM_TRAIN_SET // TRAIN_BATCH
+    sem_val_forwards = -(-SEM_VAL_SET // TRAIN_BATCH)
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as tmp:
+        argv = ["--dataset", "synthetic", "--epochs", "1", "--batch", str(TRAIN_BATCH),
+                "--erp_size", f"{ERP[0]},{ERP[1]}", "--patchsize", str(PATCH),
+                "--fov", str(FOV), "--nrows", str(NROWS), "--num_classes", str(SEG_CLASSES),
+                "--seed", "0", "--device", DEVICE, "--workers", "4",
+                "--save_path", os.path.join(tmp, "run")]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        history_sem = train_sem.main(argv)
+        train_sem_s = time.perf_counter() - t0
+        train_sem_launches = counts()
+        train_sem_peak = torch.cuda.max_memory_allocated()
+        ckpts = sorted(os.listdir(os.path.join(tmp, "run", "ckpt")))
+        steps_saved = torch.load(os.path.join(tmp, "run", "ckpt", "latest.pt"),
+                                 map_location="cpu", weights_only=True)["step"]
+    want_sem = per_run(sem_val_forwards, sem_steps)
+    miou = history_sem["miou"][-1]
+    emit({"phase": "train_sem", "classes": SEG_CLASSES, "batch": TRAIN_BATCH,
+          "steps": steps_saved, "validation_forwards": sem_val_forwards,
+          "train_loss": history_sem["train_loss"], "miou": history_sem["miou"],
+          "best_miou": history_sem["best_miou"], "checkpoints": ckpts,
+          "seconds_with_model_build": train_sem_s, "max_memory_allocated_bytes": train_sem_peak,
+          "launches": train_sem_launches, "launches_expected": want_sem, "gpu": gpu})
+    if steps_saved != sem_steps or not np.isfinite(history_sem["train_loss"]).all():
+        raise AssertionError(f"train_sem run: {history_sem}, {steps_saved} steps")
+    if not (np.isfinite(miou) and 0.0 <= miou <= 1.0):
+        raise AssertionError(f"train_sem mIoU {miou}")
+    if train_sem_launches != want_sem:
+        raise AssertionError(f"train_sem launches {train_sem_launches}, expected {want_sem}")
+    # best is written when the mIoU rises above its start, 0 (cli/train_sem.py)
+    if ckpts != (["best.pt", "latest.pt"] if miou > 0 else ["latest.pt"]):
+        raise AssertionError(f"train_sem checkpoints {ckpts} at mIoU {miou}")
+
+    # ---- train_sem_parity_vs_plain_on_card: one step's loss and gradients
+    # at batch SEM_PARITY_BATCH, kernels against plain versions, with the
+    # float64 and one-ulp witnesses (step_parity), in train mode and on the
+    # running statistics the step left ----
+    sb = semantic_batch(spec, SEM_PARITY_BATCH, dev)
+    sb_nudged = nudged(sb, 5)
+    model = init_weights(SphericalFusionSeg(spec, num_classes=SEG_CLASSES, device=dev), 0)
+    sd0 = tame_heads(copy.deepcopy(model.state_dict()))
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic_cudnn():
+        kern = loss_and_grads(model, sb, sd0)
+        sd1 = copy.deepcopy(model.state_dict())
+        kern_rs = loss_and_grads(model, sb, sd1, train=False)
+        with plain_versions():
+            plain = [loss_and_grads(model, b, sd0) for b in (sb, sb_nudged)]
+            plain_rs = [loss_and_grads(model, b, sd1, train=False) for b in (sb, sb_nudged)]
+            f64 = loss_and_grads(*as_f64(model, sb, sd0))
+            f64_rs = loss_and_grads(*as_f64(model, sb, sd1), train=False)
+    del model
+    torch.cuda.empty_cache()
+    par, ok = step_parity(kern, plain[0], f64, plain[1])
+    par_rs, ok_rs = step_parity(kern_rs, plain_rs[0], f64_rs, plain_rs[1])
+    emit({"phase": "train_sem_parity_vs_plain_on_card", "batch": SEM_PARITY_BATCH,
+          "classes": SEG_CLASSES, "heads": "tamed",
+          "precision": "f32 (tf32 off), cuDNN deterministic", "loss_tol": LOSS_TOL,
+          "f64_ratio": F64_RATIO, "ulp_ratio": ULP_RATIO, "median_tol_running_stats": GRAD_TOL,
+          "train_mode": par, "running_stats": par_rs,
+          "max_memory_allocated_bytes_with_float64": torch.cuda.max_memory_allocated()})
+    if not (ok and ok_rs and par_rs["grad_rel_median"] < GRAD_TOL):
+        raise AssertionError(f"segmentation train step vs plain versions: {par}, {par_rs}")
+    del kern, kern_rs, plain, plain_rs, f64, f64_rs
+
     # ---- kernel timings: the f32 path's calls (on_path), and the bf16
     # recipe's (recipe "bf16": e2p in bf16, the merge in f16, the decoder's
     # upsamples in bf16 but the first) ----
@@ -1392,6 +1643,24 @@ def main() -> int:
          False, "nrows6"),
         (f"merge_n6_f16_b{MERGE_BATCH}", lambda: torch.rand(
             MERGE_BATCH, 2, t_n6.n_in, device=dev, generator=g).half(), t_n6, False, "nrows6"),
+    ]
+    # the segmentation merge (recipe names the path) at each timed batch,
+    # the perspective views: 8 views of 256x256 from the ERP (extract) and
+    # back (insert), and the channel-last merge, batch 2, 3 channels, f32
+    t_views = perspective_tables(VIEW_CENTERS, VIEW_FOV, VIEW_SIZE, ERP, dev)
+    t_views_inv, _ = inverse_perspective_tables(VIEW_CENTERS, VIEW_FOV, VIEW_SIZE, ERP, dev)
+    cot_seg = torch.rand(TRAIN_BATCH, seg_rows, n_erp, device=dev, generator=g)
+    blend_cases += [(f"merge_seg_b{b}", lambda b=b: torch.rand(
+        b, seg_rows, t_p2e.n_in, device=dev, generator=g), t_p2e, False, "segmentation")
+        for b in TIMED_BATCHES]
+    blend_cases += [
+        ("extract_views", lambda: torch.rand(BATCH, n_erp, 3, device=dev, generator=g), t_views,
+         True, "views"),
+        ("insert_views", lambda: torch.rand(BATCH, t_views_inv.n_in, 3, device=dev, generator=g),
+         t_views_inv, True, "views"),
+        # the channel-last merge on the flagship's tables, 3 channels
+        ("pers2equi_c3", lambda: torch.rand(BATCH, t_p2e.n_in, 3, device=dev, generator=g),
+         t_p2e, True, "channel_last"),
     ]
     sweep = []
     for name, x, tables, cl, recipe in blend_cases:
@@ -1439,7 +1708,9 @@ def main() -> int:
     cot_q = torch.rand(TRAIN_BATCH, t_q.n_out, 1, device=dev, generator=g)
     for name, cot, t, cl, on_path in (("merge_f32_b8", cot_merge, t_p2e.vjp, False, True),
                                       ("e2p_b8", cot_e2p, t_e2p.vjp, True, False),
-                                      (f"e2p_q_b{TRAIN_BATCH}", cot_q, t_q.vjp, True, False)):
+                                      (f"e2p_q_b{TRAIN_BATCH}", cot_q, t_q.vjp, True, False),
+                                      (f"merge_seg_b{TRAIN_BATCH}", cot_seg, t_p2e.vjp, False,
+                                       False)):
         out = quad_spread(cot, t, channel_last=cl)
         n_entries = int((t.w_t.sum(-1) > 0).sum().item()) + t.n_over
         b_ms, b_by = bound(
@@ -1622,6 +1893,47 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
 
+    # ---- end to end, the segmentation model: the forward and the train
+    # step (cross-entropy on cli.train_sem's synthetic labels), f32, TF32
+    # off, at each timed batch, with their peak memory ----
+    model = init_weights(SphericalFusionSeg(spec, num_classes=SEG_CLASSES, device=dev), 0)
+    seg_fwd, seg_step = {}, {}
+    for b in TIMED_BATCHES:
+        x = torch.rand(b, *ERP, 3, device=dev, generator=g)
+        model.eval()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            ms = timer(lambda: model(x), iters=5, warmup=2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                model(x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+        seg_fwd[f"f32_b{b}"] = {"device_ms": ms, "wall_ms": wall_ms,
+                                "panos_per_s": b / (wall_ms / 1e3),
+                                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    state = create_train_state(model)
+    for b in TIMED_BATCHES:
+        sb = semantic_batch(spec, b, dev)
+        torch.cuda.reset_peak_memory_stats()
+        ms = timer(lambda: train_step_sem(state, sb), iters=5, warmup=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            train_step_sem(state, sb)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+        seg_step[f"f32_b{b}"] = {"device_ms": ms, "wall_ms": wall_ms,
+                                 "panos_per_s": b / (wall_ms / 1e3),
+                                 "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    emit({"phase": "forward_seg", "gpu": gpu, "classes": SEG_CLASSES, "erp": list(ERP),
+          "patch": PATCH, "precision": "f32 (tf32 off)", **seg_fwd})
+    emit({"phase": "train_step_seg", "gpu": gpu, "classes": SEG_CLASSES, "erp": list(ERP),
+          "patch": PATCH, "precision": "f32 (tf32 off)", **seg_step})
+    del state, model, x, sb
+    torch.cuda.empty_cache()
+
     # ---- the other measurement entry points, each run in this process ----
     zero_counts()
     lines = run_tool(bench_merge.main,
@@ -1696,6 +2008,16 @@ def main() -> int:
             it_rows = [(r, ITERS) for r in rs]
         iterative = {f"{k}_iterative": sum(r[k] * n for r, n in it_rows)
                      for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        # the segmentation model's calls per forward at batch 2 or step at
+        # batch 8: the one-shot model's, with the 14-row merge and its spread
+        if name == "quad_blend":
+            seg_rows_t = [(case["e2p"], 1), (case[f"merge_seg_b{BATCH}"], 1)]
+        elif name == "quad_spread":
+            seg_rows_t = [(case[f"merge_seg_b{TRAIN_BATCH}"], 1)]
+        else:
+            seg_rows_t = [(r, 1) for r in rs]
+        segmentation = {f"{k}_segmentation": sum(r[k] * n for r, n in seg_rows_t)
+                        for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": train_launches[name],
@@ -1726,6 +2048,13 @@ def main() -> int:
                                       f"steps at batch {TRAIN_BATCH}, {val_forwards} validation "
                                       f"forwards",
             "ms_train_bf16_step": sum(bf16_split[k] for k in split_names[name]),
+            "launches_serve_seg": serve_seg_launches[name],
+            "launches_train_sem": train_sem_launches[name],
+            "launches_train_sem_of": f"cli.train_sem run: {sem_steps} steps at batch "
+                                     f"{TRAIN_BATCH}, {sem_val_forwards} validation forward",
+            f"launches_per_train_sem_{per}": train_sem_launches[name] / (
+                sem_steps + sem_val_forwards if per == "forward" else sem_steps),
+            **segmentation,
         })
     kernels.append({
         "name": "probe", "route": "cuda", "source": "omnifusion_torch/csrc/probe.cu",

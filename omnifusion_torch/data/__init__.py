@@ -1,8 +1,10 @@
 from omnifusion_torch.data.datasets import (
     MatterportDataset,
     PanoDepthDataset,
+    SemanticDataset,
     StanfordDataset,
     SyntheticDataset,
+    SyntheticSemanticDataset,
     ThreeSixtyDDataset,
     make_dataset,
 )
@@ -12,8 +14,10 @@ __all__ = [
     "DataLoader",
     "MatterportDataset",
     "PanoDepthDataset",
+    "SemanticDataset",
     "StanfordDataset",
     "SyntheticDataset",
+    "SyntheticSemanticDataset",
     "ThreeSixtyDDataset",
     "make_dataset",
 ]

@@ -1,8 +1,7 @@
-"""Panorama depth datasets (host-side numpy, channel-last).
+"""Panorama depth and semantic datasets (host-side numpy, channel-last).
 
-The port's copy of ``omnifusion_tpu/data/datasets.py`` (its depth datasets;
-the segmentation ones come with segmentation). Behavioral parity with the
-reference loaders:
+The port's copy of ``omnifusion_tpu/data/datasets.py``. Behavioral parity
+with the reference loaders:
 
   - StanfordDataset:   dataset_loader_stanford.py (1024x512, depth 16-bit
     PNG / 65535 * 128, max depth 8.0, optional channel-permute aug)
@@ -10,6 +9,9 @@ reference loaders:
     PNG / 4000, max depth 10.0)
   - ThreeSixtyDDataset: dataset_loader_360d.py (512x256, depth EXR channel R,
     max depth 8.0, optional gamma aug)
+  - SemanticDataset: RGB + uint8 label PNGs (the reference's segmentation
+    dataset module is absent from its repo; this is the JAX package's
+    working equivalent); SyntheticSemanticDataset for smoke runs
 
 Shared behavior (each reference loader duplicates it): split files are
 whitespace-separated relative paths (rgb depth [semantic]) loaded via
@@ -18,7 +20,8 @@ cv2's BGR order, kept end to end; augmentations = random horizontal flip +
 horizontal roll quantized to quarter-width, drawn from one numpy generator
 per dataset in the JAX package's order, so a seed gives the same samples;
 mask = (depth <= max) & (depth > min); depth zeroed outside the mask. A
-sample is rgb (H, W, 3) f32, depth and mask (H, W, 1) f32.
+depth sample is rgb (H, W, 3) f32, depth and mask (H, W, 1) f32; a semantic
+sample is rgb (H, W, 3) f32 and labels (H, W) int32, -1 where ignored.
 
 cv2 is imported inside the readers only: the module imports without it.
 """
@@ -125,21 +128,24 @@ class PanoDepthDataset:
         raise NotImplementedError
 
     # ----------------------------------------------------------------------
-    def __getitem__(self, idx: int):
-        paths = self.image_list[idx]
-        rgb = self.read_rgb(self.root_path + paths[0]).astype(np.float32) / 255.0
-        depth = self.read_depth(self.root_path + paths[1])
-
+    def flip_and_roll(self, rgb: np.ndarray, target: np.ndarray):
+        """The random horizontal flip, then the horizontal roll quantized to
+        quarter-width (dataset_loader_stanford.py:63-67), of the panorama
+        and its per-pixel target alike, drawn in this order."""
         if self.flip and self.rng.integers(2) == 0:
             rgb = np.flip(rgb, axis=1)
-            depth = np.flip(depth, axis=1)
-
+            target = np.flip(target, axis=1)
         if self.rotate:
-            # roll quantized to quarter-width (dataset_loader_stanford.py:63-67)
             q = rgb.shape[1] // 4
             dx = int(self.rng.integers(rgb.shape[1])) // q * q
             rgb = np.roll(rgb, dx, axis=1)
-            depth = np.roll(depth, dx, axis=1)
+            target = np.roll(target, dx, axis=1)
+        return rgb, target
+
+    def __getitem__(self, idx: int):
+        paths = self.image_list[idx]
+        rgb = self.read_rgb(self.root_path + paths[0]).astype(np.float32) / 255.0
+        rgb, depth = self.flip_and_roll(rgb, self.read_depth(self.root_path + paths[1]))
 
         if self.permute_color and self.rng.integers(4) == 0:
             rgb = rgb[:, :, self.rng.permutation(3)]
@@ -184,6 +190,56 @@ class ThreeSixtyDDataset(PanoDepthDataset):
 
     def read_depth(self, path: str) -> np.ndarray:
         return read_exr_r(path)
+
+
+class SemanticDataset(PanoDepthDataset):
+    """RGB + semantic labels from split lists of 3 columns (rgb depth
+    semantic) or 2 (rgb semantic).
+
+    Label maps are PNGs of uint8 class ids (a 3-channel PNG keeps its
+    channel 0), resized with INTER_NEAREST; 255 decodes to the ignore index
+    -1 (cross-entropy ignore, train_erp_sem.py:203). Augmented as the depth
+    datasets are (``flip_and_roll``)."""
+
+    def __getitem__(self, idx: int):
+        import cv2
+
+        paths = self.image_list[idx]
+        rgb = self.read_rgb(self.root_path + paths[0]).astype(np.float32) / 255.0
+        sem_path = self.root_path + (paths[2] if len(paths) > 2 else paths[1])
+        sem = cv2.imread(sem_path, -1)
+        if sem is None:
+            raise FileNotFoundError(f"cannot read label map {sem_path!r}")
+        if sem.ndim == 3:
+            sem = sem[..., 0]
+        sem = cv2.resize(
+            sem.astype(np.int32), (self.pano_w, self.pano_h), interpolation=cv2.INTER_NEAREST
+        )
+        rgb, labels = self.flip_and_roll(rgb, np.where(sem == 255, -1, sem).astype(np.int32))
+        return np.ascontiguousarray(rgb, dtype=np.float32), np.ascontiguousarray(labels)
+
+
+class SyntheticSemanticDataset:
+    """Procedural panorama/label pairs for segmentation smoke runs: a
+    quarter-size checkerboard of class ids, colored by class, with noise."""
+
+    def __init__(self, size=16, pano_h=128, pano_w=256, num_classes=13, seed=0):
+        self.size, self.pano_h, self.pano_w = size, pano_h, pano_w
+        self.num_classes, self.seed = num_classes, seed
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, idx):
+        rng = np.random.default_rng(self.seed * 9176 + idx)
+        h, w, c = self.pano_h, self.pano_w, self.num_classes
+        yy, xx = np.mgrid[0:h, 0:w]
+        labels = ((xx // (w // 4) + yy // (h // 4)) % c).astype(np.int32)
+        rgb = np.stack(
+            [labels / c, ((labels * 37) % c) / c, ((labels * 11) % c) / c], -1
+        ).astype(np.float32)
+        rgb += rng.normal(0, 0.02, rgb.shape).astype(np.float32)
+        return np.clip(rgb, 0, 1), labels
 
 
 class SyntheticDataset:

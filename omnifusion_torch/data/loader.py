@@ -2,10 +2,11 @@
 
 The port's counterpart of ``omnifusion_tpu/data/loader.py``: a thread pool
 builds samples while the card computes; batches are dicts of channel-last
-numpy arrays (rgb, depth, mask). ``to_device`` replaces the JAX loader's
-``prefetch_to_device``: on a CUDA device each batch goes through pinned host
-memory with a non-blocking copy, so the copy of the next batch overlaps the
-step that runs on the current one.
+numpy arrays (rgb, depth, mask; or rgb, labels from the segmentation
+datasets). ``to_device`` replaces the JAX loader's ``prefetch_to_device``:
+on a CUDA device each batch goes through pinned host memory with a
+non-blocking copy, so the copy of the next batch overlaps the step that
+runs on the current one.
 """
 
 from __future__ import annotations
@@ -52,8 +53,10 @@ class DataLoader:
 
     def _load_batch(self, indices) -> dict[str, np.ndarray]:
         samples = [self.dataset[int(i)] for i in indices]
-        rgb, depth, mask = (np.stack(x) for x in zip(*samples))
-        return {"rgb": rgb, "depth": depth, "mask": mask}
+        cols = [np.stack(x) for x in zip(*samples)]
+        if len(cols) == 2:  # segmentation datasets: (rgb, labels)
+            return {"rgb": cols[0], "labels": cols[1]}
+        return {"rgb": cols[0], "depth": cols[1], "mask": cols[2]}
 
     def to_device(self, device) -> Iterator[dict[str, torch.Tensor]]:
         """Iterate batches as tensors on ``device``, keeping two copies in

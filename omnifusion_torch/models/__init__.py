@@ -8,11 +8,14 @@ from omnifusion_torch.models.spherical_fusion import (
 from omnifusion_torch.models.convert import state_dict_from_jax
 from omnifusion_torch.models.iterative import SphericalFusionIterative
 from omnifusion_torch.models.resnet import ResNet34Encoder
+from omnifusion_torch.models.segmentation import SphericalFusionSeg, cross_entropy_ignore
 from omnifusion_torch.models.transformer import TransformerCascade
 
 __all__ = [
     "SphericalFusion",
     "SphericalFusionIterative",
+    "SphericalFusionSeg",
+    "cross_entropy_ignore",
     "DepthTrunk",
     "MlpPoints",
     "confidence_merge",

@@ -1,16 +1,19 @@
 """Convert the JAX package's model variables to the port's state dict.
 
-``state_dict_from_jax(variables)`` takes the variables of a SphericalFusion
-or a SphericalFusionIterative as a nested mapping of arrays (``{"params":
-..., "batch_stats": ...}``, numpy or anything ``np.asarray`` reads) and
+``state_dict_from_jax(variables)`` takes the variables of a SphericalFusion,
+a SphericalFusionIterative or a SphericalFusionSeg as a nested mapping of
+arrays (``{"params": ..., "batch_stats": ...}``, numpy or anything
+``np.asarray`` reads) and
 returns the port's state dict: the upstream checkpoint's key names (the
 names ``omnifusion_tpu/models/torch_export.py`` writes) with 4-D conv
 kernels (O, I, kh, kw), plus ``up_proj.{weight,bias}`` where the model has
 that projection, and without the token projection and the transformer where
 the model has none (``use_transformer=False``). The tree says which model
 it is: an iterative one has ``mlp_points1`` and ``mlp_points2``, and its
-token projection goes to ``down1``. The result loads into ``omnifusion_torch.models.SphericalFusion``
-or ``SphericalFusionIterative`` with strict=True.
+token projection goes to ``down1``; a segmentation one has the one-shot
+model's tree with a ``pred`` of ``num_classes`` outputs. The result loads
+into ``omnifusion_torch.models.SphericalFusion``, ``SphericalFusionIterative``
+or ``SphericalFusionSeg`` with strict=True.
 
 No JAX import: the mapping is names and axes only.
 """
@@ -111,8 +114,8 @@ def _mlp_points(sd, prefix, p, s):
 
 
 def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX SphericalFusion or SphericalFusionIterative variables -> the
-    port's state dict of the same model."""
+    """JAX SphericalFusion, SphericalFusionIterative or SphericalFusionSeg
+    variables -> the port's state dict of the same model."""
     p, s = variables["params"], variables["batch_stats"]
     sd: dict[str, torch.Tensor] = {}
     iterative = "mlp_points1" in p

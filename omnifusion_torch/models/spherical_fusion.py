@@ -75,10 +75,12 @@ class DepthTrunk(ResNet34Encoder):
 
     ``trunk(x, point_feat, b)``: x (B*P, 3, h, w) and point_feat
     (P, 64, h/4, w/4), shared by the batch, or (B*P, 64, h/4, w/4) ->
-    (pred, conf), each (B*P, 1, h, w), in ``dtype`` (None: f32). The token
-    projection sits at ``DOWN``, the upstream checkpoint's name for it.
-    ``use_transformer=False``: no global fusion (no token projection,
-    transformer or up_proj); layer4 goes straight to the decoder.
+    (pred (B*P, pred_channels, h, w), conf (B*P, 1, h, w)), in ``dtype``
+    (None: f32). ``pred_activation``: "relu" (depth) or "none"
+    (segmentation logits). The token projection sits at ``DOWN``, the
+    upstream checkpoint's name for it. ``use_transformer=False``: no global
+    fusion (no token projection, transformer or up_proj); layer4 goes
+    straight to the decoder.
     """
 
     DOWN = "down"
@@ -93,13 +95,20 @@ class DepthTrunk(ResNet34Encoder):
         dtype: Optional[torch.dtype] = None,
         use_transformer: bool = True,
         device=None,
+        pred_channels: int = 1,
+        pred_activation: str = "relu",
     ):
+        if pred_activation not in ("relu", "none"):
+            raise ValueError(f"pred_activation must be 'relu' or 'none', got {pred_activation!r}")
         stages = tuple(encoder_stages or RESNET34_STAGES)
         super().__init__(stages, dtype=dtype, device=device)
         self.dtype = dtype
         self.use_transformer = use_transformer
+        self.pred_channels = pred_channels
+        self.pred_activation = pred_activation
         c1, c2, c3, c4 = (s[0] for s in stages)
-        hh, ww = patch_size[0] // 32, patch_size[1] // 32
+        # layer4's side: five stride-2 stages, each rounding up
+        hh, ww = -(-patch_size[0] // 32), -(-patch_size[1] // 32)
         self.emb = 32 * hh * ww
         if use_transformer:
             setattr(self, self.DOWN,
@@ -122,7 +131,7 @@ class DepthTrunk(ResNet34Encoder):
         self.de_conv3_0 = ConvBnReLU(64, 64, **kw)
         self.de_conv3_1 = ConvBnReLU(64 + 64, 32, **kw)
         self.de_conv4_0 = ConvBnReLU(32, 32, **kw)
-        self.pred = torch_conv(32, 1, 3, 1, 1, use_bias=True, device=device)
+        self.pred = torch_conv(32, pred_channels, 3, 1, 1, use_bias=True, device=device)
         self.weight_pred = torch_conv(32, 1, 3, 1, 1, use_bias=True, device=device)
 
     def fuse(self, l4, b: int):
@@ -175,7 +184,9 @@ class DepthTrunk(ResNet34Encoder):
             torch.cat([self.pred.bias, self.weight_pred.bias]).to(x.dtype),
             padding=1,
         )
-        return F.relu(y[:, :1]), torch.sigmoid(y[:, 1:])
+        k = self.pred_channels
+        pred = F.relu(y[:, :k]) if self.pred_activation == "relu" else y[:, :k]
+        return pred, torch.sigmoid(y[:, k:])
 
 
 def confidence_merge(
@@ -202,6 +213,16 @@ def confidence_merge(
     num, den = merged[:, 0], merged[:, 1]
     zero = (den <= 1e-8).to(den.dtype)
     return (num / (den + 1e-8 * zero))[..., None]
+
+
+def geometry_input(spec: ProjectionSpec, device) -> torch.Tensor:
+    """The geometric embedding's input, (P, 5, h/4, w/4): (center, rho=1,
+    center) per patch pixel at quarter resolution."""
+    spec_q = spec.with_patch_scale(4)
+    centers = spec_q.centers_normalized().astype(np.float32)  # (P, 2)
+    geo = np.concatenate([centers, np.ones_like(centers[:, :1]), centers], axis=-1)
+    geo = torch.from_numpy(geo)[:, :, None, None].expand(-1, -1, spec_q.patch_h, spec_q.patch_w)
+    return geo.contiguous().to(device)
 
 
 class SphericalFusion(DepthTrunk):
@@ -234,13 +255,7 @@ class SphericalFusion(DepthTrunk):
         self.spec = spec
         self.merge_dtype = merge_dtype
         self.mlp_points = MlpPoints(dtype=dtype, device=device)
-        # geometric embedding input: (center, rho=1, center) per patch pixel
-        # at quarter resolution
-        spec_q = spec.with_patch_scale(4)
-        centers = spec_q.centers_normalized().astype(np.float32)  # (P, 2)
-        geo = np.concatenate([centers, np.ones_like(centers[:, :1]), centers], axis=-1)
-        geo = torch.from_numpy(geo)[:, :, None, None].expand(-1, -1, spec_q.patch_h, spec_q.patch_w)
-        self.register_buffer("geo", geo.contiguous().to(device), persistent=False)
+        self.register_buffer("geo", geometry_input(spec, device), persistent=False)
 
     def forward(self, rgb: torch.Tensor, confidence: bool = True) -> torch.Tensor:
         """``confidence=False``: merge the depth alone, unweighted."""

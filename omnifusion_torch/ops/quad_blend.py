@@ -67,8 +67,8 @@ _MAX_ROWS = 8 * 65535  # quad_spread: grid.y = ceil(rows / 8) must fit the launc
 # time (a chunk of C-row units for a (B, N, C) source) of the tile's
 # footprint, the GROUP-pixel groups its corners touch, in shared memory
 # (double-buffered); fewer rows where the largest footprint would take more
-# than BLOCK_SMEM bytes (four blocks of 256 threads on an SM), and the call
-# raises where one row does not fit SMEM_BYTES, a block's most; a pixel keeps
+# than BLOCK_SMEM bytes (four blocks of 256 threads on an SM), and none
+# where one unit does not fit SMEM_BYTES, a block's most, twice; a pixel keeps
 # at most MAX_ENTRIES quads (slots + tail) in registers, and the kernel reads
 # those past them from global memory for every row. The staging pays
 # where the footprint holds at most STAGE_MAX_FOOTPRINT staged pixels per
@@ -439,14 +439,16 @@ def blend_plan(
 ) -> tuple[bool, int, int]:
     """How csrc/quad_blend.cu runs a call of ``units`` units of ``cpu``
     elements per pixel: (staged, units staged per step, units per block).
-    Arguments left None follow the module's rule; raises where a staged
-    footprint does not fit shared memory."""
+    Arguments left None follow the module's rule, which stages a dense
+    footprint only where one unit of it fits shared memory twice (a
+    channel-last source of many channels gathers from global memory);
+    raises where staging is asked for and does not fit."""
+    unit_bytes = tiles.pitch * cpu * elem_size  # one staged unit
     if staged is None:
-        staged = tiles.footprint <= STAGE_MAX_FOOTPRINT
+        staged = tiles.footprint <= STAGE_MAX_FOOTPRINT and 2 * unit_bytes <= SMEM_BYTES
     if unit_block is None:
         unit_block = units if staged else max(1, GLOBAL_UNIT_ROWS // cpu)
     unit_block = max(unit_block, -(-units // 65535))  # grid.y's limit
-    unit_bytes = tiles.pitch * cpu * elem_size  # one staged unit
     if staged and 2 * unit_bytes > SMEM_BYTES:
         raise ValueError(f"quad_blend: a tile's footprint of {tiles.pitch} pixels does not fit "
                          f"shared memory twice")

@@ -1,4 +1,4 @@
-"""Runtime projection ops: equi2pers / pers2equi_cf.
+"""Runtime projection ops: equi2pers / pers2equi / pers2equi_cf.
 
 The port's counterpart of ``omnifusion_tpu/projection/ops.py``, with the
 JAX package's layouts at the public functions:
@@ -7,16 +7,19 @@ JAX package's layouts at the public functions:
   patch stack:               (B, P, h, w, C)
   channel-first patch stack: (B, C, P*h*w)
 
-Both ops are one static sparse gather-blend (ops/quad_blend.py): on a CUDA
-tensor they launch its kernel, on a CPU tensor they run its plain version.
-Both are differentiable in their input: the backward applies the transposed
+Each op is one static sparse gather-blend (ops/quad_blend.py): on a CUDA
+tensor it launches its kernel, on a CPU tensor it runs its plain version.
+Each is differentiable in its input: the backward applies the transposed
 tables (the transposed kernel on the card). The tables, forward and
 transposed, move to a device once per (spec, device) and stay cached.
+``equi2pers_full``, ``project`` and ``unproject`` add the static geometric
+features and the grids' lookup, as the JAX functions do.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,6 +31,15 @@ from omnifusion_torch.projection.spec import (
     build_equi2pers_grids,
     build_pers2equi_grids,
 )
+
+
+class PatchProjection(NamedTuple):
+    """equi2pers result bundle (mirrors the reference's 4-tuple return)."""
+
+    pers: torch.Tensor  # (B, P, h, w, C)
+    xyz: torch.Tensor  # (P, h, w, 3)
+    uv: torch.Tensor  # (P, h, w, 2)
+    centers: torch.Tensor  # (P, 2)
 
 
 # the blend kernel's output tile for equi2pers, which gathers from global
@@ -87,3 +99,38 @@ def pers2equi_cf(pers_cf: torch.Tensor, grids: Pers2EquiGrids) -> torch.Tensor:
         raise ValueError(f"patch stack {tuple(pers_cf.shape)} does not match {spec}")
     out = quad_blend(pers_cf.contiguous(), pers2equi_tables(spec, pers_cf.device))
     return out.reshape(b, c, spec.erp_h, spec.erp_w)
+
+
+def equi2pers_full(erp: torch.Tensor, grids: Equi2PersGrids) -> PatchProjection:
+    """equi2pers plus the static geometric features (xyz, uv, centers), f32
+    tensors on erp's device."""
+    feats = (torch.from_numpy(a).to(erp.device) for a in (grids.xyz, grids.uv, grids.centers))
+    return PatchProjection(equi2pers(erp, grids), *feats)
+
+
+def pers2equi(pers: torch.Tensor, grids: Pers2EquiGrids) -> torch.Tensor:
+    """Merge tangent patches back to an ERP image, channel-last.
+
+    pers: (B, P, h, w, C) -> (B, H, W, C) in pers's dtype (the blend's f32
+    sums rounded once, as the JAX function's XLA path keeps the source
+    dtype). Overlapping patches are blended with the precomputed
+    L1-normalized bilinear weights: the same map and tables as
+    pers2equi_cf."""
+    spec = grids.spec
+    b, p, h, w, c = pers.shape
+    if (p, h, w) != (spec.n_patches, spec.patch_h, spec.patch_w):
+        raise ValueError(f"patch stack {tuple(pers.shape)} does not match {spec}")
+    src = pers.contiguous().reshape(b, p * h * w, c)
+    out = quad_blend(src, pers2equi_tables(spec, pers.device), channel_last=True,
+                     out_dtype=pers.dtype)
+    return out.reshape(b, spec.erp_h, spec.erp_w, c)
+
+
+def project(erp: torch.Tensor, spec: ProjectionSpec) -> PatchProjection:
+    """Build (or load) the grids of ``spec`` and run equi2pers_full."""
+    return equi2pers_full(erp, build_equi2pers_grids(spec))
+
+
+def unproject(pers: torch.Tensor, spec: ProjectionSpec) -> torch.Tensor:
+    """Build (or load) the grids of ``spec`` and run pers2equi."""
+    return pers2equi(pers, build_pers2equi_grids(spec))

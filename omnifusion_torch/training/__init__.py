@@ -7,7 +7,9 @@ from omnifusion_torch.training.trainer import (
     forward_loss,
     make_optimizer,
     param_groups,
+    seg_forward_loss,
     train_step,
+    train_step_sem,
 )
 
 __all__ = [
@@ -22,5 +24,7 @@ __all__ = [
     "param_groups",
     "restore_file",
     "restore_state",
+    "seg_forward_loss",
     "train_step",
+    "train_step_sem",
 ]

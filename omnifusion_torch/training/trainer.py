@@ -23,6 +23,7 @@ from torch import nn
 
 from omnifusion_torch.evaluation.metrics import compute_depth_metrics
 from omnifusion_torch.losses.direct import berhu_loss
+from omnifusion_torch.models.segmentation import cross_entropy_ignore
 from omnifusion_torch.training.schedule import cosine_warm_restarts
 
 
@@ -104,12 +105,9 @@ def forward_loss(
     return torch.stack(losses).mean(), preds[-1]
 
 
-def train_step(state: TrainState, batch: dict, confidence: bool = True) -> dict[str, torch.Tensor]:
-    """One update; returns loss, grad_norm (global L2 norm of all the
-    gradients) and pred_mean as 0-d tensors on the model's device, so that
-    the caller decides when to sync. ``confidence``: the model's merge."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, pred = forward_loss(state.model, batch, confidence)
+def _update(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
+    """Backward of ``loss`` and one AdamW update at the schedule's rate;
+    returns the global L2 norm of all the gradients."""
     loss.backward()
     grads = [p.grad for p in state.model.parameters() if p.grad is not None]
     grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -118,7 +116,34 @@ def train_step(state: TrainState, batch: dict, confidence: bool = True) -> dict[
         group["lr"] = lr * group["lr_scale"]
     state.optimizer.step()
     state.step += 1
+    return grad_norm
+
+
+def train_step(state: TrainState, batch: dict, confidence: bool = True) -> dict[str, torch.Tensor]:
+    """One update; returns loss, grad_norm (global L2 norm of all the
+    gradients) and pred_mean as 0-d tensors on the model's device, so that
+    the caller decides when to sync. ``confidence``: the model's merge."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, pred = forward_loss(state.model, batch, confidence)
+    grad_norm = _update(state, loss)
     return {"loss": loss.detach(), "grad_norm": grad_norm, "pred_mean": pred.detach().mean()}
+
+
+def seg_forward_loss(model: nn.Module, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Train-mode forward of a segmentation model and its cross-entropy
+    over the labels that are not -1: (loss, logits). batch: rgb (B, H, W,
+    3), labels (B, H, W) (cli/train_sem.py of the JAX package)."""
+    model.train()
+    logits = model(batch["rgb"])
+    return cross_entropy_ignore(logits, batch["labels"]), logits
+
+
+def train_step_sem(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
+    """One update of a segmentation model; returns loss and grad_norm as
+    0-d tensors on the model's device."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, _ = seg_forward_loss(state.model, batch)
+    return {"loss": loss.detach(), "grad_norm": _update(state, loss)}
 
 
 def eval_step(model: nn.Module, batch: dict, confidence: bool = True):

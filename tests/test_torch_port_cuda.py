@@ -461,3 +461,76 @@ def test_up2x_adjoint_kernel_matches_plain(cuda, shape):
     assert up2x_adjoint.launches == before + 1
     # a 16-tap sum of inputs in [0, 1) in another order
     torch.testing.assert_close(x.grad, up2x_adjoint_plain(g), rtol=0, atol=1e-6)
+
+
+# ---- the segmentation path and the rest of the projection layer ----
+
+@pytest.mark.parametrize("batch", [2, 8])
+def test_segmentation_merge_fourteen_rows(cuda, batch):
+    # the merge of 13 classes' logits and the confidence: C + 1 = 14
+    # channel-first rows per panorama, f32, and its 14-channel backward
+    tables = pers2equi_tables(SPEC, cuda)
+    gen = torch.Generator().manual_seed(9)
+    x = torch.rand(batch, 14, tables.n_in, generator=gen).to(cuda).requires_grad_()
+    before = quad_blend.launches, quad_spread.launches
+    got = quad_blend(x, tables)
+    g = torch.rand(batch, 14, tables.n_out, generator=gen).to(cuda)
+    got.backward(g)
+    torch.cuda.synchronize()
+    assert (quad_blend.launches, quad_spread.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, quad_blend_plain(x.detach(), tables), rtol=0, atol=2e-6)
+    torch.testing.assert_close(x.grad, quad_spread_plain(g, tables.vjp), rtol=1.3e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_perspective_views_kernel_matches_plain(cuda, dtype, channels):
+    from omnifusion_torch.projection import extract_views, insert_views
+
+    centers, fov = ((0.5, 10.0), (30.0, 88.0), (359.5, -60.0)), (100.0, 100.0)
+    erp = torch.rand(2, 64, 128, channels, generator=torch.Generator().manual_seed(3))
+    erp = erp.to(cuda, dtype).requires_grad_()
+    before = quad_blend.launches, quad_spread.launches
+    views = extract_views(erp, centers, fov, (24, 40))
+    equi, mask = insert_views(views, centers, fov, (64, 128))
+    g = torch.rand(equi.shape, generator=torch.Generator().manual_seed(4)).to(cuda, dtype)
+    equi.backward(g)
+    torch.cuda.synchronize()
+    assert (quad_blend.launches, quad_spread.launches) == (before[0] + 2, before[1] + 2)
+    assert views.dtype == equi.dtype == erp.grad.dtype == dtype and mask.device == erp.device
+    cpu_views = extract_views(erp.detach().cpu(), centers, fov, (24, 40))
+    cpu_equi, cpu_mask = insert_views(views.detach().cpu(), centers, fov, (64, 128))
+    # f32: the plain version's sums in another order; bf16: the same f32
+    # sums rounded once, so at most one bf16 ulp apart
+    tol = dict(rtol=0, atol=2e-6) if dtype == torch.float32 else dict(rtol=2.0**-7, atol=1e-6)
+    torch.testing.assert_close(views.cpu(), cpu_views, **tol)
+    torch.testing.assert_close(equi.detach().cpu(), cpu_equi, **tol)
+    assert torch.equal(mask.cpu(), cpu_mask)
+
+
+def test_channel_last_pers2equi_kernel_matches_plain(cuda):
+    from omnifusion_torch.projection import build_pers2equi_grids, pers2equi
+
+    pers = torch.rand(3, SPEC.n_patches, 16, 16, 5, generator=torch.Generator().manual_seed(5))
+    before = quad_blend.launches
+    got = pers2equi(pers.to(cuda), build_pers2equi_grids(SPEC))
+    torch.cuda.synchronize()
+    assert quad_blend.launches == before + 1
+    torch.testing.assert_close(got.cpu(), pers2equi(pers, build_pers2equi_grids(SPEC)),
+                               rtol=0, atol=2e-6)
+
+
+def test_perspective_views_of_many_channels_gather_from_global_memory(cuda):
+    # 32 f32 channels: the views' staged footprints do not fit a block's
+    # shared memory twice, so the blend gathers from global memory
+    from omnifusion_torch.projection import extract_views, insert_views
+
+    centers, fov = ((0.5, 10.0), (90.0, 45.0), (200.0, -60.0)), (90.0, 90.0)
+    erp = torch.rand(2, 64, 128, 32, generator=torch.Generator().manual_seed(8))
+    views = extract_views(erp.to(cuda), centers, fov, (48, 64))
+    equi, _ = insert_views(views, centers, fov, (64, 128))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(views.cpu(), extract_views(erp, centers, fov, (48, 64)),
+                               rtol=0, atol=2e-6)
+    torch.testing.assert_close(equi.cpu(), insert_views(views.cpu(), centers, fov, (64, 128))[0],
+                               rtol=0, atol=2e-6)
