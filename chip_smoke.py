@@ -43,8 +43,13 @@ patch 128, fov 80, nrows 4, seeded random weights):
   (omnifusion_torch/tools/profile_forward.py) and the quad_blend,
   quad_spread and up2x times (omnifusion_torch/tools/bench_kernels.py).
 
+The up2x adjoint is held to its plain version bit for bit (f32 and bf16,
+every decoder stage at batch 8, odd sides, an unaligned view, and past 2^31
+cotangents at batch 256).
+
 Then it times each kernel beside its bound, its plain version and one
-library call that computes the same function (quad_blend also at bench.py's
+library call that computes the same function (the up2x adjoint also with
+the L2 cache flushed before each call; quad_blend also at bench.py's
 batches 8, 64 and 256, and swept over its tile shape, its staged rows and
 staging itself; quad_spread also split into its light and heavy launches by
 the profiler, and swept over the heavy threshold; the iterative model's
@@ -88,7 +93,7 @@ BATCH, N_PANOS, TIMED_BATCHES = 2, 4, (2, 8)
 TRAIN_BATCH, TRAIN_STEPS = 8, 3
 BENCH_BATCHES, MERGE_BATCH, PROFILE_BATCH = (8, 64, 256), 64, 8  # bench_components: PROFILE_BATCH
 BLEND_TOL = 2e-6  # inputs in [0, 1), weights summing to <= 1: f32 rounding of a 4*K-term sum
-UP2X_TOL = 1e-6  # inputs in [0, 1): f32 rounding of a 4-tap (adjoint: 16-tap) stencil
+UP2X_TOL = 1e-6  # inputs in [0, 1): f32 rounding of a 4-tap stencil (the adjoint: bitwise)
 # a bf16 result: the kernel and the plain version both compute in f32 and
 # round once to bf16, so they differ by at most one bf16 ulp (2^-7 relative)
 UP2X_BF16_RTOL = 2.0**-7
@@ -245,18 +250,24 @@ def spread_matrix(t):
 
 
 def check(kernel, case, got, want, atol, rtol=0.0, chunk=None, **extra) -> float:
-    """Hold ``got`` to ``want`` within atol + rtol * |want|. ``want`` is a
-    tensor or, for a result too large to hold beside its plain version, a
-    function of a slice of dim 0, called ``chunk`` rows at a time."""
+    """Hold ``got`` to ``want`` within atol + rtol * |want|, or bit for bit
+    (``torch.equal``) where both are 0. ``want`` is a tensor or, for a result
+    too large to hold beside its plain version, a function of a slice of dim
+    0, called ``chunk`` rows at a time."""
     torch.cuda.synchronize()
     step = chunk or got.shape[0]
     err, ok = 0.0, True
     for i in range(0, got.shape[0], step):
         rows = slice(i, i + step)
-        w = (want(rows) if callable(want) else want[rows]).float()
+        w = want(rows) if callable(want) else want[rows]
+        if atol == rtol == 0:
+            ok = ok and torch.equal(got[rows], w)
+        w = w.float()
         e = (got[rows].float() - w).abs()
         ok = ok and bool((e <= atol + rtol * w.abs()).all())
         err = max(err, e.max().item())
+    if atol == rtol == 0:
+        extra["bitwise_equal"] = ok
     emit({"phase": "check", "kernel": kernel, "case": case, "shape": list(got.shape),
           "dtype": str(got.dtype), "max_abs_err": err, "atol": atol, "rtol": rtol, **extra})
     if not ok:
@@ -561,7 +572,7 @@ def main() -> int:
     from omnifusion_torch.tools import bench_components, bench_kernels, bench_merge, profile_forward
     from omnifusion_torch.training import create_train_state, train_step, train_step_sem
     from omnifusion_torch.utils.profiling import (
-        blend_bound, blend_matrix, bound_ms as bound, gpu_line, nbytes, time_ms,
+        blend_bound, blend_matrix, bound_ms as bound, gpu_line, nbytes, time_ms, time_ms_flushed,
     )
 
     dev = torch.device(DEVICE)
@@ -752,7 +763,7 @@ def main() -> int:
             if b == TRAIN_BATCH:
                 gy = torch.rand(shape[0], c, 2 * shape[2], 2 * shape[3], device=dev, generator=g)
                 note("up2x_adjoint", check("up2x_adjoint", "x".join(map(str, shape)),
-                                           up2x_adjoint(gy), up2x_adjoint_plain(gy), UP2X_TOL))
+                                           up2x_adjoint(gy), up2x_adjoint_plain(gy), 0.0))
     # the bf16 recipe's decoder at batch 2: the first stage reads the f32
     # sum of layer4 and the tokens (its f32 check is above), the rest bf16
     for c, s in up_shapes[1:]:
@@ -760,11 +771,12 @@ def main() -> int:
         check("up2x", "x".join(map(str, x.shape)) + "_bf16", up2x(x), up2x_plain(x), 1e-6,
               UP2X_BF16_RTOL)
     # the bf16 train step's backward: the adjoint of each bf16 decoder stage
-    # on bf16 cotangents at batch 8 (the first stage's is f32, above)
+    # on bf16 cotangents at batch 8 (the first stage's is f32, above); the
+    # adjoint sums and rounds as its plain version does, so bit for bit
     for c, s in up_shapes[1:]:
         gy = torch.rand(TRAIN_BATCH * p, c, 2 * s, 2 * s, device=dev, generator=g).bfloat16()
         check("up2x_adjoint", "x".join(map(str, gy.shape)) + "_bf16", up2x_adjoint(gy),
-              up2x_adjoint_plain(gy), 1e-6, UP2X_BF16_RTOL)
+              up2x_adjoint_plain(gy), 0.0)
     # odd sides and sides that are not powers of two (the stores are then
     # element by element), f32 and bf16
     for shape in ((5, 3, 7, 33), (2, 4, 1, 9)):
@@ -773,6 +785,23 @@ def main() -> int:
                            bitwise_equal=torch.equal(up2x(x), up2x_plain(x))))
         check("up2x", "x".join(map(str, shape)) + "_bf16", up2x(x.bfloat16()),
               up2x_plain(x.bfloat16()), 1e-6, UP2X_BF16_RTOL)
+    # the adjoint on odd, ragged and 4k-wide sides (its blocks store element
+    # by element where the width is not a multiple of 4), and on a view one
+    # element into its storage (no 16-byte loads), f32 and bf16
+    for shape in ((5, 3, 7, 33), (2, 4, 1, 9), (1, 3, 7, 5), (1, 2, 1, 4), (2, 3, 5, 12)):
+        n_, c_, h_, w_ = shape
+        gy = torch.rand(n_, c_, 2 * h_, 2 * w_, device=dev, generator=g)
+        for gy_t in (gy, gy.bfloat16()):
+            err = check("up2x_adjoint", "x".join(map(str, shape)) + f"_{str(gy_t.dtype)[6:]}",
+                        up2x_adjoint(gy_t), up2x_adjoint_plain(gy_t), 0.0)
+            if gy_t.dtype == torch.float32:
+                note("up2x_adjoint", err)
+    flat = torch.rand(1 + TRAIN_BATCH * p * 32 * 128 * 128, device=dev, generator=g)
+    for dtype in (torch.float32, torch.bfloat16):
+        gy = flat.to(dtype)[1:].view(TRAIN_BATCH * p, 32, 128, 128)
+        check("up2x_adjoint", f"unaligned_view_{str(dtype)[6:]}", up2x_adjoint(gy),
+              up2x_adjoint_plain(gy), 0.0, data_ptr_mod_16=gy.data_ptr() % 16)
+    del flat, gy, gy_t
     # the recipe at bench.py's largest batch: the blend reads 768 (e2p) and
     # 512 (merge) rows, and the last upsample makes more than 2^31 outputs
     # (csrc/up2x.cu offsets each plane in 64 bits); the plain versions run a
@@ -797,6 +826,15 @@ def main() -> int:
     if max(outputs) < 2**31:
         raise AssertionError(f"no up2x check reached 2^31 outputs: {outputs}")
     del x
+    # the bf16 step's last adjoint at that batch: 2.4e9 cotangents, past a
+    # 32-bit index
+    c, s = up_shapes[-1]
+    gy = torch.rand(big * p, c, 2 * s, 2 * s, device=dev, generator=g, dtype=torch.bfloat16)
+    if gy.numel() < 2**31:
+        raise AssertionError(f"the adjoint's check does not reach 2^31 cotangents: {gy.shape}")
+    check("up2x_adjoint", "x".join(map(str, gy.shape)) + "_bf16", up2x_adjoint(gy),
+          lambda rows: up2x_adjoint_plain(gy[rows]), 0.0, chunk=512, cotangents=gy.numel())
+    del gy
     torch.cuda.empty_cache()
 
     # ---- the iterative model's call patterns, and the merge at nrows 6,
@@ -1768,12 +1806,13 @@ def main() -> int:
                 # the bf16 train step's cotangents are bf16 but the first
                 # stage's (recipe "bf16")
                 gy = torch.rand(b * p, c, 2 * s, 2 * s, device=dev, generator=g).to(x.dtype)
-                b_ms, b_by = bound(nbytes(gy) + nbytes(x), 2.0 * 20 * x.numel())
+                b_ms, b_by = bound(nbytes(gy) + nbytes(x), 15.0 * x.numel())
                 size = [b * p, c, s, s]
                 rows["up2x_adjoint"].append({
                     "case": "x".join(map(str, shape)) + ("_bf16" if x.dtype != torch.float32 else ""),
                     "shape": list(gy.shape), "on_path": recipe is None, "recipe": recipe,
                     "ms": timer(lambda: up2x_adjoint(gy)),
+                    "ms_l2_flushed": time_ms_flushed(lambda: up2x_adjoint(gy), dev, 20, 3),
                     "plain_ms": timer(lambda: up2x_adjoint_plain(gy), iters=10),
                     "library_ms": timer(lambda: torch.ops.aten.upsample_bilinear2d_backward(
                         gy, [2 * s, 2 * s], size, False)),
@@ -1954,7 +1993,7 @@ def main() -> int:
     launches = counts()
     emit({"phase": "bench_kernels", **res, "launches": launches})
     if not (launches["quad_blend"] > 0 and launches["quad_spread"] > 0 and launches["up2x"] > 0
-            and launches["up2x_adjoint"] == launches["probe"] == 0):
+            and launches["up2x_adjoint"] > 0 and launches["probe"] == 0):
         raise AssertionError(f"bench_kernels launches {launches}")
 
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as tmp:
@@ -2033,6 +2072,9 @@ def main() -> int:
             "ms_per": "forward at batch 2" if per == "forward" else f"train step at batch {TRAIN_BATCH}",
             **({"ms_bf16_recipe": sum(r["ms"] for r in recipe),
                 "bound_ms_bf16_recipe": sum(r["bound_ms"] for r in recipe)} if recipe else {}),
+            **({"ms_l2_flushed": sum(r["ms_l2_flushed"] for r in rs),
+                "ms_l2_flushed_bf16_recipe": sum(r["ms_l2_flushed"] for r in recipe)}
+               if all("ms_l2_flushed" in r for r in rows[name]) else {}),
             "launches_iterative": train_it_launches[name],
             "launches_iterative_of": f"iterative training run ({ITERS} passes): {TRAIN_STEPS} "
                                      f"steps at batch {TRAIN_BATCH}, {val_forwards} validation "

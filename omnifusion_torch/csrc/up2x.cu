@@ -16,13 +16,12 @@
 //
 //   gx[i] = 0.75 * (g[2i] + g[2i+1]) + 0.25 * (g[2i-1] + g[2i+2])
 //
-// with taps past an edge dropped and the clamped taps added back on the
-// border rows (gx[0] += 0.25 * g[0], gx[n-1] += 0.25 * g[2n-1]); in 2-D a
-// 4x4 gather per input element, one thread (the only writer) each.
+// where the taps past an edge are the clamped ones (g[2i-1] is g[0] at i = 0,
+// g[2i+2] is g[2n-1] at i = n-1), first along H, then along W, as
+// up2x_adjoint_plain orders it.
 //
-// Bound on the card, both kernels: bytes. Each output costs 6 (adjoint: up
-// to 20) multiply-adds on 4 (16) inputs, so the least time is
-// (input + output) / 3.35 TB/s.
+// Bound on the card, both kernels: bytes. Each output costs 6 (adjoint: 15)
+// operations on 4 inputs, so the least time is (input + output) / 3.35 TB/s.
 //
 // Forward design: the time is the bytes only if each output costs little
 // more than its store, so a thread makes a 2x4 output block, from two
@@ -44,7 +43,28 @@
 // kernel gives its bits. The TPU kernel's row blocks, halo inputs and VMEM
 // budget have no counterpart here.
 //
-// Adjoint design: one thread per input element, in input order (below).
+// Adjoint design: one thread per output (four runtime divisions and 16
+// scalar loads each) is bound by its instructions, not its bytes: bf16
+// cotangents, half the bytes, take as long as f32 ones. So a thread makes a
+// kAdjRows x kAdjCols (1x4) block of outputs from its cotangent band, rows
+// 2iy-1 .. 2iy+2R and columns 2ix-1 .. 2ix+2C, each clamped to the plane.
+// Where the width is a multiple of kAdjCols and both tensors are 16-byte
+// aligned, a band row's 2C interior columns come in 16-byte loads (two in
+// f32, one in 16-bit) and its two halo columns as scalars, 4 load
+// instructions per output in f32 and 3 in 16-bit, neighbouring threads'
+// overlap left to L1; the block's output row is one 16-byte (f32) or 8-byte
+// store. Elsewhere (odd or ragged widths, an unaligned view) the same band
+// comes element by element, each column clamped, and the block stores only
+// its outputs inside the plane. Taller blocks (2 or 4 rows: fewer loads per
+// output) are no faster on the large planes, which run near the bytes'
+// bound, and slower on 4x4 planes, which then give too few threads. The
+// thread index splits into (plane, row group, column group) with FastDiv,
+// as the forward's does, with its 64-bit plane offset and 32-bit offsets in
+// a plane. Threads run in output order over all planes, so a block of 256
+// threads covers 64 planes of 4x4 outputs. Both passes round as the plain
+// version does (each tap 0.75 * (even + odd) + 0.25 * (left + right), no
+// contraction; one rounding to the working dtype at the end), so the kernel
+// gives its bits.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -171,55 +191,6 @@ up2x_kernel(const T* __restrict__ x, T* __restrict__ y, uint32_t n_threads, Fast
   }
 }
 
-// The four output taps of input coordinate i along a side of n inputs, with
-// their adjoint weights; a tap past an edge gets weight 0 and an in-range
-// address, and the clamped taps fold into the border weights (n = 1 gives
-// weights {0, 1, 1, 0}: gx[0] = g[0] + g[1]).
-template <typename I>
-__device__ __forceinline__ void adjoint_taps(I i, I n, I (&o)[4], float (&wt)[4]) {
-  o[0] = i > 0 ? 2 * i - 1 : 0;
-  wt[0] = i > 0 ? 0.25f : 0.0f;
-  o[1] = 2 * i;
-  wt[1] = i == 0 ? 1.0f : 0.75f;
-  o[2] = 2 * i + 1;
-  wt[2] = i == n - 1 ? 1.0f : 0.75f;
-  o[3] = i < n - 1 ? 2 * i + 2 : 2 * n - 1;
-  wt[3] = i < n - 1 ? 0.25f : 0.0f;
-}
-
-// One thread per input element, in input order: g (planes, 2h, 2w) ->
-// gx (planes, h, w).
-template <typename T, typename I>
-__global__ void __launch_bounds__(kThreads)
-up2x_adjoint_kernel(const T* __restrict__ g, T* __restrict__ gx, I planes, I h, I w) {
-  const I w2 = 2 * w;
-  const I total = planes * h * w;
-  const I stride = static_cast<I>(gridDim.x) * kThreads;
-  for (I i = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x; i < total; i += stride) {
-    const I ix = i % w;
-    const I t = i / w;
-    const I iy = t % h;
-    const I plane = t / h;
-    I ox[4], oy[4];
-    float wx[4], wy[4];
-    adjoint_taps(ix, w, ox, wx);
-    adjoint_taps(iy, h, oy, wy);
-    const T* p = g + plane * (4 * h * w);
-    float acc = 0.0f;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      if (wy[a] != 0.0f) {
-        const T* row = p + oy[a] * w2;
-        float s = 0.0f;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) s += wx[b] * to_f32(row[ox[b]]);
-        acc += wy[a] * s;
-      }
-    }
-    gx[i] = from_f32<T>(acc);
-  }
-}
-
 // The host checks the sizes: in-plane offsets (4 h w) and the thread count
 // fit 31 bits, so the divisions' operands do too.
 template <typename T>
@@ -237,28 +208,165 @@ int launch(const void* x, void* y, int64_t planes, int64_t h, int64_t w, cudaStr
   return static_cast<int>(cudaGetLastError());
 }
 
+// The adjoint's block of outputs per thread: kAdjRows rows of kAdjCols
+// columns. Its vector path needs kAdjCols % 4 == 0: a block row is whole
+// 4-output stores and a band row's interior whole 16-byte loads.
+constexpr int kAdjRows = 1;
+constexpr int kAdjCols = 4;
+constexpr bool kAdjVector = kAdjCols % 4 == 0;
+
+// One tap of the adjoint along an axis, from the cotangents l = g[2i-1],
+// e = g[2i], o = g[2i+1] and r = g[2i+2] (clamped), rounded as
+// up2x_adjoint_plain rounds it
+__device__ __forceinline__ float adjoint_tap(float l, float e, float o, float r) {
+  return __fadd_rn(__fmul_rn(0.75f, __fadd_rn(e, o)), __fmul_rn(0.25f, __fadd_rn(l, r)));
+}
+
 template <typename T>
-void launch_adjoint(const void* g, void* gx, int64_t planes, int64_t h, int64_t w,
-                    cudaStream_t stream) {
-  const int64_t total = planes * h * w;
-  int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > (int64_t{1} << 30)) blocks = int64_t{1} << 30;  // grid-stride loop covers the rest
-  // 32-bit indices only while every offset into g (4 * total) and i + stride fit
-  if (4 * total + blocks * kThreads < (int64_t{1} << 31)) {
-    up2x_adjoint_kernel<T, int32_t><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        static_cast<const T*>(g), static_cast<T*>(gx), static_cast<int32_t>(planes),
-        static_cast<int32_t>(h), static_cast<int32_t>(w));
+__device__ __forceinline__ float unpack(uint32_t b);
+template <>
+__device__ __forceinline__ float unpack<__half>(uint32_t b) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(b)));
+}
+template <>
+__device__ __forceinline__ float unpack<__nv_bfloat16>(uint32_t b) {
+  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(b)));
+}
+
+// N elements at p (16-byte aligned; N * sizeof(T) a multiple of 16) as f32,
+// in 16-byte loads
+template <int N, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* v) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int k = 0; k < N; k += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + k);
+      v[k] = q.x;
+      v[k + 1] = q.y;
+      v[k + 2] = q.z;
+      v[k + 3] = q.w;
+    }
   } else {
-    up2x_adjoint_kernel<T, int64_t><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        static_cast<const T*>(g), static_cast<T*>(gx), planes, h, w);
+#pragma unroll
+    for (int k = 0; k < N; k += 8) {
+      const uint4 q = *reinterpret_cast<const uint4*>(p + k);
+      const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[k + 2 * j] = unpack<T>(u[j] & 0xffffu);
+        v[k + 2 * j + 1] = unpack<T>(u[j] >> 16);
+      }
+    }
   }
+}
+
+// N outputs at p (aligned as store4 needs; N a multiple of 4)
+template <int N, typename T>
+__device__ __forceinline__ void store_vec(T* p, const float* v) {
+#pragma unroll
+  for (int k = 0; k < N; k += 4) {
+    const float q[4] = {v[k], v[k + 1], v[k + 2], v[k + 3]};
+    store4(p + k, q);
+  }
+}
+
+// One thread per block of kAdjRows x kAdjCols outputs, in output order over
+// all planes: g (planes, 2h, 2w) -> gx (planes, h, w); col_groups =
+// ceil(w / kAdjCols) blocks per row group, row_groups = ceil(h / kAdjRows)
+// per plane. kVector: w % kAdjCols == 0 and both tensors 16-byte aligned.
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kThreads)
+up2x_adjoint_kernel(const T* __restrict__ g, T* __restrict__ gx, uint32_t n_threads,
+                    FastDiv col_groups, FastDiv row_groups, uint32_t h, uint32_t w) {
+  constexpr int kBandRows = 2 * kAdjRows + 2;
+  constexpr int kBandCols = 2 * kAdjCols + 2;
+  const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n_threads) return;
+  const uint32_t r = divide(t, col_groups);  // row group over all planes
+  const uint32_t ix = (t - r * col_groups.d) * kAdjCols;
+  const uint32_t plane = divide(r, row_groups);
+  const uint32_t iy = (r - plane * row_groups.d) * kAdjRows;
+  const uint32_t h2 = 2 * h, w2 = 2 * w;
+  const T* p = g + static_cast<int64_t>(plane) * (h2 * w2);
+  T* o = gx + static_cast<int64_t>(plane) * (h * w);
+
+  // the band: rows 2iy-1 .. 2iy+2R, columns 2ix-1 .. 2ix+2C, clamped
+  const uint32_t c_lo = ix > 0 ? 2 * ix - 1 : 0;
+  const uint32_t c_hi = min(2 * ix + 2 * kAdjCols, w2 - 1);
+  float band[kBandRows][kBandCols];
+#pragma unroll
+  for (int k = 0; k < kBandRows; ++k) {
+    const uint32_t row = 2 * iy + k;  // one past the band row's index
+    const T* q = p + (row > 0 ? min(row - 1, h2 - 1) : 0) * w2;
+    band[k][0] = to_f32(q[c_lo]);
+    band[k][kBandCols - 1] = to_f32(q[c_hi]);
+    if constexpr (kVector) {
+      load_vec<2 * kAdjCols>(q + 2 * ix, &band[k][1]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2 * kAdjCols; ++j) band[k][1 + j] = to_f32(q[min(2 * ix + j, w2 - 1)]);
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < kAdjRows; ++rr) {
+    float hz[kBandCols];  // along H: the block row's band columns
+#pragma unroll
+    for (int j = 0; j < kBandCols; ++j) {
+      hz[j] = adjoint_tap(band[2 * rr][j], band[2 * rr + 1][j], band[2 * rr + 2][j],
+                          band[2 * rr + 3][j]);
+    }
+    float out[kAdjCols];  // along W
+#pragma unroll
+    for (int c = 0; c < kAdjCols; ++c) {
+      out[c] = adjoint_tap(hz[2 * c], hz[2 * c + 1], hz[2 * c + 2], hz[2 * c + 3]);
+    }
+    if (iy + rr < h) {  // a ragged last row group drops its rows past the plane
+      T* o_row = o + (iy + rr) * w + ix;
+      if constexpr (kVector) {
+        store_vec<kAdjCols>(o_row, out);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kAdjCols; ++c) {
+          if (ix + c < w) o_row[c] = from_f32<T>(out[c]);
+        }
+      }
+    }
+  }
+}
+
+// The host checks the sizes, as the forward's launch does: in-plane offsets
+// (4 h w) and the thread count fit 31 bits.
+template <typename T>
+int launch_adjoint(const void* g, void* gx, int64_t planes, int64_t h, int64_t w,
+                   cudaStream_t stream) {
+  const int64_t col_groups = (w + kAdjCols - 1) / kAdjCols;
+  const int64_t row_groups = (h + kAdjRows - 1) / kAdjRows;
+  const int64_t n_threads = planes * row_groups * col_groups;
+  if (4 * h * w >= (int64_t{1} << 31) || n_threads >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned blocks = static_cast<unsigned>((n_threads + kThreads - 1) / kThreads);
+  const T* src = static_cast<const T*>(g);
+  T* dst = static_cast<T*>(gx);
+  const FastDiv cols = fast_div(static_cast<uint32_t>(col_groups));
+  const FastDiv rows = fast_div(static_cast<uint32_t>(row_groups));
+  if constexpr (kAdjVector) {
+    if (w % kAdjCols == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(gx) % 16 == 0) {
+      up2x_adjoint_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
+          src, dst, static_cast<uint32_t>(n_threads), cols, rows, static_cast<uint32_t>(h),
+          static_cast<uint32_t>(w));
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  up2x_adjoint_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
+      src, dst, static_cast<uint32_t>(n_threads), cols, rows, static_cast<uint32_t>(h),
+      static_cast<uint32_t>(w));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x: contiguous (planes, h, w); y: contiguous (planes, 2h, 2w), same dtype.
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16.
-// Returns the cudaError_t of the launch (0 on success).
 // x: contiguous (planes, h, w); y: contiguous (planes, 2h, 2w), same dtype,
 // 16-byte aligned; 4 h w < 2^31 and planes * h * ceil(w / 2) < 2^31.
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16.
@@ -279,7 +387,8 @@ extern "C" int omnifusion_up2x(const void* x, void* y, int dtype, int64_t planes
   }
 }
 
-// g: contiguous (planes, 2h, 2w); gx: contiguous (planes, h, w), same dtype.
+// g: contiguous (planes, 2h, 2w); gx: contiguous (planes, h, w), same dtype;
+// 4 h w < 2^31 and planes * h * ceil(w / 4) < 2^31.
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int omnifusion_up2x_adjoint(const void* g, void* gx, int dtype, int64_t planes,
@@ -288,16 +397,12 @@ extern "C" int omnifusion_up2x_adjoint(const void* g, void* gx, int dtype, int64
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      launch_adjoint<float>(g, gx, planes, h, w, s);
-      break;
+      return launch_adjoint<float>(g, gx, planes, h, w, s);
     case 1:
-      launch_adjoint<__half>(g, gx, planes, h, w, s);
-      break;
+      return launch_adjoint<__half>(g, gx, planes, h, w, s);
     case 2:
-      launch_adjoint<__nv_bfloat16>(g, gx, planes, h, w, s);
-      break;
+      return launch_adjoint<__nv_bfloat16>(g, gx, planes, h, w, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -41,6 +41,9 @@ from torch.autograd.function import once_differentiable
 
 from omnifusion_torch.ops import _build
 
+# csrc/up2x.cu's adjoint block per thread: kAdjRows x kAdjCols outputs
+ADJOINT_BLOCK = (1, 4)
+
 
 def _up2x_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
     n = x.shape[dim]
@@ -119,6 +122,12 @@ def _adjoint_kernel(g: torch.Tensor) -> torch.Tensor:
     n, c, h2, w2 = g.shape
     if h2 % 2 or w2 % 2:
         raise ValueError(f"up2x_adjoint: odd spatial shape {tuple(g.shape)}")
+    rows, cols = ADJOINT_BLOCK
+    # the kernel's in-plane offsets and thread index are 32-bit
+    if h2 * w2 >= 2**31 or n * c * -(-h2 // (2 * rows)) * -(-w2 // (2 * cols)) >= 2**31:
+        raise ValueError(
+            f"up2x_adjoint: {tuple(g.shape)} is past the kernel's 32-bit plane or thread index"
+        )
     x = torch.empty(n, c, h2 // 2, w2 // 2, dtype=g.dtype, device=g.device)
     err = _build.library().omnifusion_up2x_adjoint(
         g.data_ptr(),

@@ -1,5 +1,5 @@
-"""Times of quad_blend, quad_spread and up2x at the main paths' shapes, one
-JSON line.
+"""Times of quad_blend, quad_spread, up2x and its adjoint at the main paths'
+shapes, one JSON line.
 
     python -m omnifusion_torch.tools.bench_kernels
     PYTHONPATH=other_checkout python omnifusion_torch/tools/bench_kernels.py
@@ -16,10 +16,12 @@ at nrows 6, fov 90 (9 quads on some pixels, one past the kernel's register
 budget; a version of the port that refuses it reports ``refused``) at
 ``--blend_batches``; quad_spread at the merge's backward (f32 cotangent,
 ``--train_batch`` panoramas) and at the quarter-resolution equi2pers's
-(channel-last, 1 channel), and up2x summed over the decoder's five upsamples
-(``--batch`` panoramas), in f32 and in the bf16 recipe (the first upsample
-f32, the rest bf16), each beside its bound. It uses only entry points that every version
-of the port has had since its bf16 recipe, so run as a file with another
+(channel-last, 1 channel), up2x summed over the decoder's five upsamples
+(``--batch`` panoramas) and up2x_adjoint over their five adjoints (the
+train step's, ``--train_batch`` panoramas), each in f32 and in the bf16
+recipe (the first stage f32, the rest bf16), each beside its bound. It uses
+only entry points that every version of the port has had since its bf16
+recipe, so run as a file with another
 checkout first on PYTHONPATH it times that checkout's kernels: two versions
 compared in one call on one card. Device ms from CUDA events on the card,
 host ms on the CPU (``timed_on``).
@@ -38,7 +40,7 @@ import omnifusion_torch
 from omnifusion_torch.cli.common import pair_arg
 from omnifusion_torch.device import resolve_device
 from omnifusion_torch.ops.quad_blend import quad_blend, quad_spread
-from omnifusion_torch.ops.upsample import up2x
+from omnifusion_torch.ops.upsample import up2x, up2x_adjoint
 from omnifusion_torch.projection import ProjectionSpec, equi2pers
 from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
 from omnifusion_torch.projection.spec import build_equi2pers_grids
@@ -52,9 +54,10 @@ DECODER = ((512, 1 / 32), (128, 1 / 16), (64, 1 / 8), (64, 1 / 4), (32, 1 / 2))
 
 
 def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description="quad_spread and up2x times (PyTorch port)")
+    ap = argparse.ArgumentParser(description="the kernels' times (PyTorch port)")
     ap.add_argument("--batch", type=int, default=2, help="panoramas per forward (up2x)")
-    ap.add_argument("--train_batch", type=int, default=8, help="panoramas per step (quad_spread)")
+    ap.add_argument("--train_batch", type=int, default=8,
+                    help="panoramas per step (quad_spread, up2x_adjoint)")
     ap.add_argument("--blend_batches", default="2,64,256", help="panoramas per quad_blend call")
     ap.add_argument("--e2p_q_batches", default="2,8,64",
                     help="panoramas per quarter-resolution equi2pers call")
@@ -128,26 +131,33 @@ def run(args) -> dict:
     spread["e2p_q"] = {"shape": list(cot_q.shape),
                        "ms": timer(lambda: quad_spread(cot_q, t_q, channel_last=True))}
 
-    ups = {}
+    ups, adjoints = {}, {}
     for recipe in ("f32", "bf16"):
-        rows = []
+        rows, adj_rows = [], []
         for i, (c, frac) in enumerate(DECODER):
             side = max(1, int(spec.patch_h * frac))
+            dtype = torch.bfloat16 if recipe == "bf16" and i > 0 else torch.float32
             x = torch.from_numpy(
                 rng.random((args.batch * spec.n_patches, c, side, side), dtype=np.float32)
-            ).to(device)
-            if recipe == "bf16" and i > 0:
-                x = x.bfloat16()
+            ).to(device, dtype)
             b_ms, _ = bound_ms(5 * nbytes(x), 9.0 * 4 * x.numel())
             rows.append({"shape": list(x.shape), "dtype": str(x.dtype)[6:],
                          "ms": timer(lambda: up2x(x)), "bound_ms": b_ms})
+            g = torch.from_numpy(rng.random(
+                (args.train_batch * spec.n_patches, c, 2 * side, 2 * side), dtype=np.float32)
+            ).to(device, dtype)
+            b_ms, _ = bound_ms(nbytes(g) + nbytes(g) // 4, 15.0 * g.numel() / 4)
+            adj_rows.append({"shape": list(g.shape), "dtype": str(g.dtype)[6:],
+                             "ms": timer(lambda: up2x_adjoint(g)), "bound_ms": b_ms})
         ups[recipe] = {"ms": sum(r["ms"] for r in rows),
                        "bound_ms": sum(r["bound_ms"] for r in rows), "shapes": rows}
+        adjoints[recipe] = {"ms": sum(r["ms"] for r in adj_rows),
+                            "bound_ms": sum(r["bound_ms"] for r in adj_rows), "shapes": adj_rows}
     return {
         "port": os.path.dirname(os.path.abspath(omnifusion_torch.__file__)),
         "gpu": gpu_line() if device.type == "cuda" else None,
         "timed_on": "cuda events" if device.type == "cuda" else "cpu host clock",
-        "quad_blend": blend, "quad_spread": spread, "up2x": ups,
+        "quad_blend": blend, "quad_spread": spread, "up2x": ups, "up2x_adjoint": adjoints,
     }
 
 

@@ -8,7 +8,8 @@ The port's counterpart of ``omnifusion_tpu/utils/profiling.py``:
 - ``Throughput``: running panoramas/sec counter (the north-star metric).
 - ``time_ms``: milliseconds per call of a callable: device time from CUDA
   events on a CUDA device (the launches queued behind a device-side sleep),
-  host time on the CPU.
+  host time on the CPU; ``time_ms_flushed``: the same with the L2 cache
+  flushed before each call.
 - ``bound_ms``: the least time an H100 SXM could take for given bytes and
   operations; ``blend_bound``: that bound for one ``quad_blend`` call.
 - ``blend_matrix``: the blend's sparse map as a CSR matrix, for the library
@@ -30,6 +31,7 @@ from omnifusion_torch.ops.quad_blend import BlendTables
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 WINDOW_HOST_MS = 1.0  # time_ms: host time of the calls between two events
+L2_BYTES = 50 * 2**20  # H100 SXM
 
 
 @contextlib.contextmanager
@@ -114,6 +116,36 @@ def time_ms(fn, device: torch.device, iters: int = 10, warmup: int = 2) -> float
         total += start.elapsed_time(end)
         done += n
     return total / iters
+
+
+def time_ms_flushed(fn, device: torch.device, iters: int = 10, warmup: int = 2) -> float:
+    """Milliseconds per call of ``fn()`` as a caller finds it whose inputs
+    are not in the L2 cache: before each call the device reads 2 x L2_BYTES
+    of its own, which evicts what the last call left there (a read leaves
+    no dirty lines to write back during the call). On a CUDA device: the
+    device time between CUDA events around each call, all calls queued
+    behind a device-side sleep; on the CPU: ``time_ms``."""
+    if device.type != "cuda":
+        return time_ms(fn, device, iters, warmup)
+    flush = torch.ones(2 * L2_BYTES // 4, device=device)
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    flush.sum()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize(device)
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    torch.cuda._sleep(int((2.0 * host_ms * iters + 2.0) * _sleep_cycles_per_ms()))
+    for start, end in pairs:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    pairs[-1][1].synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / iters
 
 
 def gpu_line() -> str:

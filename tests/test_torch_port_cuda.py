@@ -448,9 +448,11 @@ def test_blend_backward_runs_the_spread_kernel(cuda):
     torch.testing.assert_close(x.grad, quad_spread_plain(g, tables.vjp).half())
 
 
-@pytest.mark.parametrize(
-    "shape", [(3, 8, 4, 4), (2, 32, 16, 16), (1, 3, 7, 5), (2, 3, 1, 1), (1, 2, 1, 4)]
-)
+ADJOINT_SHAPES = [(3, 8, 4, 4), (2, 32, 16, 16), (1, 3, 7, 5), (2, 3, 1, 1), (1, 2, 1, 4),
+                  (5, 3, 7, 33), (2, 3, 5, 12)]  # odd, ragged and 4k-wide sides
+
+
+@pytest.mark.parametrize("shape", ADJOINT_SHAPES)
 def test_up2x_adjoint_kernel_matches_plain(cuda, shape):
     n, c, h, w = shape
     g = torch.rand(n, c, 2 * h, 2 * w, generator=torch.Generator().manual_seed(7)).to(cuda)
@@ -459,8 +461,40 @@ def test_up2x_adjoint_kernel_matches_plain(cuda, shape):
     up2x(x).backward(g)
     torch.cuda.synchronize()
     assert up2x_adjoint.launches == before + 1
-    # a 16-tap sum of inputs in [0, 1) in another order
-    torch.testing.assert_close(x.grad, up2x_adjoint_plain(g), rtol=0, atol=1e-6)
+    # the plain version's sums in its order and roundings: its bits
+    assert torch.equal(x.grad, up2x_adjoint_plain(g))
+
+
+@pytest.mark.parametrize("shape", ADJOINT_SHAPES)
+def test_up2x_adjoint_kernel_matches_plain_bf16(cuda, shape):
+    n, c, h, w = shape
+    g = torch.rand(n, c, 2 * h, 2 * w, generator=torch.Generator().manual_seed(7))
+    g = g.to(cuda, torch.bfloat16)
+    got = up2x_adjoint(g)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, up2x_adjoint_plain(g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_up2x_adjoint_kernel_on_an_unaligned_view(cuda, dtype):
+    # a contiguous view one element into its storage: the kernel cannot load
+    # it in 16-byte vectors and reads it element by element, same bits
+    flat = torch.rand(1 + 2 * 16 * 16 * 32, generator=torch.Generator().manual_seed(5))
+    g = flat.to(cuda, dtype)[1:].view(2, 16, 16, 32)
+    assert g.data_ptr() % 16 != 0
+    assert torch.equal(up2x_adjoint(g), up2x_adjoint_plain(g))
+
+
+def test_up2x_adjoint_kernel_matches_plain_past_32_bit_indices(cuda):
+    # the last decoder adjoint of a batch-256 bf16 step: 2.4e9 cotangents,
+    # past a 32-bit index (csrc/up2x.cu offsets each plane in 64 bits)
+    g = torch.rand(4608, 32, 128, 128, generator=torch.Generator(cuda).manual_seed(9),
+                   device=cuda, dtype=torch.bfloat16)
+    got = up2x_adjoint(g)
+    torch.cuda.synchronize()
+    assert g.numel() > 2**31
+    for i in range(0, g.shape[0], 512):  # the plain version a slice at a time
+        assert torch.equal(got[i : i + 512], up2x_adjoint_plain(g[i : i + 512]))
 
 
 # ---- the segmentation path and the rest of the projection layer ----

@@ -101,6 +101,13 @@ def test_bench_kernels(capsys):
         # patch 32: sides 1, 2, 4, 8, 16 (the flagship's 4 ... 64)
         assert [r["shape"][2] for r in rows] == [1, 2, 4, 8, 16]
         assert line["up2x"][recipe]["ms"] == pytest.approx(sum(r["ms"] for r in rows))
+        # the train step's adjoints: cotangents of the outputs' size
+        adj = line["up2x_adjoint"][recipe]["shapes"]
+        assert [r["dtype"] for r in adj] == dtypes
+        assert [r["shape"] for r in adj] == [[18, c, 2 * s, 2 * s] for c, s in zip(
+            (512, 128, 64, 64, 32), (1, 2, 4, 8, 16))]
+        assert all(r["ms"] > 0 and r["bound_ms"] > 0 for r in adj)
+        assert line["up2x_adjoint"][recipe]["ms"] == pytest.approx(sum(r["ms"] for r in adj))
 
 
 def test_throughput_counts_items_per_second(monkeypatch):
@@ -172,3 +179,26 @@ def test_blend_variants_patch_the_kernel_as_it_stands():
     assert blend_variants.build_parser().parse_args([]).batches == "64,256"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         blend_variants.main([])
+
+
+def test_adjoint_variants_patch_the_kernel_as_it_stands(tmp_path):
+    # each copy rebuilds csrc/up2x.cu's adjoint another way by text patches,
+    # so each patched text occurs there once; the tool needs the card
+    from omnifusion_torch.tools import adjoint_variants
+
+    other = tmp_path / "up2x.cu"
+    other.write_text("// another version")
+    texts = adjoint_variants._sources([f"parent={other}"])
+    assert list(texts) == [name for name, _ in adjoint_variants.PATCHES] + ["parent"]
+    assert texts["parent"] == "// another version"
+    assert "constexpr int kAdjCols = 1;" in texts["one_output"]
+    assert "constexpr int kAdjRows = 2;" in texts["rows2"]
+    assert "t / col_groups.d" in texts["one_output_divide"]
+    assert "kAdjVector = false" in texts["scalar_loads"]
+    for bad in ("no_path", "=x", "one_output=x", "kernel=x"):
+        with pytest.raises(ValueError, match="name=path"):
+            adjoint_variants._sources([bad])
+    args = adjoint_variants.build_parser().parse_args(["--source", "a=b", "--source", "c=d"])
+    assert (args.batch, args.source, args.iters) == (8, ["a=b", "c=d"], 20)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        adjoint_variants.main([])
