@@ -34,6 +34,16 @@ patch 128, fov 80, nrows 4, seeded random weights):
   versions; the check phase holds the 14-row merge, its spread, the
   perspective views (omnifusion_torch/projection/perspective.py, forward and
   backward) and the channel-last pers2equi to the plain versions;
+- the multi-device path (omnifusion_torch/parallel): ddp_gloo2 spawns two
+  gloo ranks on the card (nccl refuses two ranks on one device), which
+  probe gloo's collectives on CUDA tensors, hold GlobalBatchNorm2d to
+  cuDNN's BatchNorm2d on the whole batch, and take one DDP train step of
+  each model on their halves of the flagship batch, each held to the
+  one-process step (the float64 and one-ulp witnesses, the parameters
+  after the step, the running statistics) with the kernels' launches per
+  rank; mesh1 runs cli.train, cli.train_sem, cli.test and cli.infer with
+  --mesh 1 (a one-rank nccl group, DDP and the global BatchNorm for real),
+  and times the one-shot train step with it and without a mesh;
 - the measurement entry points, each in this process and each with its
   kernel launches counted: omnifusion_torch/bench.py at batches 2, 8, 64
   and 256 (its batch-2 and batch-8 runs are the bf16 rows of the forward
@@ -541,6 +551,373 @@ def step_parity(ours, ref, f64, ref_nudged, loss_tol: float = LOSS_TOL) -> tuple
                   for k in ("grad_rel_max", "grad_rel_median"))
           and par["grad_rel_max"] <= ULP_RATIO * wit["grad_rel_max"])
     return out, ok
+
+
+# ---- the multi-device path: ddp_gloo2 (two gloo ranks sharing the card,
+# spawned by omnifusion_torch.parallel.launch) and mesh1 (the entry points
+# with --mesh 1: a process group of one, nccl, DDP and the global
+# BatchNorm for real) ----
+DDP_RANKS, DDP_KINDS, DDP_TIMED_STEPS = 2, ("oneshot", "iterative", "seg"), 3
+# GlobalBatchNorm2d against cuDNN's BatchNorm2d, f32: conv1's output at
+# the flagship at batch 8 (72 patches per rank), each rank's half drawn
+# from another distribution, so that per-rank statistics would differ
+BN_CHECK_SHAPE, BN_TOL = (TRAIN_BATCH * 18, 64, 64, 64), 1e-4
+
+
+def flagship_model(kind: str, device):
+    """The flagship model of ``kind``, seeded weights (seed 0), heads tamed."""
+    from omnifusion_torch.models import (
+        SphericalFusion, SphericalFusionIterative, SphericalFusionSeg, init_weights,
+    )
+    from omnifusion_torch.projection import ProjectionSpec
+
+    spec = ProjectionSpec.create(ERP, PATCH, (FOV, FOV), NROWS)
+    if kind == "iterative":
+        model = SphericalFusionIterative(spec, num_iters=ITERS, device=device)
+    elif kind == "seg":
+        model = SphericalFusionSeg(spec, num_classes=SEG_CLASSES, device=device)
+    else:
+        model = SphericalFusion(spec, device=device)
+    model = init_weights(model, 0)
+    model.load_state_dict(tame_heads(model.state_dict()))
+    return model
+
+
+def flagship_batch(kind: str, device) -> dict:
+    """The batch of the train parity phases: cli.train's synthetic set at
+    TRAIN_BATCH, or cli.train_sem's at SEM_PARITY_BATCH."""
+    from omnifusion_torch.projection import ProjectionSpec
+
+    spec = ProjectionSpec.create(ERP, PATCH, (FOV, FOV), NROWS)
+    if kind == "seg":
+        return semantic_batch(spec, SEM_PARITY_BATCH, device)
+    return synthetic_batch(spec, TRAIN_BATCH, device)
+
+
+def adamw_step(kind: str, batch: dict, device, ddp: bool = False) -> dict:
+    """One train step (forward, backward, AdamW) of the flagship ``kind``
+    from its tamed seed-0 weights, cuDNN deterministic; in DDP when
+    ``ddp``. The loss the step reports, the gradients (float64, on the
+    host), the state after the step and the kernels' launches in it."""
+    from omnifusion_torch import parallel
+    from omnifusion_torch.training import create_train_state, train_step, train_step_sem
+
+    model = flagship_model(kind, device)
+    state = create_train_state(model)
+    if ddp:
+        state.model = parallel.wrap(model, device)
+    zero_counts()
+    with deterministic_cudnn():
+        m = (train_step_sem(state, batch) if kind == "seg"
+             else train_step(state, batch, kind != "iterative"))
+    torch.cuda.synchronize()
+    return {"loss": m["loss"].item(), "launches": counts(),
+            "grads": {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()},
+            "state": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+            "global_norms": sum(isinstance(b, parallel.GlobalBatchNorm2d) for b in model.modules()),
+            "_state": state}
+
+
+def gloo_probe(device) -> dict:
+    """all_reduce (sum, max), broadcast and all_gather of CUDA tensors on
+    this rank's gloo group: what DDP, the global BatchNorm, BerHu's cutoff
+    and the sharded eval send."""
+    import torch.distributed as dist
+
+    from omnifusion_torch import parallel
+
+    r, w = parallel.rank(), parallel.world()
+    t = torch.full((3,), r + 1.0, device=device)
+    parallel.all_reduce_(t)
+    m = parallel.all_reduce_(torch.tensor([float(r)], device=device), "max")
+    b = torch.full((2,), float(r), device=device)
+    dist.broadcast(b, 0)
+    g = parallel.all_gather_cat(torch.full((1, 2), float(r), device=device))
+    ok = (t.tolist() == [w * (w + 1) / 2] * 3 and m.item() == w - 1 and b.tolist() == [0.0, 0.0]
+          and g[:, 0].tolist() == [float(i) for i in range(w)])
+    return {"ok": ok, "sum": t.tolist(), "max": m.item(), "gather": g[:, 0].tolist()}
+
+
+def batchnorm_vs_cudnn(device) -> dict:
+    """GlobalBatchNorm2d on this rank's half of a BN_CHECK_SHAPE batch
+    against cuDNN's nn.BatchNorm2d on the whole batch, f32: the largest
+    differences of the output, the input gradient, the affine gradients
+    (summed over the ranks) and the running statistics, each relative to
+    the largest value of the reference."""
+    from omnifusion_torch import parallel
+
+    g = torch.Generator(device=device).manual_seed(7)
+    x = torch.randn(BN_CHECK_SHAPE, device=device, generator=g)
+    half = BN_CHECK_SHAPE[0] // 2
+    x[half:] = x[half:] * 2 + 0.5
+    dy = torch.randn(BN_CHECK_SHAPE, device=device, generator=g)
+    c = BN_CHECK_SHAPE[1]
+    w0 = torch.rand(c, device=device, generator=g) + 0.5
+    b0 = torch.randn(c, device=device, generator=g)
+
+    def norm(cls):
+        bn = cls(c, device=device)
+        with torch.no_grad():
+            bn.weight.copy_(w0)
+            bn.bias.copy_(b0)
+        return bn
+
+    ref = norm(torch.nn.BatchNorm2d)
+    xr = x.clone().requires_grad_()
+    y_ref = ref(xr)
+    y_ref.backward(dy)
+    y_ref = y_ref.detach()
+    rows = slice(parallel.rank() * half, (parallel.rank() + 1) * half)
+    bn = norm(parallel.GlobalBatchNorm2d)
+    xs = x[rows].clone().requires_grad_()
+    y = bn(xs)
+    y.backward(dy[rows])
+    y = y.detach()
+    dw = parallel.all_reduce_(bn.weight.grad.clone())
+    db = parallel.all_reduce_(bn.bias.grad.clone())
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    out = {"out": rel(y, y_ref[rows]), "dx": rel(xs.grad, xr.grad[rows]),
+           "dweight": rel(dw, ref.weight.grad), "dbias": rel(db, ref.bias.grad),
+           "running_mean": rel(bn.running_mean, ref.running_mean),
+           "running_var": rel(bn.running_var, ref.running_var)}
+    # what this rank's own statistics would give instead
+    out["own_statistics_out"] = rel(torch.nn.functional.batch_norm(
+        x[rows], None, None, w0, b0, True), y_ref[rows])
+    return out
+
+
+def ddp_gloo2_rank() -> dict:
+    """One rank of ddp_gloo2: the gloo probe, the BatchNorm check, and one
+    DDP train step of each model on this rank's half of the flagship batch,
+    then DDP_TIMED_STEPS more one-shot steps, timed. Rank 0 returns the
+    gradients and states; every rank its launches."""
+    from omnifusion_torch import parallel
+
+    pin_f32()
+    dev = parallel.device()
+    out = {"rank": parallel.rank(), "probe": gloo_probe(dev), "batchnorm": batchnorm_vs_cudnn(dev)}
+    torch.cuda.empty_cache()
+    for kind in DDP_KINDS:
+        batch = flagship_batch(kind, dev)
+        k = len(batch["rgb"]) // parallel.world()
+        b = {name: v[parallel.rank() * k : (parallel.rank() + 1) * k] for name, v in batch.items()}
+        res = adamw_step(kind, b, dev, ddp=True)
+        state = res.pop("_state")
+        if kind == "oneshot":
+            from omnifusion_torch.training import train_step
+
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DDP_TIMED_STEPS):
+                train_step(state, b)
+            torch.cuda.synchronize()
+            out["step_wall_ms"] = (time.perf_counter() - t0) * 1e3 / DDP_TIMED_STEPS
+            out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        del state
+        torch.cuda.empty_cache()
+        if parallel.rank() != 0:
+            res = {"launches": res["launches"], "loss": res["loss"]}
+        out[kind] = res
+    return out
+
+
+def params_after_parity(ours: dict, ref: dict) -> dict:
+    """The parameters after the step, where the reference gradient is above
+    the noise floor (10 times the two gradients' difference, and 1000 times
+    AdamW's eps): there the first update, lr * g / (|g| + eps), differs
+    between the two by less than 1e-4 lr, and the parameters agree within
+    1e-3 lr + 1e-6 |p| (the bounds of tests/test_torch_port_train.py).
+    ``excess``: the largest difference beyond the 1e-6 |p| part, held to
+    1e-3 lr."""
+    lr, excess, compared, total = 1e-4, 0.0, 0, 0
+    for n, g in ref["grads"].items():
+        live = (g.abs() > 10 * (ours["grads"][n] - g).abs()) & (g.abs() > 1000 * 1e-8)
+        p = ref["state"][n].double()[live]
+        d = (ours["state"][n].double()[live] - p).abs() - 1e-6 * p.abs()
+        excess = max(excess, float(d.max()) if d.numel() else 0.0)
+        compared += int(live.sum())
+        total += g.numel()
+    return {"excess": excess, "bound": 1e-3 * lr, "live_frac": compared / total}
+
+
+def stats_parity(ours: dict, ref: dict) -> dict:
+    rels = [float((ours[k] - ref[k]).norm() / ref[k].norm())
+            for k in ref if k.endswith(("running_mean", "running_var"))]
+    return {"median": float(np.median(rels)), "max": max(rels), "tensors": len(rels)}
+
+
+def multi_device_phases(gpu: str, f64_witness: dict) -> dict:
+    """ddp_gloo2 and mesh1 (see the comment above DDP_RANKS); ``f64_witness``:
+    the float64 steps of the train parity phases, by model. Returns the
+    kernels' launches of each path for the kernels line."""
+    from omnifusion_torch import parallel
+    from omnifusion_torch.cli import infer, train, train_sem
+    from omnifusion_torch.cli.common import build_model
+    from omnifusion_torch.parallel.launch import spawn
+    from omnifusion_torch.training import create_train_state, train_step
+    from omnifusion_torch.utils.profiling import time_ms
+
+    dev = torch.device(DEVICE)
+    launches = {}
+    # ---- ddp_gloo2: the one-process references first, on the card alone ----
+    refs = {}
+    for kind in DDP_KINDS:
+        batch = flagship_batch(kind, dev)
+        ref = adamw_step(kind, batch, dev)
+        ref.pop("_state")
+        model = flagship_model(kind, dev)
+        sd0 = copy.deepcopy(model.state_dict())
+        with deterministic_cudnn():
+            nudge = loss_and_grads(model, nudged(batch, 5), sd0, confidence=kind != "iterative")
+        refs[kind] = ref, nudge
+        del model, batch
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(ddp_gloo2_rank, DDP_RANKS, (), lambda r: f"{DEVICE}:0", "gloo", 600)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    bn_ok = all(max(v for k, v in r["batchnorm"].items() if k != "own_statistics_out") < BN_TOL
+                and r["batchnorm"]["own_statistics_out"] > 100 * BN_TOL for r in ranks)
+    per_step = {"oneshot": per_run(0, 1), "iterative": per_run(0, 1, ITERS),
+                "seg": per_run(0, 1)}
+    result, ok = {}, bn_ok and all(r["probe"]["ok"] for r in ranks)
+    for kind in DDP_KINDS:
+        ref, nudge = refs[kind]
+        ours = r0[kind]
+        par, good = step_parity((ours["loss"], ours["grads"]), (ref["loss"], ref["grads"]),
+                                f64_witness[kind], nudge)
+        params = params_after_parity(ours, ref)
+        stats = stats_parity(ours["state"], ref["state"])
+        rank_launches = [r[kind]["launches"] for r in ranks]
+        good = (good and params["excess"] <= params["bound"] and params["live_frac"] > 0.2
+                and stats["median"] < GRAD_TOL and ours["global_norms"] > 0
+                and ref["global_norms"] == 0
+                and all(lc == {**per_step[kind], "probe": 0} for lc in rank_launches))
+        result[kind] = {"parity": par, "params_after_step": params, "running_stats": stats,
+                        "launches_per_rank": rank_launches, "launches_expected": per_step[kind],
+                        "ok": good}
+        ok = ok and good
+    launches["ddp_gloo2_per_rank"] = r0["oneshot"]["launches"]
+    emit({"phase": "ddp_gloo2", "gpu": gpu, "ranks": DDP_RANKS, "backend": "gloo",
+          "device": f"{DEVICE}:0 shared", "batch": f"{TRAIN_BATCH} global, "
+          f"{TRAIN_BATCH // DDP_RANKS} per rank", "probe": [r["probe"] for r in ranks],
+          "batchnorm_vs_cudnn": [r["batchnorm"] for r in ranks], "bn_tol": BN_TOL, **result,
+          "step_wall_ms_per_rank": [r["step_wall_ms"] for r in ranks],
+          "step_wall_ms_note": "not a scaling number: two ranks share one card and gloo "
+                               "stages CUDA tensors through the host",
+          "max_memory_allocated_bytes_per_rank": [r["max_memory_allocated_bytes"] for r in ranks],
+          "seconds_with_spawn": spawn_s})
+    if not ok:
+        raise AssertionError("ddp_gloo2: see its line")
+    del refs, ranks, r0
+
+    # ---- mesh1: the entry points with --mesh 1 ----
+    flag = ["--erp_size", f"{ERP[0]},{ERP[1]}", "--patchsize", str(PATCH), "--fov", str(FOV),
+            "--nrows", str(NROWS), "--seed", "0", "--device", DEVICE]
+    n_train = TRAIN_STEPS * TRAIN_BATCH
+    val_forwards = -(-n_train // TRAIN_BATCH)
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as tmp:
+        argv = flag + ["--dataset", "synthetic", "--synthetic_size", str(n_train), "--epochs",
+                       "1", "--batch", str(TRAIN_BATCH), "--workers", "4", "--mesh", "1",
+                       "--save_path", os.path.join(tmp, "train")]
+        zero_counts()
+        history = train.run_training(train.build_parser().parse_args(argv))
+        launches["mesh1"] = counts()
+        ckpts = sorted(os.listdir(os.path.join(tmp, "train", "ckpt")))
+        ckpt = torch.load(os.path.join(tmp, "train", "ckpt", "latest.pt"), map_location="cpu",
+                          weights_only=True)
+        want = per_run(val_forwards, TRAIN_STEPS)
+        train_ok = (history["steps"] == TRAIN_STEPS and np.isfinite(history["train_loss"]).all()
+                    and launches["mesh1"] == want and ckpts == ["best.pt", "latest.pt"]
+                    and not any(k.startswith("module.") for k in ckpt["model"])
+                    and not parallel.is_distributed())
+        emit({"phase": "mesh1", "entry": "cli.train", "batch": TRAIN_BATCH,
+              "steps": history["steps"], "train_loss": history["train_loss"],
+              "val": history["val"], "checkpoints": ckpts, "launches": launches["mesh1"],
+              "launches_expected": want})
+        # cli.train_sem: its 32 synthetic panoramas at batch 16, 2 steps
+        argv = flag + ["--dataset", "synthetic", "--epochs", "1", "--batch",
+                       str(2 * TRAIN_BATCH), "--num_classes", str(SEG_CLASSES), "--workers",
+                       "4", "--mesh", "1", "--save_path", os.path.join(tmp, "sem")]
+        zero_counts()
+        hist_sem = train_sem.main(argv)
+        sem_launches = counts()
+        want_sem = per_run(-(-SEM_VAL_SET // (2 * TRAIN_BATCH)), SEM_TRAIN_SET // (2 * TRAIN_BATCH))
+        sem_ok = (np.isfinite(hist_sem["train_loss"]).all() and 0 <= hist_sem["miou"][0] <= 1
+                  and sem_launches == want_sem)
+        emit({"phase": "mesh1", "entry": "cli.train_sem", "batch": 2 * TRAIN_BATCH,
+              "train_loss": hist_sem["train_loss"], "miou": hist_sem["miou"],
+              "launches": sem_launches, "launches_expected": want_sem})
+        # cli.test on 4 synthetic panoramas, and cli.infer on 4 panoramas,
+        # each with --mesh 1 and without a mesh, from tamed seeded weights
+        path = os.path.join(tmp, "tamed.pt")
+        torch.save(flagship_model("oneshot", "cpu").state_dict(), path)
+        evals = {m: eval_run(flag + ["--dataset", "synthetic", "--synthetic_size", "4",
+                                     "--batch", str(BATCH), "--checkpoint", path,
+                                     "--visualize_interval", "0", "--mesh", m,
+                                     "--save_path", os.path.join(tmp, f"eval_{m}")])
+                 for m in ("1", "none")}
+        gaps = metric_gaps(evals["1"][0], evals["none"][0])
+        rng = np.random.default_rng(3)
+        os.makedirs(os.path.join(tmp, "panos"))
+        for i in range(N_PANOS):
+            np.save(os.path.join(tmp, "panos", f"p{i}.npy"),
+                    rng.random((*ERP, 3), dtype=np.float32))
+        depth = {}
+        for m in ("1", "none"):
+            a = infer.build_parser().parse_args(flag + [
+                "--input", os.path.join(tmp, "panos"), "--checkpoint", path, "--batch",
+                str(BATCH), "--mesh", m, "--save_path", os.path.join(tmp, f"infer_{m}")])
+            with deterministic_cudnn():
+                depth[m] = [np.load(f) for f in infer.run_infer(a)]
+        infer_equal = all(np.array_equal(a, b) for a, b in zip(depth["1"], depth["none"]))
+        emit({"phase": "mesh1", "entry": "cli.test and cli.infer", "eval_metrics_mesh1":
+              evals["1"][0], "eval_metric_gaps": gaps, "eval_tol": 1e-4,
+              "eval_launches": evals["1"][2], "infer_panoramas": len(depth["1"]),
+              "infer_bitwise_equal": infer_equal})
+        if not (train_ok and sem_ok and max(gaps.values()) < 1e-4 and infer_equal
+                and len(depth["1"]) == N_PANOS):
+            raise AssertionError("mesh1: see its lines")
+
+    # ---- the cost of --mesh 1: the one-shot train step at batch 8 with DDP
+    # and the global BatchNorm over a one-rank nccl group, against the same
+    # step without a mesh, f32, TF32 and the bf16 recipe, interleaved ----
+    tb = flagship_batch("oneshot", dev)
+    times = {}
+    for label, tf32, extra in (("f32", False, []), ("tf32", True, []),
+                               ("bf16", False, ["--bf16", "--merge_dtype", "f16"])):
+        torch.backends.cudnn.allow_tf32 = tf32
+        for mesh in ("none", "1"):
+            a = train.build_parser().parse_args(flag + extra + ["--mesh", mesh])
+            model = build_model(a, dev)
+            state = create_train_state(model)
+            if mesh == "1":
+                parallel.init_process_group(0, 1, dev, store=torch.distributed.HashStore())
+                state.model = parallel.wrap(model, dev)
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                ms = time_ms(lambda: train_step(state, tb), dev, 5, 2)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    train_step(state, tb)
+                torch.cuda.synchronize()
+                times[f"{label}_{'mesh1' if mesh == '1' else 'no_mesh'}"] = {
+                    "device_ms": ms, "wall_ms": (time.perf_counter() - t0) * 1e3 / 5,
+                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+            finally:
+                parallel.destroy()
+            del state, model
+            torch.cuda.empty_cache()
+    pin_f32()
+    emit({"phase": "mesh1_train_step", "gpu": gpu, "batch": TRAIN_BATCH, "erp": list(ERP),
+          "patch": PATCH, "note": "mesh1: DDP + GlobalBatchNorm2d over a one-rank nccl group",
+          **times})
+    return launches
 
 
 def main() -> int:
@@ -1164,6 +1541,7 @@ def main() -> int:
           "train_mode": par, "running_stats": par_rs})
     if not (ok and ok_rs and par_rs["grad_rel_median"] < GRAD_TOL):
         raise AssertionError(f"train step vs plain versions: {par}, {par_rs}")
+    f64_witness = {"oneshot": f64}  # ddp_gloo2's witnesses
     del kern, kern_rs, plain, plain_rs, f64, f64_rs
 
     # the same step, CUDA against CPU, at the small size with the full-depth model
@@ -1381,6 +1759,7 @@ def main() -> int:
           "max_memory_allocated_bytes_with_float64": torch.cuda.max_memory_allocated()})
     if not (ok and ok_rs and par_rs["grad_rel_median"] < GRAD_TOL):
         raise AssertionError(f"iterative train step vs plain versions: {par}, {par_rs}")
+    f64_witness["iterative"] = f64
     del kern, kern_rs, plain, plain_rs, f64, f64_rs
 
     # ---- eval: omnifusion_torch.cli.test.run_eval, both models, from an
@@ -1653,6 +2032,7 @@ def main() -> int:
           "max_memory_allocated_bytes_with_float64": torch.cuda.max_memory_allocated()})
     if not (ok and ok_rs and par_rs["grad_rel_median"] < GRAD_TOL):
         raise AssertionError(f"segmentation train step vs plain versions: {par}, {par_rs}")
+    f64_witness["seg"] = f64
     del kern, kern_rs, plain, plain_rs, f64, f64_rs
 
     # ---- kernel timings: the f32 path's calls (on_path), and the bf16
@@ -2012,6 +2392,8 @@ def main() -> int:
                   "precision": "f32 (tf32 off)" if "--train" in argv else "bf16 trunk + f16 merge",
                   **{k: v for k, v in res.items() if k != "trace"}})
 
+    multi_launches = multi_device_phases(gpu, f64_witness)
+
     # launches: the training run's count (its steps and validation
     # forwards), and per forward or step; the times: per forward at batch 2
     # (forward kernels) or per train step at batch 8 (backward kernels),
@@ -2097,6 +2479,12 @@ def main() -> int:
             f"launches_per_train_sem_{per}": train_sem_launches[name] / (
                 sem_steps + sem_val_forwards if per == "forward" else sem_steps),
             **segmentation,
+            "launches_ddp_gloo2_per_rank": multi_launches["ddp_gloo2_per_rank"][name],
+            "launches_ddp_gloo2_of": "one one-shot DDP train step per rank, 2 gloo ranks on "
+                                     f"the card, batch {TRAIN_BATCH // DDP_RANKS} per rank",
+            "launches_mesh1": multi_launches["mesh1"][name],
+            "launches_mesh1_of": f"cli.train --mesh 1: {TRAIN_STEPS} steps at batch "
+                                 f"{TRAIN_BATCH}, {val_forwards} validation forwards",
         })
     kernels.append({
         "name": "probe", "route": "cuda", "source": "omnifusion_torch/csrc/probe.cu",

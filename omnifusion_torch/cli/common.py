@@ -5,11 +5,21 @@ mirror train_erp_depth.py:31-68 / test.py:34-65 so existing configs
 translate 1:1, and --patchsize is a proper "H,W" or "N" parser.
 
 Left out, because they select XLA or TPU machinery the port does not have:
-``--mesh`` (the device mesh; it comes back with the multi-device path),
 ``--kernel_impl`` and ``--resize_impl`` (the port has one implementation of
 each: its CUDA kernels, and their plain versions on the CPU) and
 ``--remat`` (XLA rematerialization). The port adds ``--device`` (default:
 the CUDA card; ``device.resolve_device``).
+
+``--mesh`` (default ``auto``) puts the batch on ranks, one process per
+card (``omnifusion_torch/parallel``), with the JAX package's rules
+(``build_mesh``): ``auto`` takes every card, shrunk to the largest count
+that divides ``--batch``; ``DATA`` takes that many; ``none``, or one card,
+runs in one process. The model axis (``DATA,MODEL`` with MODEL > 1) is not
+ported and refuses. ``run_on_mesh`` runs an entry point's body on the
+mesh: under torchrun in the ranks it started, with ``--mesh 1`` in this
+process (a process group of one), else in ``DATA`` spawned processes, rank
+r on ``cuda:r``. On the CPU (``--device cpu``) ``auto`` is one process and
+``DATA`` that many gloo processes.
 
 ``--checkpoint`` takes a file: a checkpoint that ``cli/train.py`` wrote
 (``<save_path>/ckpt/{latest,best}.pt``), a state dict of the port's model,
@@ -24,12 +34,15 @@ import json
 import os
 import sys
 import time
+from typing import Optional
 
 import torch
 
+from omnifusion_torch import parallel
 from omnifusion_torch.device import resolve_device
 from omnifusion_torch.models import SphericalFusion, SphericalFusionIterative, init_weights
 from omnifusion_torch.models.torch_import import import_checkpoint
+from omnifusion_torch.parallel import launch
 from omnifusion_torch.projection import ProjectionSpec
 
 MERGE_DTYPES = {"f32": None, "f16": torch.float16, "bf16": torch.bfloat16}
@@ -82,6 +95,13 @@ def add_common_args(parser: argparse.ArgumentParser, train: bool) -> argparse.Ar
     parser.add_argument("--no_transformer", action="store_true",
                         help="legacy variant without global patch fusion (network_360d.py)")
     parser.add_argument("--device", default=None, help="default: the CUDA card")
+    parser.add_argument(
+        "--mesh",
+        default="auto",
+        help="device mesh as 'DATA[,MODEL]' counts, 'auto' (all local devices "
+        "on the data axis — the reference's default nn.DataParallel behavior, "
+        "train_erp_depth.py:143), or 'none' (single device, no mesh)",
+    )
     parser.add_argument("--visualize_interval", type=int, default=20)
     if train:
         parser.add_argument("--epochs", type=int, default=100)
@@ -114,11 +134,63 @@ def uses_confidence(args) -> bool:
     return args.model == "oneshot" or args.confidence
 
 
+def build_mesh(args) -> Optional[parallel.Mesh]:
+    """The mesh of ``--mesh``, or None for one process (parallel.parse_mesh).
+    Under torchrun the world size is the device count: ``auto`` takes it
+    and an explicit data count must equal it."""
+    spec = getattr(args, "mesh", "auto") or "auto"
+    env = launch.torchrun_env()
+    if env is not None:
+        n_cards, platform = env[1], "torchrun"
+    elif args.device is not None and torch.device(args.device).type == "cpu":
+        # processes on the CPU: as many as asked, and one for auto
+        n_cards, platform = (1 if spec == "auto" else os.cpu_count() or 1), "cpu"
+    else:
+        n_cards, platform = torch.cuda.device_count(), "cuda"
+    mesh = parallel.parse_mesh(spec, int(getattr(args, "batch", 0) or 0), n_cards, platform)
+    if env is not None and mesh is not None and mesh.data != env[1]:
+        raise SystemExit(f"--mesh {spec!r}: under torchrun the data axis is the world "
+                         f"size, {env[1]}")
+    return mesh
+
+
+def entry_device(args) -> torch.device:
+    """The device of this process: its rank's under a mesh, else
+    ``--device`` or the card."""
+    return parallel.device() or resolve_device(args.device)
+
+
+def _rank_device(device: Optional[str], local_rank: int) -> str:
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    return "cpu" if on_cpu else f"cuda:{local_rank}"
+
+
+def run_on_mesh(body, args):
+    """``body(args)`` on the mesh of ``--mesh``; returns rank 0's result.
+    ``body`` is a module-level function (the spawned ranks import it)."""
+    mesh = build_mesh(args)
+    if mesh is None or parallel.is_distributed():
+        return body(args)
+    print(f"## mesh: {mesh.shape}")
+    env = launch.torchrun_env()
+    if env is None and mesh.data > 1:
+        return launch.spawn(body, mesh.data, (args,),
+                            lambda r: _rank_device(args.device, r))[0]
+    rank, world, local = env if env is not None else (0, 1, 0)
+    device = _rank_device(args.device, local)
+    store = None if env is not None else torch.distributed.HashStore()
+    parallel.init_process_group(rank, world, device, store=store)
+    try:
+        return body(args)
+    finally:
+        parallel.destroy()
+
+
 def build_model(args, device=None):
     """The model the flags describe, on ``device`` (default: ``--device``,
     else the card), with PyTorch's default init; ``load_weights`` fills it."""
     resolve_erp_size(args)
-    device = resolve_device(args.device) if device is None else device
+    device = entry_device(args) if device is None else device
     spec = ProjectionSpec.create(args.erp_size, args.patchsize, (args.fov, args.fov), args.nrows)
     kw = dict(
         dtype=torch.bfloat16 if args.bf16 else None,
@@ -166,14 +238,17 @@ def build_dataset(args, split_file: str, train: bool):
             pano_w=args.erp_size[1],
             seed=args.seed,
         )
-    return make_dataset(
-        args.dataset, args.input_dir, split_file, rotate=train, flip=train, seed=args.seed
-    )
+    # each rank draws its own augmentations
+    return make_dataset(args.dataset, args.input_dir, split_file, rotate=train, flip=train,
+                        seed=args.seed + parallel.rank())
 
 
 def dump_run_config(args) -> None:
     """Provenance: the exact run configuration in the results dir (the
-    reference copies the script itself, train_erp_depth.py:87-88)."""
+    reference copies the script itself, train_erp_depth.py:87-88). Rank
+    0's alone under a mesh."""
+    if parallel.rank() != 0:
+        return
     os.makedirs(args.save_path, exist_ok=True)
     payload = {
         "argv": sys.argv,

@@ -22,6 +22,11 @@ iterative one only with ``--confidence``. ``--bf16`` runs the trunk in bf16;
 with ``--merge_dtype f16`` that is the JAX package's serving recipe.
 
 Runs on the CUDA card unless ``--device`` names another device.
+
+``--mesh`` (cli/common.py) serves data-parallel: each rank answers its
+contiguous slice of every batch of ``--batch`` panoramas (the last batch's
+slices may differ by one) and writes those files, under the names one
+process gives them.
 """
 
 from __future__ import annotations
@@ -33,8 +38,9 @@ import os
 import numpy as np
 import torch
 
+from omnifusion_torch import parallel
 from omnifusion_torch.cli import common
-from omnifusion_torch.cli.common import add_common_args, load_weights, uses_confidence
+from omnifusion_torch.cli.common import add_common_args, load_weights, run_on_mesh, uses_confidence
 
 _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 _INPUT_EXTS = _IMAGE_EXTS + (".npy",)
@@ -93,7 +99,12 @@ def read_panorama(path: str, h: int, w: int) -> np.ndarray:
 
 
 def run_infer(args) -> list[str]:
-    """Answer every input panorama; returns the written depth paths."""
+    """Answer every input panorama, on the mesh of ``--mesh``; returns the
+    written depth paths, in input order."""
+    return run_on_mesh(_infer, args)
+
+
+def _infer(args) -> list[str]:
     from omnifusion_torch.utils import colorize, ply
 
     model = build_model(args)
@@ -110,14 +121,19 @@ def run_infer(args) -> list[str]:
         print("## cv2 is not importable: the colorized depth PNGs are skipped")
 
     written = []
+    rank, world = parallel.rank(), parallel.world()
     for start in range(0, len(paths), args.batch):
-        chunk = paths[start : start + args.batch]
+        n = min(args.batch, len(paths) - start)
+        lo, hi = start + n * rank // world, start + n * (rank + 1) // world  # this rank's
+        if lo == hi:
+            continue
+        chunk = paths[lo:hi]
         frames = [read_panorama(p, h, w) for p in chunk]
         with torch.inference_mode():
             rgb = torch.from_numpy(np.stack(frames)).to(device)
             out = model(rgb, confidence=confidence)
             depth = (out[-1] if isinstance(out, list) else out)[..., 0].cpu().numpy()
-        for stem, frame, d in zip(stems[start : start + args.batch], frames, depth):
+        for stem, frame, d in zip(stems[lo:hi], frames, depth):
             np.save(stem + "_depth.npy", d)
             if cv2 is not None:
                 cv2.imwrite(stem + "_depth.png", colorize(d, vmin=0)[..., ::-1])
@@ -127,7 +143,9 @@ def run_infer(args) -> list[str]:
                 ply.write_ply(stem + ".ply", [xyz, colors], ["x", "y", "z", "red", "green", "blue"])
             written.append(stem + "_depth.npy")
             print(f"-> {stem}_depth.npy  [{d.min():.2f}, {d.max():.2f}] m")
-    return written
+    order = {stem + "_depth.npy": i for i, stem in enumerate(stems)}
+    return sorted((p for part in parallel.all_gather_object(written) for p in part),
+                  key=order.get)
 
 
 def main(argv=None):

@@ -14,6 +14,14 @@ depth, ground truth and error PNGs (where cv2 is importable) and, with
 --save_ply, its point cloud. --checkpoint takes a checkpoint of this port
 or a reference .pth (cli/common.py). Runs on the CUDA card unless
 ``--device`` names another device.
+
+``--mesh`` (cli/common.py) evaluates data-parallel: each rank runs its
+slice of every batch, and the metrics are those of the whole batch,
+gathered (the median scaling is the global batch's, as under the JAX
+mesh); a last batch that the ranks cannot split evenly runs whole on every
+rank, as the JAX package replicates it. Every rank holds the same numbers,
+so the meters need no reduction. Rank 0 prints and writes the dumps: the
+first panorama of a batch is its own.
 """
 
 from __future__ import annotations
@@ -23,10 +31,12 @@ import os
 
 import numpy as np
 
+from omnifusion_torch import parallel
 from omnifusion_torch.cli.common import (
     add_common_args,
     build_dataset,
     dump_run_config,
+    run_on_mesh,
     uses_confidence,
 )
 from omnifusion_torch.cli.infer import build_model
@@ -65,7 +75,12 @@ def save_visuals(args, batch_idx: int, cv2, rgb, depth, mask, pred) -> None:
 
 
 def run_eval(args) -> dict:
-    """Score the model on the test split; returns the averaged metrics."""
+    """Score the model on the test split, on the mesh of ``--mesh``;
+    returns the averaged metrics."""
+    return run_on_mesh(_eval, args)
+
+
+def _eval(args) -> dict:
     from omnifusion_torch.data import DataLoader
     from omnifusion_torch.evaluation import MetricAccumulator
     from omnifusion_torch.training import eval_step
@@ -74,12 +89,14 @@ def run_eval(args) -> dict:
     model = build_model(args)
     device = next(model.parameters()).device
     ds = build_dataset(args, args.testfile, train=False)
-    loader = DataLoader(ds, args.batch, shuffle=False, num_workers=2, drop_last=False)
+    loader = DataLoader(ds, args.batch, shuffle=False, num_workers=2, drop_last=False,
+                        rank=parallel.rank(), world=parallel.world())
     confidence = uses_confidence(args)
     dump_run_config(args)
 
     cv2 = None
-    if args.visualize_interval:
+    main_rank = parallel.rank() == 0
+    if args.visualize_interval and main_rank:
         try:
             import cv2
         except ImportError:
@@ -89,16 +106,19 @@ def run_eval(args) -> dict:
     for batch_idx, batch in enumerate(loader.to_device(device)):
         metrics, n, pred = eval_step(model, batch, confidence)
         acc.update({k: float(v) for k, v in metrics.items()}, float(n))  # syncs
-        if args.visualize_interval and batch_idx % args.visualize_interval == 0:
+        if main_rank and args.visualize_interval and batch_idx % args.visualize_interval == 0:
             host = {k: batch[k][0].cpu().numpy() for k in ("rgb", "depth", "mask")}
             save_visuals(args, batch_idx, cv2, host["rgb"], host["depth"], host["mask"],
                          pred[0].float().cpu().numpy())
-        throughput.update(batch["rgb"].shape[0])
-        n_panos += batch["rgb"].shape[0]
+        panos = batch["rgb"].shape[0] * (parallel.world() if batch.sharded else 1)
+        throughput.update(panos)
+        n_panos += panos
 
+    avg = acc.averages()
+    if not main_rank:
+        return avg
     print(f"## eval: {n_panos} panoramas on {device}, {throughput.per_sec:.1f} panos/s "
           "(after the first batch)")
-    avg = acc.averages()
     for label, key, root in METRIC_LINES:
         v = avg.get(key, float("nan"))
         print("{}: {:.4f}".format(label, np.sqrt(v) if root else v))

@@ -28,6 +28,16 @@ precision. ``--tensorboard_path`` logs the loss and gradient norm every
 validation batch's RGB, ground truth and predicted depth.
 ``--profile_dir`` writes a ``torch.profiler`` trace of steps 10-14 of epoch
 0. Runs on the CUDA card unless ``--device`` names another device.
+
+``--mesh`` (cli/common.py) trains data-parallel, one process per card,
+each on its slice of every global batch of ``--batch``: the step is the
+one-card step on the global batch (global BatchNorm statistics, BerHu's
+global cutoff, DDP's average of the gradients), and the validation metrics
+are the global batches'. Rank 0 prints and writes the log, the tensorboard
+events, the trace and the checkpoints.
+
+    torchrun --nproc_per_node 4 -m omnifusion_torch.cli.train --dataset ... --batch 8
+    python -m omnifusion_torch.cli.train --dataset ... --batch 8 --mesh 4
 """
 
 from __future__ import annotations
@@ -41,16 +51,18 @@ import time
 import numpy as np
 import torch
 
+from omnifusion_torch import parallel
 from omnifusion_torch.cli.common import (
     add_common_args,
     build_dataset,
     build_model,
     dump_run_config,
+    entry_device,
     is_train_checkpoint,
+    run_on_mesh,
     uses_confidence,
 )
 from omnifusion_torch.data import DataLoader
-from omnifusion_torch.device import resolve_device
 from omnifusion_torch.evaluation import MetricAccumulator
 from omnifusion_torch.models import init_weights
 from omnifusion_torch.models.torch_import import import_checkpoint, merge_pretrained
@@ -74,13 +86,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def restore_or_overlay(args, state) -> None:
     """--checkpoint: resume a train checkpoint, or overlay a state dict."""
-    device = next(state.model.parameters()).device
+    model = parallel.unwrap(state.model)
+    device = next(model.parameters()).device
     ckpt = torch.load(args.checkpoint, map_location=device, weights_only=True)
     if is_train_checkpoint(ckpt):
         restore_state(state, ckpt)
     else:
-        sd = merge_pretrained(state.model.state_dict(), import_checkpoint(ckpt))
-        state.model.load_state_dict(sd, strict=True)
+        model.load_state_dict(merge_pretrained(model.state_dict(), import_checkpoint(ckpt)),
+                              strict=True)
 
 
 def log_images(writer, batch: dict, pred: torch.Tensor, epoch: int) -> None:
@@ -95,33 +108,43 @@ def log_images(writer, batch: dict, pred: torch.Tensor, epoch: int) -> None:
 
 
 def run_training(args) -> dict:
-    """Train as the flags say; returns the history: per-epoch mean train
-    loss, the validation metrics, the best abs_rel and the update count."""
-    device = resolve_device(args.device)
+    """Train as the flags say, on the mesh of ``--mesh``; returns the
+    history (rank 0's): per-epoch mean train loss, the validation metrics,
+    the best abs_rel and the update count."""
+    return run_on_mesh(_train, args)
+
+
+def _train(args) -> dict:
+    device = entry_device(args)
     model = init_weights(build_model(args, device), args.seed)
     confidence = uses_confidence(args)
     spec = model.spec
+    main_rank = parallel.rank() == 0
+    log = print if main_rank else (lambda *a, **k: None)
 
+    shard = dict(rank=parallel.rank(), world=parallel.world())
     train_loader = DataLoader(build_dataset(args, args.trainfile, train=True), args.batch,
-                              shuffle=True, num_workers=args.workers, seed=args.seed)
+                              shuffle=True, num_workers=args.workers, seed=args.seed, **shard)
     val_loader = DataLoader(build_dataset(args, args.testfile, train=False), args.batch,
-                            num_workers=2, drop_last=False)
+                            num_workers=2, drop_last=False, **shard)
     steps_per_epoch = max(len(train_loader), 1)
     state = create_train_state(
         model, args.lr, args.weight_decay, args.t0, args.t_mult, steps_per_epoch
     )
+    if parallel.is_distributed():
+        state.model = parallel.wrap(model, device)
     dump_run_config(args)
     mgr = CheckpointManager(args.save_checkpoint or os.path.join(args.save_path, "ckpt"))
     if args.checkpoint:
         restore_or_overlay(args, state)
 
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"## model: {args.model}  params: {n_params / 1e6:.1f}M  patches: {spec.n_patches}  "
-          f"device: {device}  bf16: {args.bf16}  merge: {args.merge_dtype}")
-    print(f"## patch size: {(spec.patch_h, spec.patch_w)}  fov: {args.fov}  nrows: {args.nrows}")
+    log(f"## model: {args.model}  params: {n_params / 1e6:.1f}M  patches: {spec.n_patches}  "
+        f"device: {device}  bf16: {args.bf16}  merge: {args.merge_dtype}")
+    log(f"## patch size: {(spec.patch_h, spec.patch_w)}  fov: {args.fov}  nrows: {args.nrows}")
 
     writer = None
-    if args.tensorboard_path:
+    if args.tensorboard_path and main_rank:
         from torch.utils.tensorboard import SummaryWriter
 
         writer = SummaryWriter(log_dir=args.tensorboard_path)
@@ -131,21 +154,23 @@ def run_training(args) -> dict:
     history: dict = {"train_loss": [], "val": []}
     best_abs_rel = float("inf")
     first_epoch = state.step // steps_per_epoch
-    with open(csv_path, "a", newline="") as csvfile, contextlib.ExitStack() as profiling:
-        csvwriter = csv.writer(csvfile)
-        if new_csv:
+    profile = args.profile_dir and main_rank
+    with contextlib.ExitStack() as files, contextlib.ExitStack() as profiling:
+        csvfile = files.enter_context(open(csv_path, "a", newline="")) if main_rank else None
+        csvwriter = csv.writer(csvfile) if main_rank else None
+        if new_csv and main_rank:
             csvwriter.writerow(["epoch", "loss", *METRICS])
         throughput = Throughput()
         for epoch in range(first_epoch, args.epochs):
             t0 = time.time()
             pending = []  # device scalars; read at the end of the epoch
             for it, batch in enumerate(train_loader.to_device(device)):
-                if args.profile_dir and epoch == 0 and it == PROFILE_STEPS[0]:
+                if profile and epoch == 0 and it == PROFILE_STEPS[0]:
                     profiling.enter_context(trace(args.profile_dir))
                 m = train_step(state, batch, confidence)
                 pending.append((m["loss"], m["grad_norm"]))
                 throughput.update(args.batch)
-                if args.profile_dir and epoch == 0 and it == PROFILE_STEPS[1]:
+                if profile and epoch == 0 and it == PROFILE_STEPS[1]:
                     profiling.close()
                     print(f"## wrote profiler trace to {args.profile_dir}")
             profiling.close()  # an epoch 0 shorter than the window ends the trace
@@ -157,22 +182,24 @@ def run_training(args) -> dict:
                     step = epoch * steps_per_epoch + it + 1
                     writer.add_scalar("train/loss", losses[it], step)
                     writer.add_scalar("train/grad_norm", float(pending[it][1]), step)
-            print(f"epoch {epoch}: loss {mean_loss:.4f}  ({time.time() - t0:.1f}s, "
-                  f"{len(losses)} steps, {throughput.per_sec:.1f} panos/s)")
+            log(f"epoch {epoch}: loss {mean_loss:.4f}  ({time.time() - t0:.1f}s, "
+                f"{len(losses)} steps, {throughput.per_sec:.1f} panos/s)")
             mgr.save(state, "latest")
 
             if (epoch + 1) % args.val_interval == 0 or epoch == args.epochs - 1:
+                # the metrics are the global batches', the same on every rank
                 acc = MetricAccumulator()
                 for i, batch in enumerate(val_loader.to_device(device)):
-                    m, n, pred = eval_step(model, batch, confidence)
+                    m, n, pred = eval_step(state.model, batch, confidence)
                     acc.update({k: float(v) for k, v in m.items()}, float(n))
                     if writer and i == 0:
                         log_images(writer, batch, pred, epoch)
                 avg = acc.averages()
                 history["val"].append({"epoch": epoch, **avg})
-                print("  val:", {k: round(v, 4) for k, v in avg.items()})
-                csvwriter.writerow([epoch, mean_loss] + [avg.get(k, "") for k in METRICS])
-                csvfile.flush()
+                log("  val:", {k: round(v, 4) for k, v in avg.items()})
+                if main_rank:
+                    csvwriter.writerow([epoch, mean_loss] + [avg.get(k, "") for k in METRICS])
+                    csvfile.flush()
                 if writer:
                     for k, v in avg.items():
                         writer.add_scalar(f"val/{k}", v, epoch)

@@ -20,6 +20,12 @@ parameters; the logits and the merge stay f32. As in the JAX entry point,
 the depth CLIs' ``--model``, ``--checkpoint``, ``--merge_dtype``,
 ``--synthetic_size``, ``--val_interval`` and logging flags are not read
 here. Runs on the CUDA card unless ``--device`` names another device.
+
+``--mesh`` (cli/common.py) trains data-parallel as cli/train.py does: the
+cross-entropy's mean is over the global batch's valid labels, and the
+validation's confusion counts are summed over the ranks (a last batch that
+the ranks cannot split evenly runs whole on every rank and counts once).
+Rank 0 prints and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -31,13 +37,19 @@ import time
 import numpy as np
 import torch
 
-from omnifusion_torch.cli.common import add_common_args, dump_run_config, resolve_erp_size
+from omnifusion_torch import parallel
+from omnifusion_torch.cli.common import (
+    add_common_args,
+    dump_run_config,
+    entry_device,
+    resolve_erp_size,
+    run_on_mesh,
+)
 from omnifusion_torch.data import DataLoader, SemanticDataset, SyntheticSemanticDataset
-from omnifusion_torch.device import resolve_device
 from omnifusion_torch.models import SphericalFusionSeg, init_weights
 from omnifusion_torch.projection import ProjectionSpec
 from omnifusion_torch.training import CheckpointManager, create_train_state, train_step_sem
-from omnifusion_torch.utils import evaluate_iou
+from omnifusion_torch.utils import confusion_matrix, mean_iou
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,9 +67,14 @@ def predict(model: SphericalFusionSeg, rgb: torch.Tensor) -> torch.Tensor:
 
 
 def run_training_sem(args) -> dict:
-    """Train as the flags say; returns the history: per-epoch mean train
-    loss and validation mIoU, and the best mIoU."""
-    device = resolve_device(args.device)
+    """Train as the flags say, on the mesh of ``--mesh``; returns the
+    history (rank 0's): per-epoch mean train loss and validation mIoU, and
+    the best mIoU."""
+    return run_on_mesh(_train_sem, args)
+
+
+def _train_sem(args) -> dict:
+    device = entry_device(args)
     h, w = resolve_erp_size(args)
     spec = ProjectionSpec.create(args.erp_size, args.patchsize, (args.fov, args.fov), args.nrows)
     model = init_weights(SphericalFusionSeg(
@@ -70,16 +87,20 @@ def run_training_sem(args) -> dict:
         val_ds = SyntheticSemanticDataset(8, h, w, args.num_classes, args.seed + 1)
     else:
         train_ds = SemanticDataset(args.input_dir, args.trainfile, rotate=True, flip=True,
-                                   seed=args.seed)
+                                   seed=args.seed + parallel.rank())
         val_ds = SemanticDataset(args.input_dir, args.testfile)
+    shard = dict(rank=parallel.rank(), world=parallel.world())
     train_loader = DataLoader(train_ds, args.batch, shuffle=True, num_workers=args.workers,
-                              seed=args.seed)
-    val_loader = DataLoader(val_ds, args.batch, num_workers=2, drop_last=False)
+                              seed=args.seed, **shard)
+    val_loader = DataLoader(val_ds, args.batch, num_workers=2, drop_last=False, **shard)
     state = create_train_state(model, args.lr, args.weight_decay, args.t0, args.t_mult,
                                steps_per_epoch=max(len(train_loader), 1))
+    if parallel.is_distributed():
+        state.model = parallel.wrap(model, device)
     dump_run_config(args)
     mgr = CheckpointManager(args.save_checkpoint or os.path.join(args.save_path, "ckpt"))
-    print(f"## segmentation: {args.num_classes} classes  params: "
+    log = print if parallel.rank() == 0 else (lambda *a, **k: None)
+    log(f"## segmentation: {args.num_classes} classes  params: "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M  patches: {spec.n_patches}  "
           f"device: {device}  bf16: {args.bf16}")
 
@@ -93,13 +114,21 @@ def run_training_sem(args) -> dict:
         history["train_loss"].append(mean_loss)
         mgr.save(state, "latest")
 
-        preds, gts = [], []
+        # confusion counts of the batches split over the ranks (summed over
+        # them) and of those every rank runs whole
+        nc = args.num_classes
+        sliced, whole = np.zeros((nc, nc), np.int64), np.zeros((nc, nc), np.int64)
         for batch in val_loader.to_device(device):
-            preds.extend(predict(model, batch["rgb"]).cpu().numpy())
-            gts.extend(batch["labels"].cpu().numpy())
-        miou, _ = evaluate_iou(preds, gts, args.num_classes)
+            cm = confusion_matrix(predict(model, batch["rgb"]).cpu().numpy(),
+                                  batch["labels"].cpu().numpy(), nc)
+            if batch.sharded:
+                sliced += cm
+            else:
+                whole += cm
+        sliced = parallel.all_reduce_(torch.from_numpy(sliced).to(device)).cpu().numpy()
+        miou, _ = mean_iou(sliced + whole)
         history["miou"].append(miou)
-        print(f"epoch {epoch}: loss {mean_loss:.4f}  mIoU {miou:.4f}  ({time.time() - t0:.1f}s)")
+        log(f"epoch {epoch}: loss {mean_loss:.4f}  mIoU {miou:.4f}  ({time.time() - t0:.1f}s)")
         if miou > best_miou:
             best_miou = miou
             mgr.save(state, "best")  # "latest" holds this state already

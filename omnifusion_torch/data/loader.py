@@ -7,6 +7,15 @@ datasets). ``to_device`` replaces the JAX loader's ``prefetch_to_device``:
 on a CUDA device each batch goes through pinned host memory with a
 non-blocking copy, so the copy of the next batch overlaps the step that
 runs on the current one.
+
+Under data parallelism (``rank`` and ``world``) every rank draws the same
+order of global batches from the same seed and loads only its contiguous
+slice of each, so that the ranks together see the single-device batches,
+as the JAX loader's batches sharded over the mesh's data axis. A batch that
+the ranks cannot split evenly (the ragged tail with ``drop_last=False``) is
+loaded whole on every rank, as the JAX loader replicates it. Batches are
+``Batch`` dicts: ``sharded`` says whether this rank holds a slice of a
+batch split over ranks.
 """
 
 from __future__ import annotations
@@ -18,6 +27,15 @@ import numpy as np
 import torch
 
 
+class Batch(dict):
+    """A batch's arrays by name; ``sharded``: this rank holds its slice of
+    a global batch that is split over ranks."""
+
+    def __init__(self, *args, sharded: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.sharded = sharded
+
+
 class DataLoader:
     def __init__(
         self,
@@ -27,6 +45,8 @@ class DataLoader:
         num_workers: int = 8,
         drop_last: bool = True,
         seed: int = 0,
+        rank: int = 0,
+        world: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -34,6 +54,7 @@ class DataLoader:
         self.num_workers = max(num_workers, 1)
         self.drop_last = drop_last
         self.seed = seed
+        self.rank, self.world = rank, world
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -51,21 +72,29 @@ class DataLoader:
         for s in range(0, end, self.batch_size):
             yield idx[s : s + self.batch_size]
 
-    def _load_batch(self, indices) -> dict[str, np.ndarray]:
+    def _rank_indices(self, indices) -> tuple[np.ndarray, bool]:
+        """This rank's part of a global batch, and whether it is a slice."""
+        if self.world == 1 or len(indices) % self.world:
+            return indices, False
+        k = len(indices) // self.world
+        return indices[self.rank * k : (self.rank + 1) * k], True
+
+    def _load_batch(self, indices) -> Batch:
+        indices, sharded = self._rank_indices(indices)
         samples = [self.dataset[int(i)] for i in indices]
         cols = [np.stack(x) for x in zip(*samples)]
         if len(cols) == 2:  # segmentation datasets: (rgb, labels)
-            return {"rgb": cols[0], "labels": cols[1]}
-        return {"rgb": cols[0], "depth": cols[1], "mask": cols[2]}
+            return Batch(rgb=cols[0], labels=cols[1], sharded=sharded)
+        return Batch(rgb=cols[0], depth=cols[1], mask=cols[2], sharded=sharded)
 
-    def to_device(self, device) -> Iterator[dict[str, torch.Tensor]]:
+    def to_device(self, device) -> Iterator[Batch]:
         """Iterate batches as tensors on ``device``, keeping two copies in
         flight ahead of the consumer."""
         device = torch.device(device)
         pin = device.type == "cuda"
 
         def put(b):
-            out = {}
+            out = Batch(sharded=b.sharded)
             for k, v in b.items():
                 t = torch.from_numpy(v)
                 out[k] = t.pin_memory().to(device, non_blocking=True) if pin else t.to(device)
@@ -78,7 +107,7 @@ class DataLoader:
                 yield queue.pop(0)
         yield from queue
 
-    def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
+    def __iter__(self) -> Iterator[Batch]:
         self._epoch += 1
         batches = list(self._batch_indices())
         if self.num_workers <= 1:

@@ -3,12 +3,17 @@
 The port's counterpart of ``omnifusion_tpu/losses/direct.py`` (upstream
 supervision/direct.py). The BerHu cutoff is data-dependent (c = max|diff| / 5
 over ALL pixels, masked or not) and detached, as the JAX package stops its
-gradient.
+gradient. Under data parallelism the max is the global batch's (an
+all-reduce of each rank's), as a max over the JAX mesh's sharded batch is;
+the per-sample mean over a rank's equal shard, averaged over the ranks by
+DistributedDataParallel, is the global batch's mean.
 """
 
 from __future__ import annotations
 
 import torch
+
+from omnifusion_torch.parallel.mesh import all_reduce_
 
 
 def _per_sample(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -22,7 +27,7 @@ def berhu_loss(pred, gt, mask) -> torch.Tensor:
     bs = pred.shape[0]
     diff = gt - pred
     abs_diff = diff.abs()
-    c = abs_diff.max().detach() / 5.0
+    c = all_reduce_(abs_diff.max().detach().reshape(1), "max")[0] / 5.0
     l2 = (diff.square() + c.square()) / torch.clamp(2.0 * c, min=1e-12)
     loss = torch.where(abs_diff <= c, abs_diff, l2).reshape(bs, -1)
     mask = _per_sample(mask, pred)

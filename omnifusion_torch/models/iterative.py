@@ -47,6 +47,9 @@ class SphericalFusionIterative(DepthTrunk):
     a state dict, or call ``init_weights`` for seeded ones."""
 
     DOWN = "down1"
+    # the first pass embeds the unit sphere, the same on every rank of a
+    # data-parallel run: those statistics stay this process's (parallel/ddp.py)
+    REPLICATED_INPUT_NORMS = ("mlp_points1",)
 
     def __init__(
         self,
@@ -77,6 +80,13 @@ class SphericalFusionIterative(DepthTrunk):
         xyz = torch.from_numpy(build_equi2pers_grids(self.spec_q).xyz)  # (P, h/4, w/4, 3)
         self.register_buffer("xyz", xyz.permute(0, 3, 1, 2).contiguous().to(device),
                              persistent=False)
+
+    def unused_parameters(self) -> list[str]:
+        """The parameters that no forward uses: with one pass, the
+        refinement's embedding (mlp_points2), kept for the state dict."""
+        if self.num_iters > 1:
+            return []
+        return [n for n, _ in self.named_parameters() if n.startswith("mlp_points2.")]
 
     def forward(self, rgb: torch.Tensor, confidence: bool = False) -> list[torch.Tensor]:
         """``confidence=True``: merge each pass confidence-weighted, as the

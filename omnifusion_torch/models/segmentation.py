@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from omnifusion_torch.device import resolve_device
 from omnifusion_torch.models.spherical_fusion import DepthTrunk, MlpPoints, geometry_input
+from omnifusion_torch.parallel.mesh import all_reduce_, world
 from omnifusion_torch.projection.ops import equi2pers, pers2equi_cf
 from omnifusion_torch.projection.spec import (
     ProjectionSpec,
@@ -38,6 +39,8 @@ class SphericalFusionSeg(DepthTrunk):
     ``device``: where the parameters live; None means the CUDA card, and
     raises when there is none. Parameters start from PyTorch's default
     init: load a state dict, or call ``init_weights`` for seeded ones."""
+
+    REPLICATED_INPUT_NORMS = ("mlp_points",)  # as SphericalFusion's
 
     def __init__(
         self,
@@ -94,8 +97,15 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
     """Mean cross-entropy over the pixels whose label is not
     ``ignore_index``; 0 where every label is ignored, as the JAX function
     gives (its sum over a count clamped at 1). logits (B, H, W, C); labels
-    (B, H, W) integers."""
+    (B, H, W) integers.
+
+    Under data parallelism the count is the global batch's (an all-reduce),
+    as the JAX mean over the sharded batch is, and each rank's loss is
+    ``world * sum / count``: DistributedDataParallel's average over the
+    ranks then gives the gradient of the global mean, and the mean of the
+    ranks' losses is that mean."""
     labels = labels.long()
     nll = F.cross_entropy(logits.permute(0, 3, 1, 2), labels, ignore_index=ignore_index,
                           reduction="sum")
-    return nll / (labels != ignore_index).sum().clamp_min(1)
+    count = all_reduce_((labels != ignore_index).sum().reshape(1))[0]
+    return world() * nll / count.clamp_min(1)

@@ -236,6 +236,11 @@ class SphericalFusion(DepthTrunk):
     none. Parameters start from PyTorch's default init: load a state dict,
     or call ``init_weights`` for seeded ones."""
 
+    # BatchNorms whose input is the same on every rank of a data-parallel
+    # run (the embedding of the patch geometry, shared by the batch): their
+    # statistics stay this process's (parallel/ddp.py)
+    REPLICATED_INPUT_NORMS = ("mlp_points",)
+
     def __init__(
         self,
         spec: ProjectionSpec,

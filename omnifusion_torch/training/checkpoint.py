@@ -5,6 +5,10 @@ update count, the model's state dict (parameters and BatchNorm statistics),
 the optimizer's state and the schedule go into one ``torch.save`` file per
 name, ``latest`` and ``best`` side by side, and a restore resumes exactly.
 Writes are atomic (a temporary file, then ``os.replace``).
+
+Under data parallelism the model is saved bare (no DDP ``module.``
+prefix): rank 0 writes, the others wait for it at a barrier, and every
+rank restores the same file, so a checkpoint loads with or without a mesh.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import tempfile
 
 import torch
 
+from omnifusion_torch.parallel.ddp import unwrap
+from omnifusion_torch.parallel.mesh import barrier, rank
 from omnifusion_torch.training.schedule import CosineWarmRestarts
 
 
@@ -27,9 +33,16 @@ class CheckpointManager:
         return os.path.join(self.directory, f"{name}.pt")
 
     def save(self, state, name: str = "latest") -> None:
+        """Write ``state`` as ``name``; under data parallelism every rank
+        calls this and rank 0 writes."""
+        if rank() == 0:
+            self._write(state, name)
+        barrier()
+
+    def _write(self, state, name: str) -> None:
         payload = {
             "step": state.step,
-            "model": state.model.state_dict(),
+            "model": unwrap(state.model).state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "schedule": dataclasses.asdict(state.schedule),
         }
@@ -60,7 +73,7 @@ def restore_file(state, path: str):
 def restore_state(state, ckpt: dict):
     """Load a checkpoint that ``CheckpointManager.save`` wrote, read with
     ``torch.load``, into ``state``; returns it."""
-    state.model.load_state_dict(ckpt["model"], strict=True)
+    unwrap(state.model).load_state_dict(ckpt["model"], strict=True)
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.schedule = CosineWarmRestarts(**ckpt["schedule"])
     state.step = int(ckpt["step"])

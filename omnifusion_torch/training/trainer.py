@@ -11,6 +11,15 @@ returns a new state. torch's AdamW and optax's adamw agree on the update:
 bias-corrected moments, eps outside the square root, decoupled decay
 ``lr * wd * p``. The schedule is evaluated at the update count before the
 increment, as optax evaluates it.
+
+Under data parallelism ``state.model`` is the DistributedDataParallel wrap
+(parallel/ddp.py) and each rank steps on its shard of the global batch:
+the gradients, and so the gradient norm, are the ranks' average when the
+backward returns, and the loss reported is the mean of the ranks' losses,
+which is the global batch's (losses/direct.py, models/segmentation.py).
+``eval_step`` runs the bare module; on a batch split over ranks it scores
+the prediction of the global batch, gathered, as the JAX eval step's median
+scaling is over the sharded batch.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from torch import nn
 from omnifusion_torch.evaluation.metrics import compute_depth_metrics
 from omnifusion_torch.losses.direct import berhu_loss
 from omnifusion_torch.models.segmentation import cross_entropy_ignore
+from omnifusion_torch.parallel.ddp import unwrap
+from omnifusion_torch.parallel.mesh import all_gather_cat, mean_over_ranks
 from omnifusion_torch.training.schedule import cosine_warm_restarts
 
 
@@ -126,7 +137,8 @@ def train_step(state: TrainState, batch: dict, confidence: bool = True) -> dict[
     state.optimizer.zero_grad(set_to_none=True)
     loss, pred = forward_loss(state.model, batch, confidence)
     grad_norm = _update(state, loss)
-    return {"loss": loss.detach(), "grad_norm": grad_norm, "pred_mean": pred.detach().mean()}
+    return {"loss": mean_over_ranks(loss.detach()), "grad_norm": grad_norm,
+            "pred_mean": pred.detach().mean()}
 
 
 def seg_forward_loss(model: nn.Module, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -143,15 +155,22 @@ def train_step_sem(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
     0-d tensors on the model's device."""
     state.optimizer.zero_grad(set_to_none=True)
     loss, _ = seg_forward_loss(state.model, batch)
-    return {"loss": loss.detach(), "grad_norm": _update(state, loss)}
+    grad_norm = _update(state, loss)
+    return {"loss": mean_over_ranks(loss.detach()), "grad_norm": grad_norm}
 
 
 def eval_step(model: nn.Module, batch: dict, confidence: bool = True):
     """Eval-mode forward and the median-scaled depth metrics of its
-    prediction, or of its last pass: (metrics, N, pred)."""
+    prediction, or of its last pass: (metrics, N, pred). On a batch that
+    is split over ranks (``batch.sharded``) the metrics and N are the
+    global batch's, the same on every rank; pred is this rank's."""
+    model = unwrap(model)
     model.eval()
     with torch.inference_mode():
         out = model(batch["rgb"], confidence=confidence)
         pred = out[-1] if isinstance(out, (list, tuple)) else out
-        metrics, n = compute_depth_metrics(pred, batch["depth"], batch["mask"])
+        scored = [pred, batch["depth"], batch["mask"]]
+        if getattr(batch, "sharded", False):
+            scored = [all_gather_cat(t) for t in scored]
+        metrics, n = compute_depth_metrics(*scored)
     return metrics, n, pred

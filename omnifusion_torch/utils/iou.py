@@ -31,11 +31,17 @@ def per_class_iou(cm: np.ndarray) -> np.ndarray:
         return diag / denom
 
 
+def mean_iou(cm: np.ndarray):
+    """(mIoU, per-class IoU) of a confusion matrix; the mean skips the NaN
+    classes. Under data parallelism ``cm`` is the sum of the ranks'
+    matrices (cli/train_sem.py)."""
+    ious = per_class_iou(cm)
+    return float(np.nanmean(ious)), ious
+
+
 def evaluate_iou(preds, gts, num_classes: int = NUM_CLASSES):
-    """Accumulate over an iterable of (pred, gt) maps -> (mIoU, per-class);
-    the mean skips the NaN classes."""
+    """Accumulate over an iterable of (pred, gt) maps -> (mIoU, per-class)."""
     cm = np.zeros((num_classes, num_classes), np.int64)
     for pred, gt in zip(preds, gts):
         cm += confusion_matrix(pred, gt, num_classes)
-    ious = per_class_iou(cm)
-    return float(np.nanmean(ious)), ious
+    return mean_iou(cm)

@@ -568,3 +568,42 @@ def test_perspective_views_of_many_channels_gather_from_global_memory(cuda):
                                rtol=0, atol=2e-6)
     torch.testing.assert_close(equi.cpu(), insert_views(views.cpu(), centers, fov, (64, 128))[0],
                                rtol=0, atol=2e-6)
+
+
+def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
+    # tests/test_torch_port_parallel.py's (a) and (d) on the card: two gloo
+    # ranks share it (nccl refuses two ranks on one device); the one-shot
+    # step on 2 x 1 panoramas against the one-process step, in float64 on
+    # the plain versions, and in f32 through the kernels (at the bounds of
+    # tests/test_torch_port_train.py's f32 step against JAX)
+    import torch_parallel_ranks as R
+    from omnifusion_torch.models import init_weights
+    from omnifusion_torch.parallel.launch import spawn
+
+    sd = {k: v.cpu() for k, v in init_weights(R.build("oneshot", cuda), 4).state_dict().items()}
+    for head in ("pred", "weight_pred"):
+        sd[f"{head}.weight"] = sd[f"{head}.weight"] * 0.05
+    sd["pred.bias"] = sd["pred.bias"] + 2.0
+    ranks = spawn(R.card_checks, 2, (sd,), lambda r: "cuda:0", "gloo", 240)
+    ref = R.card_steps(sd, cuda)
+
+    def rels(got, want):
+        return [float((g - want["grads"][n]).norm() / want["grads"][n].norm())
+                for n, g in got["grads"].items() if want["grads"][n].norm() > 0]
+
+    for r in ranks:
+        for errs in r["batchnorm"].values():
+            errs = dict(errs)
+            assert errs.pop("scale") > 0.1 and max(errs.values()) < 1e-10, errs
+        got = r["f64"]
+        assert abs(got["loss"] / ref["f64"]["loss"] - 1) < 1e-10
+        assert max(rels(got, ref["f64"])) < 1e-8
+        for k, v in ref["f64"]["state"].items():
+            if v.is_floating_point():
+                assert float((got["state"][k] - v).abs().max()) < 1e-8, k
+        got = r["f32"]
+        assert abs(got["loss"] / ref["f32"]["loss"] - 1) < 1e-5
+        assert max(rels(got, ref["f32"])) < 5e-2 and np.median(rels(got, ref["f32"])) < 1e-2
+        # per rank and step: 2 blends, 1 spread, 5 upsamples and 5 adjoints
+        assert r["launches"] == {"quad_blend": 2, "quad_spread": 1, "up2x": 5,
+                                 "up2x_adjoint": 5}, r["launches"]
