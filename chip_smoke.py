@@ -51,7 +51,17 @@ patch 128, fov 80, nrows 4, seeded random weights):
   which launches the probe first), the component times
   (omnifusion_torch/tools/bench_components.py), the profiler
   (omnifusion_torch/tools/profile_forward.py) and the quad_blend,
-  quad_spread and up2x times (omnifusion_torch/tools/bench_kernels.py).
+  quad_spread and up2x times (omnifusion_torch/tools/bench_kernels.py);
+- the measurement tools, last, each through its main() with its launches
+  counted: bench_train (the b8 step and forward with their FLOPs and MFU:
+  f32, TF32, the bf16 recipe, the iterative model; the f32 step's FLOPs
+  held to the CPU tests' count and its time to the train_step phase's),
+  remat (bench_train --remat: its peak memory, and one step held to the
+  step without it), bench_sweep (its f16_merge b64 row held to bench.py's
+  b64), sol_model --calibrate --train (the card's copy and bf16 matmul
+  rates, the floors, each kernel row held to the time phase's bound for
+  the same call), eval_merge_dtype (the 16-bit merges in eval metrics) and
+  verify_kernels (every check PASS).
 
 The up2x adjoint is held to its plain version bit for bit (f32 and bf16,
 every decoder stage at batch 8, odd sides, an unaligned view, and past 2^31
@@ -96,17 +106,21 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+# the tolerances and the parity helpers that omnifusion_torch.tools.verify_kernels
+# shares with this script (a directory without the repository fails here)
+from omnifusion_torch.tools.verify_kernels import (  # noqa: E402
+    BLEND_TOL, F64_RATIO, GRAD_TOL, HEAD_SCALE, LOSS_TOL, SPREAD_TOL, ULP_RATIO, UP2X_BF16_RTOL,
+    UP2X_TOL, as_f64, compare, grad_parity, loss_and_grads, nudged, plain_versions, step_parity,
+    tame_heads,
+)
+
 DEVICE = "cuda"
 ERP, PATCH, FOV, NROWS = (512, 1024), 128, 80.0, 4
 SMALL_ERP, SMALL_PATCH = (64, 128), 32
 BATCH, N_PANOS, TIMED_BATCHES = 2, 4, (2, 8)
 TRAIN_BATCH, TRAIN_STEPS = 8, 3
 BENCH_BATCHES, MERGE_BATCH, PROFILE_BATCH = (8, 64, 256), 64, 8  # bench_components: PROFILE_BATCH
-BLEND_TOL = 2e-6  # inputs in [0, 1), weights summing to <= 1: f32 rounding of a 4*K-term sum
-UP2X_TOL = 1e-6  # inputs in [0, 1): f32 rounding of a 4-tap stencil (the adjoint: bitwise)
-# a bf16 result: the kernel and the plain version both compute in f32 and
-# round once to bf16, so they differ by at most one bf16 ulp (2^-7 relative)
-UP2X_BF16_RTOL = 2.0**-7
 # serve_bf16. At the flagship (full depth, random weights) bf16 rounding
 # alone moves the depth far from the f32 forward: the JAX package's own
 # recipe puts 24% of the pixels above 0.05 at full depth (256x512, tamed
@@ -141,26 +155,9 @@ HEAVY_SWEEP, WIDE_SWEEP = (16, 32, 64), (128, 256, 512)
 # a block takes (None: all)
 TILE_SWEEP, CHUNK_SWEEP, UNIT_SWEEP = ((8, 32), (4, 64), (4, 32), (16, 32)), (8, 16, 32), (24, None)
 BLEND_ROWS = (1, 3, 130)  # row counts no staged chunk divides
-# inputs in [0, 1): f32 sums of up to 2194 products per pixel (the merge's
-# longest overflow load), summed in another order by the plain version, whose
-# index_add_ order changes from run to run: rtol 2194 * 2^-24 = 1.3e-4;
-# 16-bit results: one rounding more. The synthetic table with a 5,000-entry
-# segment is held to its float64 plain version at the f32 tolerance: the
-# heavy kernel's block sums each thread's share of 5000 / 256 terms, then a
-# tree
-SPREAD_TOL = {torch.float32: (1e-5, 1.3e-4), torch.float16: (1e-5, 1e-3),
-              torch.bfloat16: (1e-5, 8e-3)}  # (atol, rtol)
-# train parity (step_parity), heads tamed (tame_heads): the loss to f32
-# rounding. The f32 gradients of the BatchNorms' parameters are sums that
-# nearly cancel: one ulp moved at half of the input's values moves the plain
-# path's gradients by up to 8e-3 (relative L2 per tensor) at the flagship,
-# batch 8, so no f32 path can hold every tensor to a fixed 1e-3. Each
-# tensor is held to witnesses from the same run instead: the distance from
-# a float64 run at most F64_RATIO times the larger of the reference path's
-# and the reference's own move under that nudge (largest and median), and
-# the largest difference at most ULP_RATIO times that move; with the
-# BatchNorms on running statistics the median is also held to GRAD_TOL
-LOSS_TOL, GRAD_TOL, F64_RATIO, ULP_RATIO = 1e-5, 1e-3, 1.5, 2.0
+# the synthetic table with a 5,000-entry segment is held to its float64
+# plain version at quad_spread's f32 tolerance (SPREAD_TOL): the heavy
+# kernel's block sums each thread's share of 5000 / 256 terms, then a tree
 # eval: panoramas per run (2 batches); each metric of the kernels' run within
 # EVAL_TOL (relative, at least absolute) of the plain versions' and of the
 # CPU's. train_bf16: the bf16 step's loss within BF16_LOSS_TOL of the plain
@@ -172,7 +169,7 @@ EVAL_PANOS, EVAL_TOL, BF16_LOSS_TOL = 4, 1e-4, 1e-3
 # edge, below 1e-3, where log_rms_sq's log magnifies the f32 rounding of the
 # card against the CPU's (a gap of 1.2e-4 there); 0.01 keeps every pixel
 # live. The flagship eval keeps the default, as serve_iterative does
-HEAD_SCALE, SMALL_EVAL_HEAD_SCALE = 0.05, 0.01
+SMALL_EVAL_HEAD_SCALE = 0.01
 # eval_rate: panoramas per rate run (EVAL_RATE_PANOS / BATCH batches, the
 # rate taken after the first) and rate runs per model, for the spread
 EVAL_RATE_PANOS, EVAL_RATE_RUNS = 64, 3
@@ -198,24 +195,6 @@ def pin_f32() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-
-
-@contextlib.contextmanager
-def plain_versions():
-    """Route every kernel launch of the main paths, forward and backward, to
-    the kernel's plain version, on the card; the autograd Functions stay, so
-    autograd still never differentiates the plain code. Only this script
-    does this, to compare the whole forward and train step."""
-    import omnifusion_torch.ops.quad_blend as qb
-    import omnifusion_torch.ops.upsample as ups
-
-    saved = qb._blend_kernel, qb._spread_kernel, ups._up2x_kernel, ups._adjoint_kernel
-    qb._blend_kernel, qb._spread_kernel = qb.quad_blend_plain, qb.quad_spread_plain
-    ups._up2x_kernel, ups._adjoint_kernel = ups.up2x_plain, ups.up2x_adjoint_plain
-    try:
-        yield
-    finally:
-        qb._blend_kernel, qb._spread_kernel, ups._up2x_kernel, ups._adjoint_kernel = saved
 
 
 @contextlib.contextmanager
@@ -260,22 +239,10 @@ def spread_matrix(t):
 
 
 def check(kernel, case, got, want, atol, rtol=0.0, chunk=None, **extra) -> float:
-    """Hold ``got`` to ``want`` within atol + rtol * |want|, or bit for bit
-    (``torch.equal``) where both are 0. ``want`` is a tensor or, for a result
-    too large to hold beside its plain version, a function of a slice of dim
-    0, called ``chunk`` rows at a time."""
+    """Hold ``got`` to ``want`` (``verify_kernels.compare``): emit the check's
+    line, raise if it does not hold, return the largest difference."""
     torch.cuda.synchronize()
-    step = chunk or got.shape[0]
-    err, ok = 0.0, True
-    for i in range(0, got.shape[0], step):
-        rows = slice(i, i + step)
-        w = want(rows) if callable(want) else want[rows]
-        if atol == rtol == 0:
-            ok = ok and torch.equal(got[rows], w)
-        w = w.float()
-        e = (got[rows].float() - w).abs()
-        ok = ok and bool((e <= atol + rtol * w.abs()).all())
-        err = max(err, e.max().item())
+    err, ok = compare(got, want, atol, rtol, chunk)
     if atol == rtol == 0:
         extra["bitwise_equal"] = ok
     emit({"phase": "check", "kernel": kernel, "case": case, "shape": list(got.shape),
@@ -408,29 +375,6 @@ def synthetic_batch(spec, b: int, device) -> dict:
     return {k: torch.from_numpy(np.stack(c)).to(device) for k, c in zip(("rgb", "depth", "mask"), cols)}
 
 
-def tame_heads(state_dict, scale: float = HEAD_SCALE) -> dict:
-    """Random weights saturate the heads: most of the ReLU depth is 0 and
-    takes no gradient, and the sigmoid confidence is 1, so the merge's
-    weighting takes none either. Scaling both head kernels and offsetting
-    the depth bias keeps both heads in their live range, so that the whole
-    backward of the merge is exercised, as in the CPU tests
-    (tests/test_torch_port_train.py)."""
-    sd = dict(state_dict)
-    for head in ("pred", "weight_pred"):
-        sd[f"{head}.weight"] = sd[f"{head}.weight"] * scale
-    sd["pred.bias"] = sd["pred.bias"] + 2.0
-    return sd
-
-
-def nudged(batch: dict, seed: int) -> dict:
-    """``batch`` with its rgb moved up by one ulp at a random half of its
-    values: a witness of how far f32 rounding alone moves a train step."""
-    rgb = batch["rgb"]
-    g = torch.Generator(device=rgb.device).manual_seed(seed)
-    pick = torch.rand(rgb.shape, device=rgb.device, generator=g) < 0.5
-    return dict(batch, rgb=torch.where(pick, torch.nextafter(rgb, rgb + 1), rgb))
-
-
 def bf16_nudged(rgb: torch.Tensor, seed: int) -> torch.Tensor:
     """``rgb`` rounded to bf16 (as the bf16 recipe casts it) and moved up by
     one bf16 ulp at a random half of its values, back in f32 on its device:
@@ -438,43 +382,6 @@ def bf16_nudged(rgb: torch.Tensor, seed: int) -> torch.Tensor:
     rgb16 = rgb.cpu().bfloat16()
     pick = torch.rand(rgb16.shape, generator=torch.Generator().manual_seed(seed)) < 0.5
     return torch.where(pick, torch.nextafter(rgb16, rgb16 + 1), rgb16).float().to(rgb.device)
-
-
-def as_f64(model, batch: dict, state_dict: dict):
-    """The arguments of loss_and_grads in float64 (the model in place, its
-    buffers too)."""
-    model = model.double()
-    return (model, {k: v.double() if v.is_floating_point() else v for k, v in batch.items()},
-            {k: v.double() if v.is_floating_point() else v for k, v in state_dict.items()})
-
-
-def loss_and_grads(model, batch, state_dict, train: bool = True,
-                   confidence: bool = True) -> tuple[float, dict]:
-    """One forward, loss and backward from ``state_dict``: in train mode
-    (the train step's), or with the BatchNorms on the running statistics of
-    ``state_dict``. The loss: BerHu, or for a batch with labels (a
-    segmentation model) the cross-entropy that ignores -1. The iterative
-    model's loss is the mean over its passes, as the trainer's; the
-    gradients of the parameters that take none (its confidence head without
-    ``confidence``) are left out."""
-    from omnifusion_torch.losses import berhu_loss
-    from omnifusion_torch.models import cross_entropy_ignore
-    from omnifusion_torch.training import forward_loss, seg_forward_loss
-
-    model.load_state_dict(state_dict)
-    model.zero_grad(set_to_none=True)
-    seg = "labels" in batch
-    if train:
-        loss, _ = seg_forward_loss(model, batch) if seg else forward_loss(model, batch, confidence)
-    elif seg:
-        loss = cross_entropy_ignore(model.eval()(batch["rgb"]), batch["labels"])
-    else:
-        out = model.eval()(batch["rgb"], confidence=confidence)
-        preds = out if isinstance(out, list) else [out]
-        loss = torch.stack([berhu_loss(p, batch["depth"], batch["mask"]) for p in preds]).mean()
-    loss.backward()
-    return loss.item(), {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()
-                         if p.grad is not None}
 
 
 def upstream_checkpoint(state_dict: dict, path: str) -> None:
@@ -525,32 +432,6 @@ def eval_run(argv: list[str]) -> tuple[dict, float, dict, np.ndarray]:
 def metric_gaps(ours: dict, ref: dict) -> dict:
     """Per metric, the gap between two runs, relative where it is above 1."""
     return {k: abs(ours[k] - ref[k]) / max(1.0, abs(ref[k])) for k in ref}
-
-
-def grad_parity(a, b) -> dict:
-    (la, ga), (lb, gb) = a, b
-    rels = {n: float((ga[n] - gb[n]).norm() / gb[n].norm().clamp_min(1e-30)) for n in gb}
-    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
-    return {"loss": la, "loss_ref": lb, "loss_rel": abs(la / lb - 1),
-            "grad_rel_max": max(rels.values()), "grad_rel_median": float(np.median(list(rels.values()))),
-            "grad_rel_worst": worst, "tensors": len(rels)}
-
-
-def step_parity(ours, ref, f64, ref_nudged, loss_tol: float = LOSS_TOL) -> tuple[dict, bool]:
-    """``ours`` against ``ref`` (loss_and_grads results) with the witnesses
-    of the tolerance comment: ``f64``, the same step in float64, and
-    ``ref_nudged``, ``ref`` on the nudged batch; the loss within
-    ``loss_tol``, relative. Returns the numbers and whether they hold."""
-    par, near, far = grad_parity(ours, ref), grad_parity(ours, f64), grad_parity(ref, f64)
-    wit = grad_parity(ref, ref_nudged)
-    out = {**par, "ours_vs_f64": near, "ref_vs_f64": far, "ref_vs_ref_nudged": wit}
-    # ref may land nearer float64 than its own move under the nudge (an
-    # order of sums that happens to round well): then that move is the scale
-    ok = (par["loss_rel"] < loss_tol
-          and all(near[k] <= F64_RATIO * max(far[k], wit[k])
-                  for k in ("grad_rel_max", "grad_rel_median"))
-          and par["grad_rel_max"] <= ULP_RATIO * wit["grad_rel_max"])
-    return out, ok
 
 
 # ---- the multi-device path: ddp_gloo2 (two gloo ranks sharing the card,
@@ -920,11 +801,226 @@ def multi_device_phases(gpu: str, f64_witness: dict) -> dict:
     return launches
 
 
+# ---- the measurement tools (omnifusion_torch/tools): bench_train with MFU,
+# --remat, bench_sweep, sol_model, eval_merge_dtype, verify_kernels ----
+# bench_sweep's batches and modes, and the row held to bench.py's time at
+# that batch; sol_model's batches (the time rows' and bench.py's largest);
+# eval_merge_dtype's protocol (its defaults)
+SWEEP_BATCHES, SWEEP_MODES, SWEEP_CHECK_BATCH = "8,64", "f32,f16_merge", 64
+SOL_BATCHES = (BATCH, TRAIN_BATCH, 256)
+STEP_MS_TOL, SWEEP_MS_TOL, FLOOR_TOL = 0.10, 0.15, 1e-12
+EVAL_MERGE_STEPS, EVAL_MERGE_ARGS = 150, ["--train_erp", "256,512", "--eval_erps",
+                                          "256,512;512,1024", "--patch", "128"]
+
+
+def sol_time_case(kernel: str, stage: str, batch: int) -> tuple[str, str]:
+    """The time row (kernel, case) that holds the same call as a sol_model
+    row at ``batch``."""
+    if kernel == "quad_blend":
+        name = {"equi2pers": "e2p_bf16", "merge": "merge_f16"}[stage]
+        return kernel, name if batch == BATCH else f"{name}_b{batch}"
+    if kernel == "quad_spread":
+        return kernel, f"merge_f32_b{batch}"
+    shape_dtype = stage.split()[1]  # "<shape>_<dtype>", the upsample's input
+    if kernel == "up2x":
+        return kernel, shape_dtype
+    shape, dtype = shape_dtype.rsplit("_", 1)
+    return kernel, shape + ("_bf16" if dtype == "bfloat16" else "")
+
+
+def measurement_tool_phases(gpu: str, rows: dict, benches: dict, step_ms: float,
+                            bf16_step_ms: float) -> dict:
+    """bench_train, remat, bench_sweep, sol_model, eval_merge_dtype and
+    verify_kernels, each through its main() in this process with its kernel
+    launches counted. ``rows``: the time phase's rows, by kernel;
+    ``benches``: bench.py's results by batch; ``step_ms``: the train_step
+    phase's f32 (TF32 off) device ms; ``bf16_step_ms``: train_bf16's.
+    Returns the launches of each phase for the kernels line."""
+    from omnifusion_torch.models import SphericalFusion, init_weights
+    from omnifusion_torch.projection import ProjectionSpec
+    from omnifusion_torch.tools import (
+        bench_sweep, bench_train, eval_merge_dtype, sol_model, verify_kernels,
+    )
+    from omnifusion_torch.training import forward_loss
+    from omnifusion_torch.utils.profiling import count_flops
+
+    dev = torch.device(DEVICE)
+    launches = {}
+    flag = ["--erp", f"{ERP[0]},{ERP[1]}", "--patch", f"{PATCH},{PATCH}", "--nrows", str(NROWS),
+            "--batch", str(TRAIN_BATCH), "--device", DEVICE]
+
+    def tool(main, argv):
+        zero_counts()
+        out = json.loads(run_tool(main, argv)[-1])
+        return out, counts()
+
+    # ---- bench_train: f32 (TF32 off), TF32, the bf16 recipe, iterative f32 ----
+    results = {}
+    for label, tf32, extra in (("f32", False, []), ("tf32", True, []),
+                               ("bf16", False, ["--bf16", "--merge_dtype", "f16"]),
+                               ("iterative_f32", False, ["--model", "iterative"])):
+        torch.backends.cudnn.allow_tf32 = tf32
+        out, lc = tool(bench_train.main, flag + extra)
+        pin_f32()
+        passes = ITERS if label.startswith("iterative") else 1
+        want = per_run(out["forward"]["calls"], out["train"]["calls"], passes)
+        results[label] = out
+        emit({"phase": "bench_train", "run": label, "gpu": gpu, "precision": out["precision"],
+              **{k: {kk: vv for kk, vv in out[k].items() if kk != "flops_by_op"}
+                 for k in ("forward", "train")},
+              "params": out["params"], "launches": lc, "launches_expected": want})
+        if out["oom"] or lc != want or not np.isfinite(out["train"]["loss"]):
+            raise AssertionError(f"bench_train {label}: {out['oom']}, launches {lc}")
+        launches[f"bench_train_{label}"] = lc
+    # the f32 step's FLOPs against the CPU test's count (forward_loss and
+    # its backward) at the flagship: at batch 1 and 2, the per-panorama part
+    # and the once-per-batch geometric embedding, then at TRAIN_BATCH
+    spec = ProjectionSpec.create(ERP, PATCH, (FOV, FOV), NROWS)
+    model = init_weights(SphericalFusion(spec, device=dev), 0)
+    formula = {}
+    for b in (1, 2):
+        batch = {k: v[:b] for k, v in synthetic_batch(spec, 2, dev).items()}
+        formula[b] = count_flops(lambda: forward_loss(model, batch)[0].backward())["total"]
+    del model
+    torch.cuda.empty_cache()
+    per_pano = formula[2] - formula[1]
+    want_flops = formula[1] + (TRAIN_BATCH - 1) * per_pano
+    got_flops = results["f32"]["train"]["gflop"] * 1e9
+    step_gap = abs(results["f32"]["train"]["device_ms"] / step_ms - 1)
+    emit({"phase": "bench_train", "check": "flops and time", "gpu": gpu,
+          "step_gflop": got_flops / 1e9, "formula_gflop_b1": formula[1] / 1e9,
+          "formula_gflop_per_panorama": per_pano / 1e9,
+          "formula_gflop_train_batch": want_flops / 1e9,
+          "train_batch_times_b1_gflop": TRAIN_BATCH * formula[1] / 1e9,
+          "step_device_ms": results["f32"]["train"]["device_ms"],
+          "train_step_phase_device_ms": step_ms, "gap": step_gap, "tol": STEP_MS_TOL})
+    if round(got_flops) != want_flops or step_gap > STEP_MS_TOL:
+        raise AssertionError(f"bench_train f32: {got_flops} FLOPs against {want_flops}, "
+                             f"{step_gap} from the train_step phase")
+
+    # ---- remat: the one-shot b8 f32 step with --remat: its peak memory,
+    # and its parity with the step without it ----
+    out, lc = tool(bench_train.main, flag + ["--remat", "--skip_fwd"])
+    want = per_run(0, out["train"]["calls"])
+    launches["remat"] = lc
+    model = init_weights(SphericalFusion(spec, device=dev), 0)
+    sd0 = tame_heads(copy.deepcopy(model.state_dict()))
+    tb = synthetic_batch(spec, TRAIN_BATCH, dev)
+    runs = {}
+    with deterministic_cudnn():
+        for remat in (False, True):
+            model.remat = remat
+            runs[remat] = loss_and_grads(model, tb, sd0), copy.deepcopy(model.state_dict())
+        model.remat = False
+        nudge = loss_and_grads(model, nudged(tb, 5), sd0)
+    del model
+    torch.cuda.empty_cache()
+    par = grad_parity(runs[True][0], runs[False][0])
+    wit = grad_parity(runs[False][0], nudge)
+    stats_equal = all(torch.equal(runs[True][1][k], v) for k, v in runs[False][1].items())
+    peak = {"remat": out["train"]["max_memory_allocated_bytes"],
+            "no_remat": results["f32"]["train"]["max_memory_allocated_bytes"]}
+    emit({"phase": "remat", "gpu": gpu, "batch": TRAIN_BATCH, "precision": "f32 (tf32 off)",
+          "step": {k: v for k, v in out["train"].items() if k != "flops_by_op"},
+          "step_no_remat_device_ms": results["f32"]["train"]["device_ms"],
+          "max_memory_allocated_bytes": peak, "parity": par, "nudge": wit,
+          "running_stats_equal": stats_equal, "loss_tol": 1e-6, "ulp_ratio": ULP_RATIO,
+          "launches": lc, "launches_expected": want})
+    if not (par["loss_rel"] < 1e-6 and stats_equal and lc == want
+            and par["grad_rel_max"] <= ULP_RATIO * wit["grad_rel_max"]
+            and peak["remat"] < peak["no_remat"]):
+        raise AssertionError("remat: see its line")
+    del runs, nudge, tb
+
+    # ---- bench_sweep ----
+    out, lc = tool(bench_sweep.main, ["--device", DEVICE, "--batches", SWEEP_BATCHES,
+                                      "--modes", SWEEP_MODES])
+    launches["bench_sweep"] = lc
+    want = per_run(out["forwards"])
+    row = next(r for r in out["rows"]
+               if r["batch"] == SWEEP_CHECK_BATCH and r["mode"] == "f16_merge")
+    bench_ms = benches[SWEEP_CHECK_BATCH]["device_ms"]
+    gap = abs(row["device_ms"] / bench_ms - 1)
+    emit({"phase": "bench_sweep", "gpu": gpu, "rows": out["rows"], "launches": lc,
+          "launches_expected": want, "f16_merge_vs_bench": {
+              "batch": SWEEP_CHECK_BATCH, "sweep_device_ms": row["device_ms"],
+              "bench_device_ms": bench_ms, "gap": gap, "tol": SWEEP_MS_TOL}})
+    if lc != want or gap > SWEEP_MS_TOL:
+        raise AssertionError("bench_sweep: see its line")
+
+    # ---- sol_model: the card's rates, the floors, and each kernel row
+    # against the time phase's bound for the same call ----
+    time_rows = {(k, r["case"]): r for k, rs in rows.items() for r in rs
+                 if r.get("recipe") in ("bf16", None)}
+    sol, sol_launches, forwards = {}, {k: 0 for k in counts()}, 0
+    for b in SOL_BATCHES:
+        argv = ["--device", DEVICE, "--batch", str(b), "--train", "--erp_size",
+                f"{ERP[0]},{ERP[1]}", "--patchsize", str(PATCH)]
+        out, lc = tool(sol_model.main, argv + (["--calibrate"] if b == TRAIN_BATCH else []))
+        sol[b] = out
+        forwards += out["forwards"]
+        sol_launches = {k: sol_launches[k] + lc[k] for k in lc}
+        matched = []
+        for r in out["rows"] + out["train_rows"]:
+            key = sol_time_case(r["kernel"], r["stage"], b)
+            if key in time_rows:
+                ref = time_rows[key]["bound_ms"]
+                matched.append({"stage": r["stage"], "case": key[1], "bound_ms": r["bound_ms"],
+                                "time_row_bound_ms": ref})
+                if abs(r["bound_ms"] / ref - 1) > FLOOR_TOL:
+                    raise AssertionError(f"sol_model b{b} {r['stage']}: {r['bound_ms']} against "
+                                         f"the time row's {ref}")
+        emit({"phase": "sol_model", "gpu": gpu, "batch": b, "model": out["model"],
+              "calibration": out["calibration"], "flops_t": out["flops_t"],
+              "conv_floor_ms": out["conv_floor_ms"], "matmul_floor_ms": out["matmul_floor_ms"],
+              "forward_floor_ms": out["forward_floor_ms"],
+              "train_bound_ms": out["train_bound_ms"], "optimizer_ms": out["optimizer_ms"],
+              "rows": out["rows"], "train_rows": out["train_rows"],
+              "rows_matched_to_time_rows": matched,
+              "measured_forward_device_ms": benches.get(b, {}).get("device_ms"),
+              "measured_bf16_step_device_ms": bf16_step_ms if b == TRAIN_BATCH else None})
+        if len(matched) < 2:
+            raise AssertionError(f"sol_model b{b}: {len(matched)} rows matched a time row")
+    cal = sol[TRAIN_BATCH]["calibration"]
+    if not (cal["matmul_finite"] and cal["stream_gbs"] > 0 and cal["matmul_tflops"] > 0):
+        raise AssertionError(f"sol_model calibration: {cal}")
+    launches["sol_model"] = sol_launches
+    if sol_launches != per_run(forwards):
+        raise AssertionError(f"sol_model launches {sol_launches}, expected {per_run(forwards)}")
+
+    # ---- eval_merge_dtype: the full protocol; the f16 merge's |delta
+    # abs_rel| against the project's 1e-3 bar, reported, not gated ----
+    t0 = time.perf_counter()
+    out, lc = tool(eval_merge_dtype.main, ["--device", DEVICE, "--steps", str(EVAL_MERGE_STEPS)]
+                   + EVAL_MERGE_ARGS)
+    launches["eval_merge_dtype"] = lc
+    n_evals = len(out["report"]) * (1 + len(eval_merge_dtype.CANDIDATES)) * 2  # 2 batches each
+    want = per_run(n_evals, EVAL_MERGE_STEPS)
+    emit({"phase": "eval_merge_dtype", "gpu": gpu, "steps": EVAL_MERGE_STEPS,
+          "seconds": time.perf_counter() - t0, "report": out["report"], "launches": lc,
+          "launches_expected": want})
+    finite = all(np.isfinite(v) for r in out["report"].values() for m in ("f32_merge", "f16_merge")
+                 for v in r[m].values())
+    if lc != want or not finite:
+        raise AssertionError("eval_merge_dtype: see its line")
+
+    # ---- verify_kernels: every check PASS ----
+    zero_counts()
+    lines = run_tool(verify_kernels.main, [])
+    lc = counts()
+    launches["verify_kernels"] = lc
+    out = json.loads(lines[-1])
+    emit({"phase": "verify_kernels", "gpu": gpu, "lines": lines[:-1], "failures": out["failures"],
+          "launches": lc})
+    if out["failures"] or lines[-2] != "ALL PASS" or min(lc.values()) < 1:
+        raise AssertionError("verify_kernels: see its line")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
     from omnifusion_torch import bench
     from omnifusion_torch.cli import infer, train, train_sem
     from omnifusion_torch.models import (
@@ -949,7 +1045,8 @@ def main() -> int:
     from omnifusion_torch.tools import bench_components, bench_kernels, bench_merge, profile_forward
     from omnifusion_torch.training import create_train_state, train_step, train_step_sem
     from omnifusion_torch.utils.profiling import (
-        blend_bound, blend_matrix, bound_ms as bound, gpu_line, nbytes, time_ms, time_ms_flushed,
+        blend_bound, blend_matrix, bound_ms as bound, gpu_line, nbytes, spread_bound, time_ms,
+        time_ms_flushed, up2x_adjoint_bound, up2x_bound,
     )
 
     dev = torch.device(DEVICE)
@@ -1907,6 +2004,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / 5
     step_peak = torch.cuda.max_memory_allocated()
+    bf16_step_ms = ms
     bf16_split = kernel_split_ms(lambda: train_step(state, tb), (
         "quad_blend_kernel", "up2x_kernel", "quad_spread_kernel", "quad_spread_heavy_kernel",
         "up2x_adjoint_kernel"), iters=5)
@@ -2130,11 +2228,7 @@ def main() -> int:
                                       (f"merge_seg_b{TRAIN_BATCH}", cot_seg, t_p2e.vjp, False,
                                        False)):
         out = quad_spread(cot, t, channel_last=cl)
-        n_entries = int((t.w_t.sum(-1) > 0).sum().item()) + t.n_over
-        b_ms, b_by = bound(
-            nbytes(cot, out, t.idx_t, t.w_t, t.over_ptr, t.over_src, t.over_w),
-            8.0 * n_entries * cot.numel() / t.n_out,
-        )
+        b_ms, b_by = spread_bound(cot, t, out)
         wt_csr = spread_matrix(t)
         dense = (cot.permute(1, 0, 2) if cl else cot.permute(2, 0, 1)).reshape(t.n_out, -1).contiguous()
         lib_out = torch.sparse.mm(wt_csr, dense)
@@ -2172,7 +2266,7 @@ def main() -> int:
             if recipe == "bf16" and i > 0:
                 x = x.bfloat16()
             if b == BATCH:
-                b_ms, b_by = bound(5 * nbytes(x), 9.0 * 4 * x.numel())
+                b_ms, b_by = up2x_bound(x)
                 rows["up2x"].append({
                     "case": "x".join(map(str, shape)) + f"_{str(x.dtype)[6:]}",
                     "shape": list(shape), "on_path": recipe is None, "recipe": recipe,
@@ -2186,7 +2280,7 @@ def main() -> int:
                 # the bf16 train step's cotangents are bf16 but the first
                 # stage's (recipe "bf16")
                 gy = torch.rand(b * p, c, 2 * s, 2 * s, device=dev, generator=g).to(x.dtype)
-                b_ms, b_by = bound(nbytes(gy) + nbytes(x), 15.0 * x.numel())
+                b_ms, b_by = up2x_adjoint_bound(x)
                 size = [b * p, c, s, s]
                 rows["up2x_adjoint"].append({
                     "case": "x".join(map(str, shape)) + ("_bf16" if x.dtype != torch.float32 else ""),
@@ -2393,6 +2487,8 @@ def main() -> int:
                   **{k: v for k, v in res.items() if k != "trace"}})
 
     multi_launches = multi_device_phases(gpu, f64_witness)
+    tool_launches = measurement_tool_phases(gpu, rows, benches, step_times["f32"]["device_ms"],
+                                            bf16_step_ms)
 
     # launches: the training run's count (its steps and validation
     # forwards), and per forward or step; the times: per forward at batch 2
@@ -2485,6 +2581,13 @@ def main() -> int:
             "launches_mesh1": multi_launches["mesh1"][name],
             "launches_mesh1_of": f"cli.train --mesh 1: {TRAIN_STEPS} steps at batch "
                                  f"{TRAIN_BATCH}, {val_forwards} validation forwards",
+            **{f"launches_{k}": v[name] for k, v in tool_launches.items()},
+            "launches_tools_of": "each tool's run in this process (bench_train: f32, tf32, "
+                                 "bf16 and iterative_f32, the forwards and steps its JSON "
+                                 "line counts; remat: bench_train --remat --skip_fwd; "
+                                 f"bench_sweep --batches {SWEEP_BATCHES} --modes {SWEEP_MODES}; "
+                                 f"sol_model at batches {list(SOL_BATCHES)}; eval_merge_dtype "
+                                 f"--steps {EVAL_MERGE_STEPS}; verify_kernels)",
         })
     kernels.append({
         "name": "probe", "route": "cuda", "source": "omnifusion_torch/csrc/probe.cu",
@@ -2493,6 +2596,7 @@ def main() -> int:
         **{k: probe_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
         "ms_per": "call on (256, 128) f32", "library": "torch.mul(x, 2)",
+        "launches_verify_kernels": tool_launches["verify_kernels"]["probe"],
     })
     emit({"kernels": kernels})
     print(gpu, flush=True)

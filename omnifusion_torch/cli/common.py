@@ -6,15 +6,17 @@ translate 1:1, and --patchsize is a proper "H,W" or "N" parser.
 
 Left out, because they select XLA or TPU machinery the port does not have:
 ``--kernel_impl`` and ``--resize_impl`` (the port has one implementation of
-each: its CUDA kernels, and their plain versions on the CPU) and
-``--remat`` (XLA rematerialization). The port adds ``--device`` (default:
-the CUDA card; ``device.resolve_device``).
+each: its CUDA kernels, and their plain versions on the CPU). ``--remat``
+rematerializes the encoder with ``torch.utils.checkpoint`` (``DepthTrunk``).
+The port adds ``--device`` (default: the CUDA card;
+``device.resolve_device``).
 
 ``--mesh`` (default ``auto``) puts the batch on ranks, one process per
 card (``omnifusion_torch/parallel``), with the JAX package's rules
 (``build_mesh``): ``auto`` takes every card, shrunk to the largest count
-that divides ``--batch``; ``DATA`` takes that many; ``none``, or one card,
-runs in one process. The model axis (``DATA,MODEL`` with MODEL > 1) is not
+that divides ``--batch``; ``DATA`` takes that many, and where DATA does not
+divide a batch every rank runs that batch whole (``cli/train.py`` alone
+refuses such a ``--batch``); ``none``, or one card, runs in one process. The model axis (``DATA,MODEL`` with MODEL > 1) is not
 ported and refuses. ``run_on_mesh`` runs an entry point's body on the
 mesh: under torchrun in the ranks it started, with ``--mesh 1`` in this
 process (a process group of one), else in ``DATA`` spawned processes, rank
@@ -94,6 +96,9 @@ def add_common_args(parser: argparse.ArgumentParser, train: bool) -> argparse.Ar
                         help="precision of the confidence merge's source")
     parser.add_argument("--no_transformer", action="store_true",
                         help="legacy variant without global patch fusion (network_360d.py)")
+    parser.add_argument("--remat", action="store_true",
+                        help="rematerialize the encoder: its activations are computed again "
+                        "in the backward, trading FLOPs for memory")
     parser.add_argument("--device", default=None, help="default: the CUDA card")
     parser.add_argument(
         "--mesh",
@@ -165,10 +170,15 @@ def _rank_device(device: Optional[str], local_rank: int) -> str:
     return "cpu" if on_cpu else f"cuda:{local_rank}"
 
 
-def run_on_mesh(body, args):
+def run_on_mesh(body, args, divisible: bool = False):
     """``body(args)`` on the mesh of ``--mesh``; returns rank 0's result.
-    ``body`` is a module-level function (the spawned ranks import it)."""
+    ``body`` is a module-level function (the spawned ranks import it).
+    ``divisible``: refuse a data axis that does not divide ``--batch`` (the
+    train entry point's rule, omnifusion_tpu/cli/train.py:101-103); the
+    other entry points give every rank such a batch whole."""
     mesh = build_mesh(args)
+    if divisible and mesh is not None and args.batch % mesh.data:
+        raise SystemExit(f"--batch {args.batch} not divisible by data axis {mesh.data}")
     if mesh is None or parallel.is_distributed():
         return body(args)
     print(f"## mesh: {mesh.shape}")
@@ -197,6 +207,7 @@ def build_model(args, device=None):
         merge_dtype=MERGE_DTYPES[args.merge_dtype],
         use_transformer=not args.no_transformer,
         device=device,
+        remat=args.remat,
     )
     if args.model == "iterative":
         return SphericalFusionIterative(spec, num_iters=args.iters, **kw)

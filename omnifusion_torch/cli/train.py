@@ -110,8 +110,9 @@ def log_images(writer, batch: dict, pred: torch.Tensor, epoch: int) -> None:
 def run_training(args) -> dict:
     """Train as the flags say, on the mesh of ``--mesh``; returns the
     history (rank 0's): per-epoch mean train loss, the validation metrics,
-    the best abs_rel and the update count."""
-    return run_on_mesh(_train, args)
+    the best abs_rel and the update count. A data axis that does not divide
+    ``--batch`` refuses."""
+    return run_on_mesh(_train, args, divisible=True)
 
 
 def _train(args) -> dict:

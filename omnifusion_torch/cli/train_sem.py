@@ -79,7 +79,7 @@ def _train_sem(args) -> dict:
     spec = ProjectionSpec.create(args.erp_size, args.patchsize, (args.fov, args.fov), args.nrows)
     model = init_weights(SphericalFusionSeg(
         spec, num_classes=args.num_classes, use_transformer=not args.no_transformer,
-        dtype=torch.bfloat16 if args.bf16 else None, device=device,
+        dtype=torch.bfloat16 if args.bf16 else None, device=device, remat=args.remat,
     ), args.seed)
 
     if args.dataset == "synthetic":

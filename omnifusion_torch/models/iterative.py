@@ -42,8 +42,9 @@ from omnifusion_torch.projection.spec import (
 class SphericalFusionIterative(DepthTrunk):
     """ERP (B, H, W, 3) -> list of ``num_iters`` depth maps (B, H, W, 1) f32.
 
-    ``dtype``, ``merge_dtype``, ``use_transformer``, ``device`` and
-    ``encoder_stages`` as in ``SphericalFusion``. Parameters start from PyTorch's default init: load
+    ``dtype``, ``merge_dtype``, ``use_transformer``, ``device``,
+    ``encoder_stages`` and ``remat`` (each pass's encoder) as in
+    ``SphericalFusion``. Parameters start from PyTorch's default init: load
     a state dict, or call ``init_weights`` for seeded ones."""
 
     DOWN = "down1"
@@ -62,6 +63,7 @@ class SphericalFusionIterative(DepthTrunk):
         merge_dtype: Optional[torch.dtype] = None,
         use_transformer: bool = True,
         device=None,
+        remat: bool = False,
     ):
         if num_iters < 1:
             raise ValueError(f"num_iters must be at least 1, got {num_iters}")
@@ -69,6 +71,7 @@ class SphericalFusionIterative(DepthTrunk):
         super().__init__(
             (spec.patch_h, spec.patch_w), spec.n_patches, depth, num_heads,
             encoder_stages, dtype=dtype, use_transformer=use_transformer, device=device,
+            remat=remat,
         )
         self.spec = spec
         self.spec_q = spec.with_patch_scale(4)

@@ -36,7 +36,7 @@ class SphericalFusionSeg(DepthTrunk):
     ``dtype``: the trunk's compute dtype (None: f32; ``torch.bfloat16``: a
     bf16 trunk on f32 parameters, as in ``SphericalFusion``); the logits
     are cast to f32 before the merge, so the merge is f32 either way.
-    ``device``: where the parameters live; None means the CUDA card, and
+    ``remat``: as in ``SphericalFusion``. ``device``: where the parameters live; None means the CUDA card, and
     raises when there is none. Parameters start from PyTorch's default
     init: load a state dict, or call ``init_weights`` for seeded ones."""
 
@@ -52,12 +52,13 @@ class SphericalFusionSeg(DepthTrunk):
         dtype: Optional[torch.dtype] = None,
         device=None,
         encoder_stages: Optional[Sequence[tuple[int, int, int]]] = None,
+        remat: bool = False,
     ):
         device = resolve_device(device)
         super().__init__(
             (spec.patch_h, spec.patch_w), spec.n_patches, depth, num_heads,
             encoder_stages, dtype=dtype, use_transformer=use_transformer, device=device,
-            pred_channels=num_classes, pred_activation="none",
+            pred_channels=num_classes, pred_activation="none", remat=remat,
         )
         self.spec = spec
         self.num_classes = num_classes

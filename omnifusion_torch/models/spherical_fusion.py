@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from omnifusion_torch.device import resolve_device
 from omnifusion_torch.models.layers import (
@@ -44,6 +45,7 @@ from omnifusion_torch.models.layers import (
 )
 from omnifusion_torch.models.resnet import RESNET34_STAGES, ResNet34Encoder
 from omnifusion_torch.models.transformer import TransformerCascade
+from omnifusion_torch.parallel.sync_bn import remat_contexts
 from omnifusion_torch.projection.ops import equi2pers, pers2equi_cf
 from omnifusion_torch.projection.spec import (
     Pers2EquiGrids,
@@ -80,7 +82,13 @@ class DepthTrunk(ResNet34Encoder):
     (segmentation logits). The token projection sits at ``DOWN``, the
     upstream checkpoint's name for it. ``use_transformer=False``: no global
     fusion (no token projection, transformer or up_proj); layer4 goes
-    straight to the decoder.
+    straight to the decoder. ``remat``: rematerialize the encoder
+    (``--remat``): in a forward that records gradients its activations are
+    not kept but computed again in the backward, its BatchNorms normalizing
+    as in the forward and updating their running statistics once
+    (``parallel.remat_contexts``), as the JAX package's
+    ``nn.remat(ResNet34Encoder)`` (spherical_fusion.py:115) trades FLOPs for
+    memory.
     """
 
     DOWN = "down"
@@ -97,6 +105,7 @@ class DepthTrunk(ResNet34Encoder):
         device=None,
         pred_channels: int = 1,
         pred_activation: str = "relu",
+        remat: bool = False,
     ):
         if pred_activation not in ("relu", "none"):
             raise ValueError(f"pred_activation must be 'relu' or 'none', got {pred_activation!r}")
@@ -104,6 +113,7 @@ class DepthTrunk(ResNet34Encoder):
         super().__init__(stages, dtype=dtype, device=device)
         self.dtype = dtype
         self.use_transformer = use_transformer
+        self.remat = remat
         self.pred_channels = pred_channels
         self.pred_activation = pred_activation
         c1, c2, c3, c4 = (s[0] for s in stages)
@@ -157,7 +167,14 @@ class DepthTrunk(ResNet34Encoder):
         pf = point_feat
         if pf.shape[0] != bp:  # one per patch, shared by the batch
             pf = pf.expand(b, *pf.shape).reshape(bp, *pf.shape[1:])
-        feats = self.encode(x, pf.to(x.dtype))
+        pf = pf.to(x.dtype)
+        if self.remat and torch.is_grad_enabled():
+            # the encoder draws no random numbers: no RNG state to keep
+            encoder = [self.bn1] + [getattr(self, f"layer{i}") for i in range(1, len(self.stages) + 1)]
+            feats = checkpoint(self.encode, x, pf, use_reentrant=False, preserve_rng_state=False,
+                               context_fn=lambda: remat_contexts(encoder))
+        else:
+            feats = self.encode(x, pf)
         conv1, l1, l2, l3, l4 = (
             feats[k] for k in ("conv1", "layer1", "layer2", "layer3", "layer4")
         )
@@ -230,8 +247,9 @@ class SphericalFusion(DepthTrunk):
 
     ``dtype``: the trunk's compute dtype (None: f32; ``torch.bfloat16``:
     the serving recipe, see the module's docstring). ``merge_dtype``: the
-    merge blend's source precision (None: f32). ``use_transformer``: as in
-    ``DepthTrunk`` (``--no_transformer``). ``device``: where the
+    merge blend's source precision (None: f32). ``use_transformer`` and
+    ``remat``: as in ``DepthTrunk`` (``--no_transformer``, ``--remat``).
+    ``device``: where the
     parameters live; None means the CUDA card, and raises when there is
     none. Parameters start from PyTorch's default init: load a state dict,
     or call ``init_weights`` for seeded ones."""
@@ -251,11 +269,13 @@ class SphericalFusion(DepthTrunk):
         merge_dtype: Optional[torch.dtype] = None,
         use_transformer: bool = True,
         device=None,
+        remat: bool = False,
     ):
         device = resolve_device(device)
         super().__init__(
             (spec.patch_h, spec.patch_w), spec.n_patches, depth, num_heads,
             encoder_stages, dtype=dtype, use_transformer=use_transformer, device=device,
+            remat=remat,
         )
         self.spec = spec
         self.merge_dtype = merge_dtype

@@ -48,9 +48,11 @@ def parse_mesh(spec: Optional[str], batch: int, n_cards: int,
 
     ``none``, or ``auto`` on one device: None. ``auto`` on several: the data
     axis is the largest divisor of ``batch`` that is at most ``n_cards``
-    (None when that is 1). ``DATA[,MODEL]``: those counts. A bad spec, a
-    model axis above 1 (not ported), more devices than ``n_cards`` and a
-    batch that the data axis does not divide raise SystemExit."""
+    (None when that is 1). ``DATA[,MODEL]``: those counts, also where DATA
+    does not divide ``batch``: the loader then gives every rank each batch
+    whole (data/loader.py), and only the train entry point refuses
+    (cli/train.py), as in the JAX package. A bad spec, a model axis above 1
+    (not ported) and more devices than ``n_cards`` raise SystemExit."""
     spec = spec or "auto"
     if spec == "none" or (spec == "auto" and n_cards == 1):
         return None
@@ -77,8 +79,6 @@ def parse_mesh(spec: Optional[str], batch: int, n_cards: int,
     if n_data > n_cards:
         raise SystemExit(f"--mesh {spec!r} needs {n_data} devices but only {n_cards} are "
                          f"available (platform={platform!r})")
-    if batch % n_data != 0:
-        raise SystemExit(f"--batch {batch} not divisible by data axis {n_data}")
     return Mesh(n_data)
 
 

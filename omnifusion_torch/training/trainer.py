@@ -24,6 +24,7 @@ scaling is over the sharded batch.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -35,6 +36,7 @@ from omnifusion_torch.losses.direct import berhu_loss
 from omnifusion_torch.models.segmentation import cross_entropy_ignore
 from omnifusion_torch.parallel.ddp import unwrap
 from omnifusion_torch.parallel.mesh import all_gather_cat, mean_over_ranks
+from omnifusion_torch.parallel.sync_bn import replicated_batch
 from omnifusion_torch.training.schedule import cosine_warm_restarts
 
 
@@ -152,9 +154,14 @@ def seg_forward_loss(model: nn.Module, batch: dict) -> tuple[torch.Tensor, torch
 
 def train_step_sem(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
     """One update of a segmentation model; returns loss and grad_norm as
-    0-d tensors on the model's device."""
+    0-d tensors on the model's device. A ``Batch`` that this rank holds
+    whole (``sharded`` false: one the ranks cannot split, which each runs
+    whole, as the JAX mesh replicates it) keeps its global BatchNorms on
+    this process's statistics and count (parallel.replicated_batch)."""
     state.optimizer.zero_grad(set_to_none=True)
-    loss, _ = seg_forward_loss(state.model, batch)
+    whole = not getattr(batch, "sharded", True)
+    with replicated_batch(unwrap(state.model)) if whole else contextlib.nullcontext():
+        loss, _ = seg_forward_loss(state.model, batch)
     grad_norm = _update(state, loss)
     return {"loss": mean_over_ranks(loss.detach()), "grad_norm": grad_norm}
 

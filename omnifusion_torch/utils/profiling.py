@@ -9,11 +9,30 @@ The port's counterpart of ``omnifusion_tpu/utils/profiling.py``:
 - ``time_ms``: milliseconds per call of a callable: device time from CUDA
   events on a CUDA device (the launches queued behind a device-side sleep),
   host time on the CPU; ``time_ms_flushed``: the same with the L2 cache
-  flushed before each call.
+  flushed before each call; ``device_and_wall_ms``: device and wall time
+  of the same calls, as the tools report them.
 - ``bound_ms``: the least time an H100 SXM could take for given bytes and
-  operations; ``blend_bound``: that bound for one ``quad_blend`` call.
+  operations; ``blend_bound``, ``spread_bound``, ``up2x_bound`` and
+  ``up2x_adjoint_bound``: that bound for one call of each kernel.
+- ``count_flops``, ``PEAK_FLOPS`` and ``mfu``: the model FLOPs of a call
+  and their share of the card's peak (below).
 - ``blend_matrix``: the blend's sparse map as a CSR matrix, for the library
   yardstick ``torch.sparse.mm`` (``sparse_csr`` builds one from COO parts).
+
+FLOPs and MFU. The port's FLOPs are counted from shapes by
+``torch.utils.flop_counter.FlopCounterMode``: convolutions (2 |out| kh kw
+cin), ``mm``, ``addmm``, ``bmm`` and attention, over a forward, or over the
+forward and backward of a train step (whose convolution backward counts
+the data and weight gradients it computes). Elementwise work (BatchNorm,
+ReLU, the blends, the upsamples, the optimizer) counts 0. The forward's
+count equals the JAX model's convolutions and matmuls captured under
+``jax.eval_shape`` (2 |out| kh kw cin, ``resize_impl="pallas"``;
+tests/test_torch_port_measure.py), while XLA's ``cost_analysis`` counts
+about 18% fewer on the same forward, so an MFU of the JAX tools and one of
+the port are two different quantities. ``mfu`` is FLOPs over time against
+the dense peak of the precision the work runs in (``PEAK_FLOPS``: f32 on
+the CUDA cores, TF32 and bf16 on the tensor cores), with no allowance for
+the elementwise work.
 """
 
 from __future__ import annotations
@@ -29,7 +48,10 @@ import torch
 from omnifusion_torch.ops.quad_blend import BlendTables
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+# H100 SXM5 dense peaks by precision, NVIDIA data sheet: f32 outside the
+# tensor cores, TF32 and bf16 on them (no sparsity)
+PEAK_FLOPS = {"f32": 66.9e12, "tf32": 494.7e12, "bf16": 989.4e12}
+F32_FLOPS = PEAK_FLOPS["f32"]
 WINDOW_HOST_MS = 1.0  # time_ms: host time of the calls between two events
 L2_BYTES = 50 * 2**20  # H100 SXM
 
@@ -118,6 +140,24 @@ def time_ms(fn, device: torch.device, iters: int = 10, warmup: int = 2) -> float
     return total / iters
 
 
+def device_and_wall_ms(fn, device: torch.device, iters: int) -> dict:
+    """A call of ``fn()`` timed twice: ``device_ms`` per call (``time_ms``
+    after one warm call; None on the CPU), then ``wall_ms`` per call of
+    ``iters`` more calls on the host's clock, ended by a synchronize;
+    ``last`` is the last call's result."""
+    on_card = device.type == "cuda"
+    device_ms = time_ms(fn, device, iters, warmup=1) if on_card else None
+    if not on_card:
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn()
+    if on_card:
+        torch.cuda.synchronize(device)
+    return {"device_ms": device_ms, "wall_ms": (time.perf_counter() - t0) * 1e3 / iters,
+            "last": out}
+
+
 def time_ms_flushed(fn, device: torch.device, iters: int = 10, warmup: int = 2) -> float:
     """Milliseconds per call of ``fn()`` as a caller finds it whose inputs
     are not in the L2 cache: before each call the device reads 2 x L2_BYTES
@@ -167,6 +207,32 @@ def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def count_flops(fn) -> dict:
+    """The FLOPs of one call of ``fn()``, counted from shapes (the module's
+    docstring): {"total": int, "by_op": {aten op name: int}}."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    mode = FlopCounterMode(display=False)
+    with mode:
+        fn()
+    by_op = {str(op): int(n) for op, n in mode.get_flop_counts().get("Global", {}).items()}
+    return {"total": int(mode.get_total_flops()), "by_op": by_op}
+
+
+def trunk_precision(dtype=None) -> str:
+    """The ``PEAK_FLOPS`` key of a trunk computing in ``dtype`` (None: f32,
+    whose convolutions run in TF32 when cuDNN is allowed to)."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return "bf16"
+    return "tf32" if torch.backends.cudnn.allow_tf32 else "f32"
+
+
+def mfu(flops: float, ms: float, precision: str) -> float:
+    """The share of the card's dense peak in ``precision`` that ``flops``
+    in ``ms`` milliseconds make."""
+    return flops / (ms / 1e3) / PEAK_FLOPS[precision]
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -183,17 +249,60 @@ def source_pixels(tables: BlendTables) -> int:
     return int(torch.unique(torch.cat(parts)).numel())
 
 
-def blend_bound(x: torch.Tensor, tables: BlendTables, out: torch.Tensor) -> tuple[float, str]:
-    """``bound_ms`` of one ``quad_blend`` call: the source pixels the tables
-    read (``source_pixels``), the output and the tables read or written
-    once; 8 operations per quad (4 multiply-adds) per source row."""
+def blend_work(x: torch.Tensor, tables: BlendTables, out: torch.Tensor) -> tuple[int, float]:
+    """(bytes, operations) of one ``quad_blend`` call: the source pixels the
+    tables read (``source_pixels``), the output and the tables read or
+    written once; 8 operations per quad (4 multiply-adds) per source row.
+    ``x`` and ``out`` may be meta tensors: only their shapes and dtypes
+    count."""
     n_quads = int((tables.w4.sum(-1) > 0).sum().item()) + tables.n_tail
     src_bytes = x.numel() // tables.n_in * source_pixels(tables) * x.element_size()
-    return bound_ms(
-        src_bytes + nbytes(out, tables.idx, tables.w4, tables.tail_ptr, tables.tail_idx,
-                           tables.tail_w),
-        8.0 * n_quads * x.numel() / tables.n_in,
-    )
+    return (src_bytes + nbytes(out, tables.idx, tables.w4, tables.tail_ptr, tables.tail_idx,
+                               tables.tail_w),
+            8.0 * n_quads * x.numel() / tables.n_in)
+
+
+def spread_work(cot: torch.Tensor, tables, out: torch.Tensor) -> tuple[int, float]:
+    """(bytes, operations) of one ``quad_spread`` call on transposed
+    ``tables``: the cotangent, the result and the tables read or written
+    once; 8 operations per weighted quad per row."""
+    t = tables
+    n_entries = int((t.w_t.sum(-1) > 0).sum().item()) + t.n_over
+    return (nbytes(cot, out, t.idx_t, t.w_t, t.over_ptr, t.over_src, t.over_w),
+            8.0 * n_entries * cot.numel() / t.n_out)
+
+
+def up2x_work(x: torch.Tensor) -> tuple[int, float]:
+    """(bytes, operations) of one ``up2x`` call on ``x``: ``x`` read and its
+    four times larger output written once; 9 operations per output."""
+    return 5 * nbytes(x), 9.0 * 4 * x.numel()
+
+
+def up2x_adjoint_work(x: torch.Tensor) -> tuple[int, float]:
+    """(bytes, operations) of one ``up2x_adjoint`` call whose result has
+    ``x``'s shape and dtype: the four times larger cotangent read and the
+    result written once; 15 operations per result."""
+    return 5 * nbytes(x), 15.0 * x.numel()
+
+
+def blend_bound(x: torch.Tensor, tables: BlendTables, out: torch.Tensor) -> tuple[float, str]:
+    """``bound_ms`` of one ``quad_blend`` call (``blend_work``)."""
+    return bound_ms(*blend_work(x, tables, out))
+
+
+def spread_bound(cot: torch.Tensor, tables, out: torch.Tensor) -> tuple[float, str]:
+    """``bound_ms`` of one ``quad_spread`` call (``spread_work``)."""
+    return bound_ms(*spread_work(cot, tables, out))
+
+
+def up2x_bound(x: torch.Tensor) -> tuple[float, str]:
+    """``bound_ms`` of one ``up2x`` call (``up2x_work``)."""
+    return bound_ms(*up2x_work(x))
+
+
+def up2x_adjoint_bound(x: torch.Tensor) -> tuple[float, str]:
+    """``bound_ms`` of one ``up2x_adjoint`` call (``up2x_adjoint_work``)."""
+    return bound_ms(*up2x_adjoint_work(x))
 
 
 def sparse_csr(rows, cols, vals, shape) -> torch.Tensor:

@@ -15,8 +15,14 @@ the JAX train step on a data=2 mesh. The parametrized tests then read both.
   at the bounds of tests/test_torch_port_train.py::test_train_step_matches_jax;
 - (e) the iterative and segmentation steps against one process, float64;
 - (f) cli.test with --mesh 2 against the run without it;
-- (g) --mesh's rules and messages against the JAX build_mesh;
-- (h) checkpoints across the mesh, both ways.
+- (g) --mesh's rules and messages against the JAX build_mesh, and the
+  train entry point's refusal of a batch the data axis does not divide;
+- (h) checkpoints across the mesh, both ways;
+- (i) a data axis that does not divide the batch (three more ranks, spawned
+  by a second fixture): cli.test with --mesh 3 --batch 8 against the run
+  without it, the segmentation step on a batch every rank holds whole
+  against one process in float64 (its global BatchNorms keep the local
+  count), the cross-entropy of such a batch, and cli.train_sem.
 """
 
 import argparse
@@ -281,16 +287,28 @@ def test_parse_mesh_follows_jax_build_mesh(capsys, spec, batch):
     if jkind == "ok" and jval is not None and dict(jval.shape)["model"] > 1:
         # the model axis is not ported: it refuses, and never becomes data ranks
         assert kind == "exit" and "patch axis is not ported yet (see ROADMAP)" in val
-    elif jkind == "ok" and jval is not None and batch % dict(jval.shape)["data"]:
-        # the JAX train entry point's refusal (omnifusion_tpu/cli/train.py:101-103)
-        assert (kind, val) == ("exit", f"--batch {batch} not divisible by data axis "
-                                       f"{dict(jval.shape)['data']}")
     elif jkind == "ok":
+        # a data axis that does not divide the batch too ("3", 8): the JAX
+        # build_mesh returns it, and only the train entry point refuses
+        # (test_train_cli_alone_refuses_a_batch_the_data_axis_does_not_divide)
         assert kind == "ok"
         assert (val.shape if val is not None else None) == (
             dict(jval.shape) if jval is not None else None)
     else:
         assert (kind, val) == (jkind, jval)
+
+
+@pytest.mark.parametrize("cli", ["train", "train_sem", "test", "infer"])
+def test_train_cli_alone_refuses_a_batch_the_data_axis_does_not_divide(cli):
+    # omnifusion_tpu/cli/train.py:101-103 refuses; cli/test.py:88,
+    # cli/infer.py:115 and cli/train_sem.py:106 replicate such a batch
+    args = R.cli_args(["--mesh", "3", "--batch", "8"], train=cli.startswith("train"))
+    if cli == "train":
+        with pytest.raises(SystemExit) as e:
+            train_cli.run_training(args)
+        assert str(e.value) == "--batch 8 not divisible by data axis 3"
+    else:
+        assert common.build_mesh(args).shape == {"data": 3, "model": 1}
 
 
 @pytest.mark.parametrize("spec", ["2", "1,2"])
@@ -359,3 +377,105 @@ def test_infer_cli_spawns_its_ranks(tmp_path):
     assert [p.replace("/two/", "/one/") for p in two] == one
     for a, b in zip(one, two):
         np.testing.assert_allclose(np.load(b), np.load(a), rtol=1e-5, atol=1e-6)
+
+
+# ---- (i) ----
+
+
+@pytest.fixture(scope="module")
+def replicated(tmp_path_factory):
+    """REPLICATED_RANKS ranks' results, and this process's references (one
+    thread, as each rank runs)."""
+    work = tmp_path_factory.mktemp("replicated")
+    init = {"seg": init_weights(R.build("seg"), 6).state_dict()}
+    torch.save(init, work / "init.pt")
+    # cli.test's weights: the seeded full-depth model, heads tamed
+    model = init_weights(common.build_model(R.cli_args([]), device="cpu"), 0)
+    torch.save(_tame(model.state_dict()), work / "tamed.pt")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(spawn, R.run_replicated, R.REPLICATED_RANKS, (str(work),),
+                            lambda r: "cpu", "gloo", SPAWN_TIMEOUT_S)
+        saved = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            ref = {"eval": R.replicated_eval(str(work), "none"),
+                   "seg_f64": R.step("seg", init["seg"], R.seg_batch(1, b=3)),
+                   # one rank of the same path (DDP, the global BatchNorms)
+                   "train_sem": R.replicated_train_sem(str(work / "sem_ref"), "1")}
+        finally:
+            torch.set_num_threads(saved)
+        ranks = ranks.result()
+    x, args = R.loss_inputs("cross_entropy")
+    ref["cross_entropy"] = cross_entropy_ignore(x, **args).item()
+    return ranks, ref
+
+
+def test_eval_on_a_data_axis_that_does_not_divide_the_batch(replicated):
+    ranks, ref = replicated
+    want = ref["eval"]
+    assert [s for _, s in want["preds"]] == [False, False]
+    assert 0 < want["avg"]["d1"] < 1  # tamed heads: live depth
+    for rank, r in enumerate(ranks):
+        e = r["eval"]
+        assert set(e["avg"]) == set(want["avg"]) and len(want["avg"]) == 7
+        for k, v in want["avg"].items():
+            assert abs(e["avg"][k] - v) <= 1e-6 * max(1.0, abs(v)), (k, e["avg"][k], v)
+        # the batch of 8 runs whole on every rank, the batch of 3 is split
+        (whole, sharded_whole), (part, sharded_part) = e["preds"]
+        assert (sharded_whole, sharded_part) == (False, True)
+        assert torch.equal(whole, want["preds"][0][0])  # bit for bit
+        torch.testing.assert_close(part, want["preds"][1][0][rank : rank + 1],
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("what", ["loss", "grads", "stats", "num_batches_tracked"])
+def test_seg_step_on_a_batch_every_rank_holds_whole_matches_one_process_f64(replicated, what):
+    ranks, ref = replicated
+    want = ref["seg_f64"]
+    for r in ranks:
+        got = r["seg_whole"]
+        assert "GlobalBatchNorm2d" in got["global_norms"]
+        if what == "loss":
+            assert abs(got["loss"] / want["loss"] - 1) < 1e-10
+            assert abs(got["grad_norm"] / want["grad_norm"] - 1) < 1e-8
+        elif what == "grads":
+            rels = {n: _rel(g, want["grads"][n]) for n, g in got["grads"].items()
+                    if want["grads"][n].norm() > 0}
+            assert set(got["grads"]) == set(want["grads"])
+            assert max(rels.values()) < 1e-8, sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+        elif what == "stats":
+            keys = [k for k in want["state"] if k.endswith(("running_mean", "running_var"))]
+            for k in keys:
+                err = float((got["state"][k] - want["state"][k]).abs().max())
+                assert err < 1e-10, (k, err)
+            # the witness: taken for a shard of a global batch of 9, the
+            # running variance is unbiased with 3 times the count
+            shard = r["seg_as_shard"]["state"]
+            assert max(float((shard[k] - want["state"][k]).abs().max())
+                       for k in keys if k.endswith("running_var")) > 1e-6
+        else:
+            for k, v in want["state"].items():
+                if k.endswith("num_batches_tracked"):
+                    assert int(got["state"][k]) == int(v) == 1, k
+
+
+def test_cross_entropy_of_a_batch_every_rank_holds_whole_is_its_mean(replicated):
+    # world * sum / (world * count): the local mean, whose gradient DDP
+    # then averages over equal copies
+    ranks, ref = replicated
+    for r in ranks:
+        assert abs(r["cross_entropy"] / ref["cross_entropy"] - 1) < 1e-12
+
+
+def test_train_sem_on_a_data_axis_that_does_not_divide_the_batch(replicated):
+    # every batch runs whole on every rank: the epoch's loss and the
+    # validation mIoU (its confusion counts taken once) are those of one
+    # rank (--mesh 1), whose BatchNorms run the same code; against
+    # nn.BatchNorm2d (no mesh), whose f32 sums round otherwise, AdamW's
+    # near-sign first updates move the epoch's loss by 2e-4
+    ranks, ref = replicated
+    want = ref["train_sem"]
+    for r in ranks:
+        got = r["train_sem"]
+        assert abs(got["train_loss"][0] / want["train_loss"][0] - 1) < 1e-5
+        assert abs(got["miou"][0] - want["miou"][0]) < 1e-3, (got["miou"], want["miou"])

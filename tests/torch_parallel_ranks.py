@@ -19,6 +19,7 @@ import torch
 
 from omnifusion_torch import parallel
 from omnifusion_torch.data import DataLoader
+from omnifusion_torch.data.loader import Batch
 from omnifusion_torch.losses import berhu_loss
 from omnifusion_torch.models import (
     SphericalFusion,
@@ -73,11 +74,14 @@ def build(kind: str, device="cpu") -> torch.nn.Module:
 
 
 def step(kind: str, state_dict: dict, batch: dict, dtype=torch.float64, device="cpu",
-         confidence: bool = True) -> dict:
+         confidence: bool = True, whole: bool = False) -> dict:
     """One train step of ``kind`` from ``state_dict`` on ``batch`` (numpy,
     this process's part): in DDP when a group is up, else in one process.
-    Returns the reported loss and grad norm, the averaged gradients, and
-    the parameters and BatchNorm statistics after the step, on the CPU."""
+    ``whole``: the batch is a ``Batch`` that every rank holds whole
+    (``sharded`` false), as the loader gives a batch the ranks cannot
+    split. Returns the reported loss and grad norm, the averaged gradients,
+    and the parameters and BatchNorm statistics after the step, on the
+    CPU."""
     model = build(kind, device).to(dtype)
     model.load_state_dict(state_dict, strict=True)
     state = create_train_state(model, LR, WD, T0, T_MULT, STEPS_PER_EPOCH)
@@ -85,6 +89,8 @@ def step(kind: str, state_dict: dict, batch: dict, dtype=torch.float64, device="
         state.model = parallel.wrap(model, device)
     tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     tb = {k: v.to(dtype) if v.is_floating_point() else v for k, v in tb.items()}
+    if whole:
+        tb = Batch(tb, sharded=False)
     if kind == "seg":
         m = train_step_sem(state, tb)
     else:
@@ -320,6 +326,67 @@ def run_all(workdir: str) -> dict:
     out["seg_f64"] = step("seg", init["seg"], shard(seg_batch(1), rank, world))
     out["eval"] = eval_check(os.path.join(workdir, f"eval_{rank}"))
     out["checkpoint"] = checkpoint_check(workdir)
+    return out
+
+
+REPLICATED_RANKS, REPLICATED_BATCH = 3, 8  # a batch the data axis does not divide
+
+
+def replicated_eval(workdir: str, mesh: str) -> dict:
+    """cli.test's run_eval over 11 synthetic panoramas at batch 8 with
+    ``--mesh`` (under 3 ranks: a batch of 8 that every rank runs whole, then
+    one of 3 split over them), from ``workdir/tamed.pt``: the metrics, and
+    the depth of each batch that this process ran."""
+    import omnifusion_torch.training as training
+    from omnifusion_torch.cli import test as test_cli
+
+    preds, real = [], training.eval_step
+
+    def eval_step(model, batch, confidence=True):
+        out = real(model, batch, confidence)
+        preds.append((out[2][..., 0].clone(), batch.sharded))
+        return out
+
+    training.eval_step = eval_step  # run_eval imports it at the call
+    try:
+        avg = test_cli.run_eval(cli_args(
+            ["--synthetic_size", "11", "--batch", str(REPLICATED_BATCH), "--mesh", mesh,
+             "--checkpoint", os.path.join(workdir, "tamed.pt"), "--visualize_interval", "0",
+             "--save_path", os.path.join(workdir, f"eval_{mesh}_{parallel.rank()}")]))
+    finally:
+        training.eval_step = real
+    return {"avg": avg, "preds": preds}
+
+
+def replicated_train_sem(save_path: str, mesh: str) -> dict:
+    """One epoch of cli.train_sem at batch 4 with ``--mesh`` (under 3 ranks
+    every batch of its 32 training and 8 validation panoramas runs whole on
+    each rank): the history."""
+    from omnifusion_torch.cli import train_sem
+
+    args = train_sem.build_parser().parse_args(
+        ["--dataset", "synthetic", "--device", "cpu", "--erp_size", "64,128", "--patchsize",
+         "32", "--seed", "0", "--batch", "4", "--epochs", "1", "--workers", "1",
+         "--num_classes", str(SEG_CLASSES), "--mesh", mesh, "--save_path", save_path])
+    return train_sem.run_training_sem(args)
+
+
+def run_replicated(workdir: str) -> dict:
+    """The checks of a data axis that does not divide the batch, on
+    REPLICATED_RANKS ranks: cli.test, the segmentation step on a batch
+    every rank holds whole (and, as a witness, the same batch taken for a
+    shard of a global batch), the cross-entropy of such a batch, and
+    cli.train_sem."""
+    torch.set_num_threads(1)
+    rank = parallel.rank()
+    init = torch.load(os.path.join(workdir, "init.pt"), weights_only=True)["seg"]
+    batch = seg_batch(1, b=3)
+    out = {"eval": replicated_eval(workdir, "3"),
+           "seg_whole": step("seg", init, batch, whole=True),
+           "seg_as_shard": step("seg", init, batch)}
+    x, args = loss_inputs("cross_entropy")
+    out["cross_entropy"] = cross_entropy_ignore(x, **args).item()
+    out["train_sem"] = replicated_train_sem(os.path.join(workdir, f"sem_{rank}"), "3")
     return out
 
 
