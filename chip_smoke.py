@@ -41,9 +41,14 @@ patch 128, fov 80, nrows 4, seeded random weights):
   each model on their halves of the flagship batch, each held to the
   one-process step (the float64 and one-ulp witnesses, the parameters
   after the step, the running statistics) with the kernels' launches per
-  rank; mesh1 runs cli.train, cli.train_sem, cli.test and cli.infer with
-  --mesh 1 (a one-rank nccl group, DDP and the global BatchNorm for real),
-  and times the one-shot train step with it and without a mesh;
+  rank; mesh_model spawns gloo ranks on the card on the mesh data 1 x
+  model 2 (each model of ddp_gloo2 and a batch-2 eval forward) and data 2
+  x model 2 (the one-shot step), each rank running the trunk on its chunk
+  of the patch stack (omnifusion_torch/parallel/model_axis.py), held to
+  the same one-process references, with the launches per rank; mesh1 runs
+  cli.train, cli.train_sem, cli.test and cli.infer with --mesh 1 (a
+  one-rank nccl group, DDP and the global BatchNorm for real), and times
+  the one-shot train step with it and without a mesh;
 - the measurement entry points, each in this process and each with its
   kernel launches counted: omnifusion_torch/bench.py at batches 2, 8, 64
   and 256 (its batch-2 and batch-8 runs are the bf16 rows of the forward
@@ -265,11 +270,15 @@ def rel_stats(ours: np.ndarray, ref: np.ndarray) -> dict:
     }
 
 
-def assert_parity(stats: dict, what: str) -> None:
+def parity_ok(stats: dict) -> bool:
     # the bounds of the JAX package's upstream parity test
     # (tests/test_reference_parity.py:85-87)
-    if not (stats["median_rel"] < 1e-3 and stats["q999_rel"] < 0.05
-            and stats["frac_rel_gt_0.05"] < 1e-4):
+    return (stats["median_rel"] < 1e-3 and stats["q999_rel"] < 0.05
+            and stats["frac_rel_gt_0.05"] < 1e-4)
+
+
+def assert_parity(stats: dict, what: str) -> None:
+    if not parity_ok(stats):
         raise AssertionError(f"{what}: {stats}")
 
 
@@ -439,6 +448,9 @@ def metric_gaps(ours: dict, ref: dict) -> dict:
 # with --mesh 1: a process group of one, nccl, DDP and the global
 # BatchNorm for real) ----
 DDP_RANKS, DDP_KINDS, DDP_TIMED_STEPS = 2, ("oneshot", "iterative", "seg"), 3
+# mesh_model: (data, model), the models each rank steps, and whether it
+# also runs the batch-2 eval forward
+MESH_MODEL_RUNS = (((1, 2), DDP_KINDS, True), ((2, 2), ("oneshot",), False))
 # GlobalBatchNorm2d against cuDNN's BatchNorm2d, f32: conv1's output at
 # the flagship at batch 8 (72 patches per rank), each rank's half drawn
 # from another distribution, so that per-rank statistics would differ
@@ -571,25 +583,42 @@ def batchnorm_vs_cudnn(device) -> dict:
 
 
 def ddp_gloo2_rank() -> dict:
-    """One rank of ddp_gloo2: the gloo probe, the BatchNorm check, and one
-    DDP train step of each model on this rank's half of the flagship batch,
-    then DDP_TIMED_STEPS more one-shot steps, timed. Rank 0 returns the
-    gradients and states; every rank its launches."""
+    """One rank of ddp_gloo2: the gloo probe, the BatchNorm check, then
+    mesh_steps_rank's steps of every model."""
     from omnifusion_torch import parallel
 
     pin_f32()
     dev = parallel.device()
-    out = {"rank": parallel.rank(), "probe": gloo_probe(dev), "batchnorm": batchnorm_vs_cudnn(dev)}
+    out = {"probe": gloo_probe(dev), "batchnorm": batchnorm_vs_cudnn(dev)}
     torch.cuda.empty_cache()
-    for kind in DDP_KINDS:
+    return {**out, **mesh_steps_rank(DDP_KINDS, False)}
+
+
+def mesh_steps_rank(kinds: tuple, with_eval: bool) -> dict:
+    """One rank of ddp_gloo2 or mesh_model: one DDP train step of each of
+    ``kinds`` on its data group's part of the flagship batch (under a model
+    axis the trunk on its model rank's chunk of that part's patches), then
+    DDP_TIMED_STEPS more one-shot steps, timed; with ``with_eval``, the
+    one-shot eval forward of BATCH panoramas. Rank 0 returns the gradients,
+    the states and the depth; every rank its launches."""
+    from omnifusion_torch import parallel
+    from omnifusion_torch.parallel.model_axis import row_chunks
+    from omnifusion_torch.projection import ProjectionSpec
+    from omnifusion_torch.training import train_step
+
+    pin_f32()
+    dev = parallel.device()
+    spec = ProjectionSpec.create(ERP, PATCH, (FOV, FOV), NROWS)
+    dr, dw = parallel.data_rank(), parallel.data_world()
+    out = {"rank": parallel.rank(), "mesh": parallel.current_mesh().shape,
+           "rows": row_chunks(TRAIN_BATCH // dw * spec.n_patches)[parallel.model_rank()]}
+    for kind in kinds:
         batch = flagship_batch(kind, dev)
-        k = len(batch["rgb"]) // parallel.world()
-        b = {name: v[parallel.rank() * k : (parallel.rank() + 1) * k] for name, v in batch.items()}
+        k = len(batch["rgb"]) // dw
+        b = {name: v[dr * k : (dr + 1) * k] for name, v in batch.items()}
         res = adamw_step(kind, b, dev, ddp=True)
         state = res.pop("_state")
         if kind == "oneshot":
-            from omnifusion_torch.training import train_step
-
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -603,6 +632,17 @@ def ddp_gloo2_rank() -> dict:
         if parallel.rank() != 0:
             res = {"launches": res["launches"], "loss": res["loss"]}
         out[kind] = res
+    if with_eval:
+        rgb = synthetic_batch(spec, BATCH, dev)["rgb"]
+        k = BATCH // dw
+        model = flagship_model("oneshot", dev).eval()
+        zero_counts()
+        with torch.inference_mode(), deterministic_cudnn():
+            depth = model(rgb[dr * k : (dr + 1) * k])
+        torch.cuda.synchronize()
+        out["eval"] = {"launches": counts()}
+        if parallel.rank() == 0:
+            out["eval"]["depth"] = depth[..., 0].cpu().numpy()
     return out
 
 
@@ -631,20 +671,10 @@ def stats_parity(ours: dict, ref: dict) -> dict:
     return {"median": float(np.median(rels)), "max": max(rels), "tensors": len(rels)}
 
 
-def multi_device_phases(gpu: str, f64_witness: dict) -> dict:
-    """ddp_gloo2 and mesh1 (see the comment above DDP_RANKS); ``f64_witness``:
-    the float64 steps of the train parity phases, by model. Returns the
-    kernels' launches of each path for the kernels line."""
-    from omnifusion_torch import parallel
-    from omnifusion_torch.cli import infer, train, train_sem
-    from omnifusion_torch.cli.common import build_model
-    from omnifusion_torch.parallel.launch import spawn
-    from omnifusion_torch.training import create_train_state, train_step
-    from omnifusion_torch.utils.profiling import time_ms
-
-    dev = torch.device(DEVICE)
-    launches = {}
-    # ---- ddp_gloo2: the one-process references first, on the card alone ----
+def one_process_refs(dev) -> dict:
+    """The one-process references of ddp_gloo2 and mesh_model, by model:
+    the flagship train step (adamw_step) and, as the witness of f32
+    rounding, its loss and gradients on the nudged batch."""
     refs = {}
     for kind in DDP_KINDS:
         batch = flagship_batch(kind, dev)
@@ -657,31 +687,105 @@ def multi_device_phases(gpu: str, f64_witness: dict) -> dict:
         refs[kind] = ref, nudge
         del model, batch
         torch.cuda.empty_cache()
+    return refs
+
+
+def mesh_parity(kind: str, ranks: list, refs: dict, f64_witness: dict, passes: int) -> dict:
+    """Rank 0's train step of ``kind`` against the one-process step, as
+    ddp_gloo2 and mesh_model hold it, and every rank's launches against
+    one step's."""
+    ref, nudge = refs[kind]
+    ours = ranks[0][kind]
+    par, good = step_parity((ours["loss"], ours["grads"]), (ref["loss"], ref["grads"]),
+                            f64_witness[kind], nudge)
+    params = params_after_parity(ours, ref)
+    stats = stats_parity(ours["state"], ref["state"])
+    want = per_run(0, 1, passes)
+    rank_launches = [r[kind]["launches"] for r in ranks]
+    good = (good and params["excess"] <= params["bound"] and params["live_frac"] > 0.2
+            and stats["median"] < GRAD_TOL and ours["global_norms"] > 0
+            and ref["global_norms"] == 0 and all(lc == want for lc in rank_launches))
+    return {"parity": par, "params_after_step": params, "running_stats": stats,
+            "launches_per_rank": rank_launches, "launches_expected": want, "ok": good}
+
+
+def mesh_model_phase(gpu: str, refs: dict, f64_witness: dict) -> dict:
+    """mesh_model: the runs of MESH_MODEL_RUNS, each as gloo ranks sharing
+    the card, held to ``refs`` (one_process_refs) with ``f64_witness``, and
+    the eval forward to the one-process forward at the serving bounds.
+    Returns each run's rank-0 one-shot launches for the kernels line."""
+    from omnifusion_torch import parallel
+    from omnifusion_torch.parallel.launch import spawn
+    from omnifusion_torch.projection import ProjectionSpec
+
+    dev = torch.device(DEVICE)
+    spec = ProjectionSpec.create(ERP, PATCH, (FOV, FOV), NROWS)
+    model = flagship_model("oneshot", dev).eval()
+    with torch.inference_mode(), deterministic_cudnn():
+        ref_depth = model(synthetic_batch(spec, BATCH, dev)["rgb"])[..., 0].cpu().numpy()
+    del model
+    torch.cuda.empty_cache()
+    launches = {}
+    for (d, m), kinds, with_eval in MESH_MODEL_RUNS:
+        t0 = time.perf_counter()
+        mesh = parallel.Mesh(d, m)
+        ranks = spawn(mesh_steps_rank, d * m, (kinds, with_eval), lambda r: f"{DEVICE}:0",
+                      "gloo", 600, mesh)
+        spawn_s = time.perf_counter() - t0
+        result = {kind: mesh_parity(kind, ranks, refs, f64_witness,
+                                    ITERS if kind == "iterative" else 1) for kind in kinds}
+        ok = all(r["ok"] for r in result.values())
+        if with_eval:
+            stats = rel_stats(ranks[0]["eval"]["depth"], ref_depth)
+            eval_launches = [r["eval"]["launches"] for r in ranks]
+            good = parity_ok(stats) and all(lc == per_run(1) for lc in eval_launches)
+            result["eval_forward"] = {"batch": BATCH, "vs_one_process": stats,
+                                      "launches_per_rank": eval_launches,
+                                      "launches_expected": per_run(1), "ok": good}
+            ok = ok and good
+        per_group = TRAIN_BATCH // d
+        launches[f"{d}x{m}"] = ranks[0]["oneshot"]["launches"]
+        emit({"phase": "mesh_model", "gpu": gpu, "mesh": mesh.shape, "ranks": d * m,
+              "backend": "gloo", "device": f"{DEVICE}:0 shared",
+              "batch": f"{TRAIN_BATCH} global, {per_group} per data group",
+              "rows_per_rank": [r["rows"] for r in ranks],
+              **result, "step_wall_ms_per_rank": [r["step_wall_ms"] for r in ranks],
+              "step_wall_ms_note": "not a scaling number: ranks share one card and gloo "
+                                   "stages CUDA tensors through the host",
+              "max_memory_allocated_bytes_per_rank":
+                  [r["max_memory_allocated_bytes"] for r in ranks],
+              "seconds_with_spawn": spawn_s, "ok": ok})
+        if not ok:
+            raise AssertionError(f"mesh_model {mesh.shape}: see its line")
+    return launches
+
+
+def multi_device_phases(gpu: str, f64_witness: dict) -> dict:
+    """ddp_gloo2, mesh_model and mesh1 (see the comment above DDP_RANKS);
+    ``f64_witness``: the float64 steps of the train parity phases, by
+    model. Returns the kernels' launches of each path for the kernels
+    line."""
+    from omnifusion_torch import parallel
+    from omnifusion_torch.cli import infer, train, train_sem
+    from omnifusion_torch.cli.common import build_model
+    from omnifusion_torch.parallel.launch import spawn
+    from omnifusion_torch.training import create_train_state, train_step
+    from omnifusion_torch.utils.profiling import time_ms
+
+    dev = torch.device(DEVICE)
+    launches = {}
+    # ---- ddp_gloo2: the one-process references first, on the card alone ----
+    refs = one_process_refs(dev)
     t0 = time.perf_counter()
     ranks = spawn(ddp_gloo2_rank, DDP_RANKS, (), lambda r: f"{DEVICE}:0", "gloo", 600)
     spawn_s = time.perf_counter() - t0
     r0 = ranks[0]
     bn_ok = all(max(v for k, v in r["batchnorm"].items() if k != "own_statistics_out") < BN_TOL
                 and r["batchnorm"]["own_statistics_out"] > 100 * BN_TOL for r in ranks)
-    per_step = {"oneshot": per_run(0, 1), "iterative": per_run(0, 1, ITERS),
-                "seg": per_run(0, 1)}
-    result, ok = {}, bn_ok and all(r["probe"]["ok"] for r in ranks)
-    for kind in DDP_KINDS:
-        ref, nudge = refs[kind]
-        ours = r0[kind]
-        par, good = step_parity((ours["loss"], ours["grads"]), (ref["loss"], ref["grads"]),
-                                f64_witness[kind], nudge)
-        params = params_after_parity(ours, ref)
-        stats = stats_parity(ours["state"], ref["state"])
-        rank_launches = [r[kind]["launches"] for r in ranks]
-        good = (good and params["excess"] <= params["bound"] and params["live_frac"] > 0.2
-                and stats["median"] < GRAD_TOL and ours["global_norms"] > 0
-                and ref["global_norms"] == 0
-                and all(lc == {**per_step[kind], "probe": 0} for lc in rank_launches))
-        result[kind] = {"parity": par, "params_after_step": params, "running_stats": stats,
-                        "launches_per_rank": rank_launches, "launches_expected": per_step[kind],
-                        "ok": good}
-        ok = ok and good
+    result = {kind: mesh_parity(kind, ranks, refs, f64_witness, ITERS if kind == "iterative" else 1)
+              for kind in DDP_KINDS}
+    ok = (bn_ok and all(r["probe"]["ok"] for r in ranks)
+          and all(r["ok"] for r in result.values()))
     launches["ddp_gloo2_per_rank"] = r0["oneshot"]["launches"]
     emit({"phase": "ddp_gloo2", "gpu": gpu, "ranks": DDP_RANKS, "backend": "gloo",
           "device": f"{DEVICE}:0 shared", "batch": f"{TRAIN_BATCH} global, "
@@ -694,7 +798,12 @@ def multi_device_phases(gpu: str, f64_witness: dict) -> dict:
           "seconds_with_spawn": spawn_s})
     if not ok:
         raise AssertionError("ddp_gloo2: see its line")
-    del refs, ranks, r0
+    del ranks, r0
+
+    # ---- mesh_model: the mesh's model axis, on the same references ----
+    for shape, lc in mesh_model_phase(gpu, refs, f64_witness).items():
+        launches[f"mesh_model_{shape}_per_rank"] = lc
+    del refs
 
     # ---- mesh1: the entry points with --mesh 1 ----
     flag = ["--erp_size", f"{ERP[0]},{ERP[1]}", "--patchsize", str(PATCH), "--fov", str(FOV),
@@ -2578,6 +2687,11 @@ def main() -> int:
             "launches_ddp_gloo2_per_rank": multi_launches["ddp_gloo2_per_rank"][name],
             "launches_ddp_gloo2_of": "one one-shot DDP train step per rank, 2 gloo ranks on "
                                      f"the card, batch {TRAIN_BATCH // DDP_RANKS} per rank",
+            **{f"launches_{k}": v[name] for k, v in multi_launches.items()
+               if k.startswith("mesh_model_")},
+            "launches_mesh_model_of": "one one-shot DDP train step per rank, gloo ranks on "
+                                      "the card on the mesh data x model (1x2, 2x2), the "
+                                      "trunk on the rank's rows, e2p and merge whole",
             "launches_mesh1": multi_launches["mesh1"][name],
             "launches_mesh1_of": f"cli.train --mesh 1: {TRAIN_STEPS} steps at batch "
                                  f"{TRAIN_BATCH}, {val_forwards} validation forwards",

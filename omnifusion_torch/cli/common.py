@@ -13,15 +13,19 @@ The port adds ``--device`` (default: the CUDA card;
 
 ``--mesh`` (default ``auto``) puts the batch on ranks, one process per
 card (``omnifusion_torch/parallel``), with the JAX package's rules
-(``build_mesh``): ``auto`` takes every card, shrunk to the largest count
-that divides ``--batch``; ``DATA`` takes that many, and where DATA does not
-divide a batch every rank runs that batch whole (``cli/train.py`` alone
-refuses such a ``--batch``); ``none``, or one card, runs in one process. The model axis (``DATA,MODEL`` with MODEL > 1) is not
-ported and refuses. ``run_on_mesh`` runs an entry point's body on the
-mesh: under torchrun in the ranks it started, with ``--mesh 1`` in this
-process (a process group of one), else in ``DATA`` spawned processes, rank
-r on ``cuda:r``. On the CPU (``--device cpu``) ``auto`` is one process and
-``DATA`` that many gloo processes.
+(``build_mesh``): ``auto`` takes every card on the data axis, shrunk to the
+largest count that divides ``--batch``; ``DATA[,MODEL]`` takes DATA *
+MODEL cards, rank d * MODEL + m at data rank d and model rank m: the data
+axis splits each batch (where DATA does not divide a batch every data
+group runs that batch whole; ``cli/train.py`` alone refuses such a
+``--batch``) and the model axis splits the patches of a data group's
+panoramas (``parallel/model_axis.py``); ``none``, or one card, runs in one
+process. ``run_on_mesh`` runs an entry point's body on the mesh: under
+torchrun in the ranks it started (the world size must be DATA * MODEL),
+with ``--mesh 1`` in this process (a process group of one), else in DATA *
+MODEL spawned processes, rank r on ``cuda:r``. On the CPU (``--device
+cpu``) ``auto`` is one process and ``DATA[,MODEL]`` that many gloo
+processes.
 
 ``--checkpoint`` takes a file: a checkpoint that ``cli/train.py`` wrote
 (``<save_path>/ckpt/{latest,best}.pt``), a state dict of the port's model,
@@ -142,7 +146,7 @@ def uses_confidence(args) -> bool:
 def build_mesh(args) -> Optional[parallel.Mesh]:
     """The mesh of ``--mesh``, or None for one process (parallel.parse_mesh).
     Under torchrun the world size is the device count: ``auto`` takes it
-    and an explicit data count must equal it."""
+    and an explicit mesh's DATA * MODEL must equal it."""
     spec = getattr(args, "mesh", "auto") or "auto"
     env = launch.torchrun_env()
     if env is not None:
@@ -153,8 +157,8 @@ def build_mesh(args) -> Optional[parallel.Mesh]:
     else:
         n_cards, platform = torch.cuda.device_count(), "cuda"
     mesh = parallel.parse_mesh(spec, int(getattr(args, "batch", 0) or 0), n_cards, platform)
-    if env is not None and mesh is not None and mesh.data != env[1]:
-        raise SystemExit(f"--mesh {spec!r}: under torchrun the data axis is the world "
+    if env is not None and mesh is not None and mesh.data * mesh.model != env[1]:
+        raise SystemExit(f"--mesh {spec!r}: under torchrun DATA * MODEL is the world "
                          f"size, {env[1]}")
     return mesh
 
@@ -179,17 +183,23 @@ def run_on_mesh(body, args, divisible: bool = False):
     mesh = build_mesh(args)
     if divisible and mesh is not None and args.batch % mesh.data:
         raise SystemExit(f"--batch {args.batch} not divisible by data axis {mesh.data}")
-    if mesh is None or parallel.is_distributed():
+    if parallel.is_distributed():  # a caller's ranks, on the mesh they were given
+        if mesh is not None and mesh != parallel.current_mesh():
+            raise SystemExit(f"--mesh {mesh.shape}: the process group is up on "
+                             f"{parallel.current_mesh().shape}")
+        return body(args)
+    if mesh is None:
         return body(args)
     print(f"## mesh: {mesh.shape}")
     env = launch.torchrun_env()
-    if env is None and mesh.data > 1:
-        return launch.spawn(body, mesh.data, (args,),
-                            lambda r: _rank_device(args.device, r))[0]
+    n = mesh.data * mesh.model
+    if env is None and n > 1:
+        return launch.spawn(body, n, (args,), lambda r: _rank_device(args.device, r),
+                            mesh=mesh)[0]
     rank, world, local = env if env is not None else (0, 1, 0)
     device = _rank_device(args.device, local)
     store = None if env is not None else torch.distributed.HashStore()
-    parallel.init_process_group(rank, world, device, store=store)
+    parallel.init_process_group(rank, world, device, store=store, mesh=mesh)
     try:
         return body(args)
     finally:
@@ -249,9 +259,10 @@ def build_dataset(args, split_file: str, train: bool):
             pano_w=args.erp_size[1],
             seed=args.seed,
         )
-    # each rank draws its own augmentations
+    # each data group draws its own augmentations; its model ranks, which
+    # split the same panoramas, draw the same
     return make_dataset(args.dataset, args.input_dir, split_file, rotate=train, flip=train,
-                        seed=args.seed + parallel.rank())
+                        seed=args.seed + parallel.data_rank())
 
 
 def dump_run_config(args) -> None:

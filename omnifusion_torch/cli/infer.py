@@ -23,10 +23,11 @@ with ``--merge_dtype f16`` that is the JAX package's serving recipe.
 
 Runs on the CUDA card unless ``--device`` names another device.
 
-``--mesh`` (cli/common.py) serves data-parallel: each rank answers its
-contiguous slice of every batch of ``--batch`` panoramas (the last batch's
-slices may differ by one) and writes those files, under the names one
-process gives them.
+``--mesh`` (cli/common.py) serves on a (data, model) mesh: each data group
+answers its contiguous slice of every batch of ``--batch`` panoramas (the
+last batch's slices may differ by one), its model ranks each a chunk of
+the slice's patches, and model rank 0 of the group writes those files,
+under the names one process gives them, each once.
 """
 
 from __future__ import annotations
@@ -121,10 +122,11 @@ def _infer(args) -> list[str]:
         print("## cv2 is not importable: the colorized depth PNGs are skipped")
 
     written = []
-    rank, world = parallel.rank(), parallel.world()
+    rank, world = parallel.data_rank(), parallel.data_world()
+    writes = parallel.model_rank() == 0
     for start in range(0, len(paths), args.batch):
         n = min(args.batch, len(paths) - start)
-        lo, hi = start + n * rank // world, start + n * (rank + 1) // world  # this rank's
+        lo, hi = start + n * rank // world, start + n * (rank + 1) // world  # this group's
         if lo == hi:
             continue
         chunk = paths[lo:hi]
@@ -133,6 +135,8 @@ def _infer(args) -> list[str]:
             rgb = torch.from_numpy(np.stack(frames)).to(device)
             out = model(rgb, confidence=confidence)
             depth = (out[-1] if isinstance(out, list) else out)[..., 0].cpu().numpy()
+        if not writes:  # the group's model rank 0 writes its replica
+            continue
         for stem, frame, d in zip(stems[lo:hi], frames, depth):
             np.save(stem + "_depth.npy", d)
             if cv2 is not None:

@@ -15,13 +15,14 @@ depth, ground truth and error PNGs (where cv2 is importable) and, with
 or a reference .pth (cli/common.py). Runs on the CUDA card unless
 ``--device`` names another device.
 
-``--mesh`` (cli/common.py) evaluates data-parallel: each rank runs its
-slice of every batch, and the metrics are those of the whole batch,
-gathered (the median scaling is the global batch's, as under the JAX
-mesh); a last batch that the ranks cannot split evenly runs whole on every
-rank, as the JAX package replicates it. Every rank holds the same numbers,
-so the meters need no reduction. Rank 0 prints and writes the dumps: the
-first panorama of a batch is its own.
+``--mesh`` (cli/common.py) evaluates on a (data, model) mesh: each data
+group runs its slice of every batch (its model ranks each a chunk of the
+slice's patches), and the metrics are those of the whole batch, gathered
+over the data axis (the median scaling is the global batch's, as under the
+JAX mesh); a last batch that the data axis cannot split evenly runs whole
+on every data group, as the JAX package replicates it. Every rank holds
+the same numbers, so the meters need no reduction. Rank 0 prints and
+writes the dumps: the first panorama of a batch is its own.
 """
 
 from __future__ import annotations
@@ -90,7 +91,7 @@ def _eval(args) -> dict:
     device = next(model.parameters()).device
     ds = build_dataset(args, args.testfile, train=False)
     loader = DataLoader(ds, args.batch, shuffle=False, num_workers=2, drop_last=False,
-                        rank=parallel.rank(), world=parallel.world())
+                        rank=parallel.data_rank(), world=parallel.data_world())
     confidence = uses_confidence(args)
     dump_run_config(args)
 
@@ -110,7 +111,7 @@ def _eval(args) -> dict:
             host = {k: batch[k][0].cpu().numpy() for k in ("rgb", "depth", "mask")}
             save_visuals(args, batch_idx, cv2, host["rgb"], host["depth"], host["mask"],
                          pred[0].float().cpu().numpy())
-        panos = batch["rgb"].shape[0] * (parallel.world() if batch.sharded else 1)
+        panos = batch["rgb"].shape[0] * (parallel.data_world() if batch.sharded else 1)
         throughput.update(panos)
         n_panos += panos
 

@@ -29,15 +29,18 @@ validation batch's RGB, ground truth and predicted depth.
 ``--profile_dir`` writes a ``torch.profiler`` trace of steps 10-14 of epoch
 0. Runs on the CUDA card unless ``--device`` names another device.
 
-``--mesh`` (cli/common.py) trains data-parallel, one process per card,
-each on its slice of every global batch of ``--batch``: the step is the
-one-card step on the global batch (global BatchNorm statistics, BerHu's
-global cutoff, DDP's average of the gradients), and the validation metrics
-are the global batches'. Rank 0 prints and writes the log, the tensorboard
-events, the trace and the checkpoints.
+``--mesh`` (cli/common.py) trains on a (data, model) mesh, one process per
+card: each data group on its slice of every global batch of ``--batch``,
+each of its model ranks on a chunk of that slice's patches. The step is
+the one-card step on the global batch (global BatchNorm statistics,
+BerHu's global cutoff, the gradients summed over the model axis and
+averaged over the data axis), and the validation metrics are the global
+batches'. Rank 0 prints and writes the log, the tensorboard events, the
+trace and the checkpoints.
 
     torchrun --nproc_per_node 4 -m omnifusion_torch.cli.train --dataset ... --batch 8
     python -m omnifusion_torch.cli.train --dataset ... --batch 8 --mesh 4
+    python -m omnifusion_torch.cli.train --dataset ... --batch 8 --mesh 2,2
 """
 
 from __future__ import annotations
@@ -123,7 +126,7 @@ def _train(args) -> dict:
     main_rank = parallel.rank() == 0
     log = print if main_rank else (lambda *a, **k: None)
 
-    shard = dict(rank=parallel.rank(), world=parallel.world())
+    shard = dict(rank=parallel.data_rank(), world=parallel.data_world())
     train_loader = DataLoader(build_dataset(args, args.trainfile, train=True), args.batch,
                               shuffle=True, num_workers=args.workers, seed=args.seed, **shard)
     val_loader = DataLoader(build_dataset(args, args.testfile, train=False), args.batch,

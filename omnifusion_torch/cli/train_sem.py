@@ -21,11 +21,11 @@ the depth CLIs' ``--model``, ``--checkpoint``, ``--merge_dtype``,
 ``--synthetic_size``, ``--val_interval`` and logging flags are not read
 here. Runs on the CUDA card unless ``--device`` names another device.
 
-``--mesh`` (cli/common.py) trains data-parallel as cli/train.py does: the
-cross-entropy's mean is over the global batch's valid labels, and the
-validation's confusion counts are summed over the ranks (a last batch that
-the ranks cannot split evenly runs whole on every rank and counts once).
-Rank 0 prints and writes the checkpoints.
+``--mesh`` (cli/common.py) trains on a (data, model) mesh as cli/train.py
+does: the cross-entropy's mean is over the global batch's valid labels,
+and the validation's confusion counts are summed over the data axis (a
+batch that the data axis cannot split evenly runs whole on every data group
+and counts once). Rank 0 prints and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -87,9 +87,9 @@ def _train_sem(args) -> dict:
         val_ds = SyntheticSemanticDataset(8, h, w, args.num_classes, args.seed + 1)
     else:
         train_ds = SemanticDataset(args.input_dir, args.trainfile, rotate=True, flip=True,
-                                   seed=args.seed + parallel.rank())
+                                   seed=args.seed + parallel.data_rank())
         val_ds = SemanticDataset(args.input_dir, args.testfile)
-    shard = dict(rank=parallel.rank(), world=parallel.world())
+    shard = dict(rank=parallel.data_rank(), world=parallel.data_world())
     train_loader = DataLoader(train_ds, args.batch, shuffle=True, num_workers=args.workers,
                               seed=args.seed, **shard)
     val_loader = DataLoader(val_ds, args.batch, num_workers=2, drop_last=False, **shard)
@@ -114,8 +114,8 @@ def _train_sem(args) -> dict:
         history["train_loss"].append(mean_loss)
         mgr.save(state, "latest")
 
-        # confusion counts of the batches split over the ranks (summed over
-        # them) and of those every rank runs whole
+        # confusion counts of the batches split over the data axis (summed
+        # over it) and of those every data group runs whole
         nc = args.num_classes
         sliced, whole = np.zeros((nc, nc), np.int64), np.zeros((nc, nc), np.int64)
         for batch in val_loader.to_device(device):
@@ -125,7 +125,8 @@ def _train_sem(args) -> dict:
                 sliced += cm
             else:
                 whole += cm
-        sliced = parallel.all_reduce_(torch.from_numpy(sliced).to(device)).cpu().numpy()
+        sliced = parallel.all_reduce_(torch.from_numpy(sliced).to(device),
+                                      group=parallel.data_group()).cpu().numpy()
         miou, _ = mean_iou(sliced + whole)
         history["miou"].append(miou)
         log(f"epoch {epoch}: loss {mean_loss:.4f}  mIoU {miou:.4f}  ({time.time() - t0:.1f}s)")

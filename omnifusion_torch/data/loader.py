@@ -8,14 +8,16 @@ on a CUDA device each batch goes through pinned host memory with a
 non-blocking copy, so the copy of the next batch overlaps the step that
 runs on the current one.
 
-Under data parallelism (``rank`` and ``world``) every rank draws the same
-order of global batches from the same seed and loads only its contiguous
-slice of each, so that the ranks together see the single-device batches,
-as the JAX loader's batches sharded over the mesh's data axis. A batch that
-the ranks cannot split evenly (the ragged tail with ``drop_last=False``) is
-loaded whole on every rank, as the JAX loader replicates it. Batches are
-``Batch`` dicts: ``sharded`` says whether this rank holds a slice of a
-batch split over ranks.
+Under data parallelism (``rank`` and ``world``: the data rank and the data
+axis's size; the model ranks of a data group load the same batches) every
+rank draws the same order of global batches from the same seed and loads
+only its data group's contiguous slice of each, so that the data groups
+together see the single-device batches, as the JAX loader's batches
+sharded over the mesh's data axis. A batch that the data groups cannot
+split evenly (the ragged tail with ``drop_last=False``) is loaded whole on
+every rank, as the JAX loader replicates it. Batches are ``Batch`` dicts:
+``sharded`` says whether this rank holds a slice of a batch split over the
+data axis.
 """
 
 from __future__ import annotations

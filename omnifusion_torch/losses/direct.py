@@ -5,8 +5,10 @@ supervision/direct.py). The BerHu cutoff is data-dependent (c = max|diff| / 5
 over ALL pixels, masked or not) and detached, as the JAX package stops its
 gradient. Under data parallelism the max is the global batch's (an
 all-reduce of each rank's), as a max over the JAX mesh's sharded batch is;
-the per-sample mean over a rank's equal shard, averaged over the ranks by
-DistributedDataParallel, is the global batch's mean.
+over the world it is also the data axis's max, since the model ranks of a
+data group hold the same merged depth. The per-sample mean over a data
+group's equal shard, averaged over the data axis by the DDP wrap, is the
+global batch's mean.
 """
 
 from __future__ import annotations

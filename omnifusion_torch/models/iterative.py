@@ -21,6 +21,14 @@ writes, so a state dict converted from the JAX variables
 so the quarter-resolution equi2pers reads and stores f32, as in JAX. No
 stop-gradient: in training the loss of every later pass reaches the
 earlier passes through the feedback.
+
+Under the mesh's model axis (``parallel/model_axis.py``) each pass runs the
+trunk on this model rank's rows and merges the model group's gathered
+patches, as the one-shot model does; the feedback depth is projected whole
+and each rank embeds its own rows (``mlp_points2`` on the local rows, so
+that its global BatchNorms count each row once). Each rank's next pass
+differentiates only its rows of that depth: its cotangent is summed over
+the model group (``sum_cotangent``).
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 
 from omnifusion_torch.device import resolve_device
 from omnifusion_torch.models.spherical_fusion import DepthTrunk, MlpPoints, confidence_merge
+from omnifusion_torch.parallel.model_axis import shard_rows, sum_cotangent
 from omnifusion_torch.projection.ops import equi2pers
 from omnifusion_torch.projection.spec import (
     ProjectionSpec,
@@ -107,15 +116,17 @@ class SphericalFusionIterative(DepthTrunk):
         patches = equi2pers(rgb, build_equi2pers_grids(spec))  # (B, P, h, w, 3)
         x = patches.permute(0, 1, 4, 2, 3).reshape(b * p, 3, h, w)
 
-        def merge(pred, conf):
+        def merge(heads):
+            pred, conf = self.gather_heads(*heads, b)
             return confidence_merge(pred.reshape(b, p, h, w), conf.reshape(b, p, h, w), p2e,
                                     use_confidence=confidence, dtype=self.merge_dtype)
 
         # pass 1: the unit sphere, embedded once for all the batch
-        preds = [merge(*self.trunk(x, self.mlp_points1(self.xyz), b))]
+        preds = [merge(self.trunk(x, self.mlp_points1(self.xyz), b))]
+        x = shard_rows(x)
         for _ in range(self.num_iters - 1):
-            depth = equi2pers(preds[-1], grids_q)  # (B, P, h/4, w/4, 1) f32
+            depth = equi2pers(sum_cotangent(preds[-1]), grids_q)  # (B, P, h/4, w/4, 1) f32
             points = self.xyz * depth.permute(0, 1, 4, 2, 3)  # (B, P, 3, h/4, w/4)
-            pf = self.mlp_points2(points.reshape(b * p, 3, spec_q.patch_h, spec_q.patch_w))
-            preds.append(merge(*self.trunk(x, pf, b)))
+            points = shard_rows(points.reshape(b * p, 3, spec_q.patch_h, spec_q.patch_w))
+            preds.append(merge(self.trunk_rows(x, self.mlp_points2(points), b)))
         return preds

@@ -4,7 +4,9 @@ The port's counterpart of ``omnifusion_tpu/models/segmentation.py``: the
 one-shot model's geometry-aware trunk with a ``num_classes``-channel logit
 head (no ReLU), the logits merged to ERP with the confidence-weighted
 pers2equi blend, and cross-entropy with ignore index -1
-(train_erp_sem.py:203 upstream).
+(train_erp_sem.py:203 upstream). Under the mesh's model axis the trunk
+runs on this model rank's rows and the model group's logits are gathered
+before the merge, as in the one-shot model.
 
 The modules sit at the one-shot model's names (``pred`` has
 ``num_classes`` outputs), so a state dict converted from the JAX
@@ -20,7 +22,7 @@ import torch.nn.functional as F
 
 from omnifusion_torch.device import resolve_device
 from omnifusion_torch.models.spherical_fusion import DepthTrunk, MlpPoints, geometry_input
-from omnifusion_torch.parallel.mesh import all_reduce_, world
+from omnifusion_torch.parallel.mesh import all_reduce_, data_group, data_world
 from omnifusion_torch.projection.ops import equi2pers, pers2equi_cf
 from omnifusion_torch.projection.spec import (
     ProjectionSpec,
@@ -77,7 +79,7 @@ class SphericalFusionSeg(DepthTrunk):
             rgb = rgb.to(self.dtype)
         patches = equi2pers(rgb, build_equi2pers_grids(spec))  # (B, P, h, w, 3)
         x = patches.permute(0, 1, 4, 2, 3).reshape(b * p, 3, h, w)
-        logits, conf = self.trunk(x, self.mlp_points(self.geo), b)
+        logits, conf = self.gather_heads(*self.trunk(x, self.mlp_points(self.geo), b), b)
         # channel-first (B, C, P*h*w) in f32 (segmentation.py:82-83; f64
         # for an f64 model): num and den packed into one merge of C + 1 rows
         # per panorama
@@ -100,13 +102,14 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
     gives (its sum over a count clamped at 1). logits (B, H, W, C); labels
     (B, H, W) integers.
 
-    Under data parallelism the count is the global batch's (an all-reduce),
-    as the JAX mean over the sharded batch is, and each rank's loss is
-    ``world * sum / count``: DistributedDataParallel's average over the
-    ranks then gives the gradient of the global mean, and the mean of the
-    ranks' losses is that mean."""
+    Under data parallelism the count is the global batch's (an all-reduce
+    over the data axis: the model ranks of a data group hold replicas of
+    its logits), as the JAX mean over the sharded batch is, and each rank's
+    loss is ``data_world * sum / count``: the DDP wrap's average over the
+    data axis then gives the gradient of the global mean, and the mean of
+    the data groups' losses is that mean."""
     labels = labels.long()
     nll = F.cross_entropy(logits.permute(0, 3, 1, 2), labels, ignore_index=ignore_index,
                           reduction="sum")
-    count = all_reduce_((labels != ignore_index).sum().reshape(1))[0]
-    return world() * nll / count.clamp_min(1)
+    count = all_reduce_((labels != ignore_index).sum().reshape(1), group=data_group())[0]
+    return data_world() * nll / count.clamp_min(1)

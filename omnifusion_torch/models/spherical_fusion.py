@@ -17,6 +17,11 @@ layer4 straight to the decoder): ``DepthTrunk`` extends
 state dict converted from the JAX variables (models/convert.py) loads with
 strict=True.
 
+Under the mesh's model axis (``parallel/model_axis.py``) each model rank
+runs the trunk on its chunk of the folded patch stack: the tokens are
+gathered before the transformer and its output sliced back, and pred and
+conf are gathered before the merge, which every model rank runs whole.
+
 ``dtype=torch.bfloat16`` is the JAX package's serving recipe (bench.py:
 163-188): the ERP is cast before equi2pers, so the e2p blend reads bf16;
 MlpPoints, the encoder, ``down``, ``up_proj``, the decoder and the fused
@@ -45,6 +50,8 @@ from omnifusion_torch.models.layers import (
 )
 from omnifusion_torch.models.resnet import RESNET34_STAGES, ResNet34Encoder
 from omnifusion_torch.models.transformer import TransformerCascade
+from omnifusion_torch.parallel.mesh import model_world
+from omnifusion_torch.parallel.model_axis import gather_patches, gather_tokens, shard_rows
 from omnifusion_torch.parallel.sync_bn import remat_contexts
 from omnifusion_torch.projection.ops import equi2pers, pers2equi_cf
 from omnifusion_torch.projection.spec import (
@@ -77,10 +84,13 @@ class DepthTrunk(ResNet34Encoder):
 
     ``trunk(x, point_feat, b)``: x (B*P, 3, h, w) and point_feat
     (P, 64, h/4, w/4), shared by the batch, or (B*P, 64, h/4, w/4) ->
-    (pred (B*P, pred_channels, h, w), conf (B*P, 1, h, w)), in ``dtype``
-    (None: f32). ``pred_activation``: "relu" (depth) or "none"
-    (segmentation logits). The token projection sits at ``DOWN``, the
-    upstream checkpoint's name for it. ``use_transformer=False``: no global
+    (pred (R, pred_channels, h, w), conf (R, 1, h, w)), in ``dtype``
+    (None: f32), of this model rank's R rows (``model_axis.shard_rows``;
+    all B*P without a model axis); ``trunk_rows`` takes those rows
+    already sharded, and ``gather_heads`` gathers the group's heads.
+    ``pred_activation``: "relu" (depth) or "none" (segmentation logits).
+    The token projection sits at ``DOWN``, the upstream checkpoint's name
+    for it. ``use_transformer=False``: no global
     fusion (no token projection, transformer or up_proj); layer4 goes
     straight to the decoder. ``remat``: rematerialize the encoder
     (``--remat``): in a forward that records gradients its activations are
@@ -112,6 +122,7 @@ class DepthTrunk(ResNet34Encoder):
         stages = tuple(encoder_stages or RESNET34_STAGES)
         super().__init__(stages, dtype=dtype, device=device)
         self.dtype = dtype
+        self.n_patches = n_patches
         self.use_transformer = use_transformer
         self.remat = remat
         self.pred_channels = pred_channels
@@ -147,26 +158,34 @@ class DepthTrunk(ResNet34Encoder):
     def fuse(self, l4, b: int):
         """Global fusion: one channel-major-flattened token per patch; the
         tokens come out of the transformer in f32 (transformer.py) and are
-        added to layer4."""
-        bp = l4.shape[0]
-        tok = getattr(self, self.DOWN)(l4).reshape(b, bp // b, self.emb)
-        tok = self.transformer(tok)
+        added to layer4. Under a model axis the transformer runs on the
+        model group's tokens, gathered, and this rank keeps its rows."""
+        rows, n = l4.shape[0], b * self.n_patches
+        tok = gather_tokens(getattr(self, self.DOWN)(l4).reshape(rows, self.emb), n)
+        tok = self.transformer(tok.reshape(b, self.n_patches, self.emb))
+        tok = shard_rows(tok.reshape(n, self.emb))
         if self.emb == l4.shape[1]:
             # bf16 + f32 promotes to f32, as in JAX (spherical_fusion.py:147),
             # so under a bf16 trunk the first decoder upsample runs in f32
-            return l4 + tok.reshape(bp, self.emb, 1, 1)
+            return l4 + tok.reshape(rows, self.emb, 1, 1)
         # up_proj computes in the trunk's dtype: the sum keeps it
         # (spherical_fusion.py:151-153)
         hh, ww = l4.shape[-2:]
-        return l4 + self.up_proj(tok.reshape(bp, 32, hh, ww))
+        return l4 + self.up_proj(tok.reshape(rows, 32, hh, ww))
 
     def trunk(self, x, point_feat, b: int):
-        bp, _, h, w = x.shape
-        if self.dtype is not None:
-            x = x.to(self.dtype)
+        bp = x.shape[0]
         pf = point_feat
         if pf.shape[0] != bp:  # one per patch, shared by the batch
             pf = pf.expand(b, *pf.shape).reshape(bp, *pf.shape[1:])
+        return self.trunk_rows(shard_rows(x), shard_rows(pf), b)
+
+    def trunk_rows(self, x, pf, b: int):
+        """The trunk on this model rank's rows of the folded patch stack of
+        ``b`` panoramas: x (R, 3, h, w), pf (R, 64, h/4, w/4)."""
+        h, w = x.shape[-2:]
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         pf = pf.to(x.dtype)
         if self.remat and torch.is_grad_enabled():
             # the encoder draws no random numbers: no RNG state to keep
@@ -204,6 +223,15 @@ class DepthTrunk(ResNet34Encoder):
         k = self.pred_channels
         pred = F.relu(y[:, :k]) if self.pred_activation == "relu" else y[:, :k]
         return pred, torch.sigmoid(y[:, k:])
+
+    def gather_heads(self, pred, conf, b: int):
+        """The model group's (pred, conf) rows of the ``b`` panoramas, for a
+        merge that every model rank runs whole (``model_axis.gather_patches``);
+        this rank's own without a model axis."""
+        if model_world() == 1:
+            return pred, conf
+        both = gather_patches(torch.cat([pred, conf], dim=1), b * self.n_patches)
+        return both[:, : pred.shape[1]], both[:, pred.shape[1] :]
 
 
 def confidence_merge(
@@ -295,7 +323,7 @@ class SphericalFusion(DepthTrunk):
             rgb = rgb.to(self.dtype)
         patches = equi2pers(rgb, build_equi2pers_grids(spec))  # (B, P, h, w, 3)
         x = patches.permute(0, 1, 4, 2, 3).reshape(b * p, 3, h, w)
-        pred, conf = self.trunk(x, self.mlp_points(self.geo), b)
+        pred, conf = self.gather_heads(*self.trunk(x, self.mlp_points(self.geo), b), b)
         return confidence_merge(
             pred.reshape(b, p, h, w),
             conf.reshape(b, p, h, w),

@@ -6,7 +6,8 @@ rank's process group over a ``FileStore`` in a temporary directory (no TCP
 port to pick, so concurrent launches never clash), runs ``fn(*args)`` in
 each and returns their results in rank order. If a rank fails, or the
 timeout passes, it kills every rank and raises. The entry points use it for
-``--mesh N``; the tests and chip_smoke.py use it too.
+``--mesh DATA[,MODEL]`` (DATA * MODEL ranks on that mesh); the tests and
+chip_smoke.py use it too.
 
 Under ``torchrun`` the ranks already exist: ``torchrun_env`` reads the
 rank, the world size and the local rank from the environment.
@@ -23,7 +24,7 @@ from typing import Callable, Optional
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from omnifusion_torch.parallel import mesh
+from omnifusion_torch.parallel.mesh import Mesh, destroy, init_process_group
 
 
 def torchrun_env() -> Optional[tuple[int, int, int]]:
@@ -35,28 +36,32 @@ def torchrun_env() -> Optional[tuple[int, int, int]]:
             int(os.environ.get("LOCAL_RANK", os.environ["RANK"])))
 
 
-def _rank_main(fn, rank: int, world: int, args: tuple, device, backend, tmp: str) -> None:
+def _rank_main(fn, rank: int, world: int, args: tuple, device, backend, tmp: str,
+               mesh: Optional[Mesh]) -> None:
     store = dist.FileStore(os.path.join(tmp, "store"), world)
-    mesh.init_process_group(rank, world, device, backend, store=store)
+    init_process_group(rank, world, device, backend, store=store, mesh=mesh)
     try:
         out = fn(*args)
     finally:
-        mesh.destroy()
+        destroy()
     with open(os.path.join(tmp, f"result_{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
 
 def spawn(fn: Callable, world: int, args: tuple = (),
           device_of_rank: Callable[[int], str] = lambda rank: f"cuda:{rank}",
-          backend: Optional[str] = None, timeout_s: Optional[float] = None) -> list:
+          backend: Optional[str] = None, timeout_s: Optional[float] = None,
+          mesh: Optional[Mesh] = None) -> list:
     """Run ``fn(*args)`` in ``world`` new processes, rank r on
     ``device_of_rank(r)`` with its process group up (``backend``: nccl on
-    CUDA, gloo on the CPU, unless named). ``fn`` and ``args`` must pickle:
-    ``fn`` a module-level function. Returns each rank's result."""
+    CUDA, gloo on the CPU, unless named) on ``mesh`` (default: every
+    rank on the data axis). ``fn`` and ``args`` must pickle: ``fn`` a
+    module-level function. Returns each rank's result."""
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="omnifusion_ranks_") as tmp:
         procs = [ctx.Process(target=_rank_main, name=f"rank{r}",
-                             args=(fn, r, world, args, device_of_rank(r), backend, tmp))
+                             args=(fn, r, world, args, device_of_rank(r), backend, tmp,
+                                   mesh))
                  for r in range(world)]
         for p in procs:
             p.start()

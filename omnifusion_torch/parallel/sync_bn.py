@@ -17,9 +17,12 @@ hold against the JAX mesh is the code that runs on the cards:
   averages them over the ranks with every other gradient. It keeps ``x``,
   the mean and ``1 / std``, not the normalized input.
 
-Rank shards may differ in size. A batch that every rank holds whole (one
-the ranks cannot split) keeps this process's statistics and count
-(``replicated_batch``). Under ``--remat`` (``remat_contexts``) the
+Rank shards may differ in size. Under the mesh's model axis every row of
+the folded patch stack is on one rank, so the world's sums are the global
+batch's. A batch that every data group holds whole (one the data axis
+cannot split) reduces over this rank's model group alone, which holds
+each of its rows once: this process's statistics and count with no model
+axis (``replicated_batch``). Under ``--remat`` (``remat_contexts``) the
 recompute of a forward reuses the statistics that the forward recorded.
 In eval mode it is ``nn.BatchNorm2d`` on the running statistics, with no
 collective. ``nn.SyncBatchNorm`` is not used:
@@ -35,7 +38,7 @@ from typing import Iterable
 import torch
 from torch import nn
 
-from omnifusion_torch.parallel.mesh import all_reduce_
+from omnifusion_torch.parallel.mesh import all_reduce_, model_group, model_world
 
 
 def _stat(t: torch.Tensor) -> torch.Tensor:
@@ -43,15 +46,25 @@ def _stat(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(1, -1, 1, 1)
 
 
+def _reduction(replicated: bool):
+    """The sum of a global BatchNorm: over the world, or for a replicated
+    batch over the model group (this process's alone without one)."""
+    if not replicated:
+        return all_reduce_
+    if model_world() == 1:
+        return lambda t: t
+    return lambda t: all_reduce_(t, group=model_group())
+
+
 class _GlobalBatchNorm(torch.autograd.Function):
     """Normalization by given statistics (``GlobalBatchNorm2d.statistics``);
-    the backward's sums are over the ranks unless ``local``."""
+    the backward's sums are those of ``_reduction(replicated)``."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, mean, invstd, n, local: bool):
+    def forward(ctx, x, weight, bias, mean, invstd, n, replicated: bool):
         cdt = mean.dtype
         ctx.save_for_backward(x, weight, mean, invstd, n)
-        ctx.local = local
+        ctx.replicated = replicated
         centered = x.to(cdt) - _stat(mean)
         return (centered * _stat(invstd * weight.to(cdt)) + _stat(bias.to(cdt))).to(x.dtype)
 
@@ -63,7 +76,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         xhat = (x.to(cdt) - _stat(mean)) * _stat(invstd)
         dyf = dy.to(cdt)
         local = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
-        sums = local.clone() if ctx.local else all_reduce_(local.clone())
+        sums = _reduction(ctx.replicated)(local.clone())
         sum_dy, sum_dy_xhat = (sums / n.to(cdt)).chunk(2)
         dx = (dyf - _stat(sum_dy) - xhat * _stat(sum_dy_xhat)) * _stat(invstd * weight.to(cdt))
         c = x.shape[1]
@@ -77,9 +90,10 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
     keys. For the port's BatchNorms (``models.layers.TorchBatchNorm``):
     affine, with running statistics and a momentum.
 
-    ``replicated``: every rank holds the same batch (``replicated_batch``),
-    so the statistics are this process's, with no collective, and the
-    running variance keeps the local count. ``_remat``: set by
+    ``replicated``: every data group holds the same batch
+    (``replicated_batch``), so the statistics are the model group's (this
+    process's, with no collective, without a model axis), and the running
+    variance keeps that count. ``_remat``: set by
     ``remat_contexts`` while a rematerialized forward records or replays
     the statistics."""
 
@@ -92,7 +106,7 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
         cdt = torch.promote_types(x.dtype, torch.float32)
         xf = x.to(cdt)
         dims = (0, 2, 3)
-        reduce = (lambda t: t) if self.replicated else all_reduce_
+        reduce = _reduction(self.replicated)
         count = torch.full((1,), x.numel() // x.shape[1], dtype=torch.float64, device=x.device)
         sums = reduce(torch.cat([xf.sum(dims).double(), count]))
         n = sums[-1]
@@ -122,13 +136,14 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
 
 @contextlib.contextmanager
 def replicated_batch(model: nn.Module):
-    """While open, ``model``'s global BatchNorms take every rank's batch to
-    be the same one (a batch that the ranks cannot split, given whole to
-    each): their statistics and their backward's sums are this process's,
-    and the running variance is unbiased with this process's count, as one
-    process computes it. The other reductions need no such care: the
-    segmentation loss's ``world * sum / count`` is then the local mean, and
-    DistributedDataParallel averages equal gradients."""
+    """While open, ``model``'s global BatchNorms take every data group's
+    batch to be the same one (a batch that the data axis cannot split,
+    given whole to each): their statistics and their backward's sums are
+    the model group's (this process's without a model axis), and the
+    running variance is unbiased with its count, as one process computes
+    it. The other reductions need no such care: the segmentation loss's
+    ``data_world * sum / count`` is then the group's mean, and the DDP wrap
+    averages equal gradients over the data axis."""
     norms = [m for m in model.modules() if isinstance(m, GlobalBatchNorm2d)]
     for m in norms:
         m.replicated = True

@@ -13,13 +13,15 @@ bias-corrected moments, eps outside the square root, decoupled decay
 increment, as optax evaluates it.
 
 Under data parallelism ``state.model`` is the DistributedDataParallel wrap
-(parallel/ddp.py) and each rank steps on its shard of the global batch:
-the gradients, and so the gradient norm, are the ranks' average when the
-backward returns, and the loss reported is the mean of the ranks' losses,
-which is the global batch's (losses/direct.py, models/segmentation.py).
-``eval_step`` runs the bare module; on a batch split over ranks it scores
-the prediction of the global batch, gathered, as the JAX eval step's median
-scaling is over the sharded batch.
+(parallel/ddp.py) and each data group steps on its shard of the global
+batch: the gradients, and so the gradient norm, are the global batch's
+when the backward returns, and the loss reported is the mean of the data
+groups' losses, which is the global batch's (losses/direct.py,
+models/segmentation.py); the model ranks of a data group hold replicas of
+its loss and prediction. ``eval_step`` runs the bare module; on a batch
+split over the data axis it scores the prediction of the global batch,
+gathered, as the JAX eval step's median scaling is over the sharded
+batch.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from omnifusion_torch.evaluation.metrics import compute_depth_metrics
 from omnifusion_torch.losses.direct import berhu_loss
 from omnifusion_torch.models.segmentation import cross_entropy_ignore
 from omnifusion_torch.parallel.ddp import unwrap
-from omnifusion_torch.parallel.mesh import all_gather_cat, mean_over_ranks
+from omnifusion_torch.parallel.mesh import all_gather_cat, data_group, mean_over_ranks
 from omnifusion_torch.parallel.sync_bn import replicated_batch
 from omnifusion_torch.training.schedule import cosine_warm_restarts
 
@@ -139,7 +141,7 @@ def train_step(state: TrainState, batch: dict, confidence: bool = True) -> dict[
     state.optimizer.zero_grad(set_to_none=True)
     loss, pred = forward_loss(state.model, batch, confidence)
     grad_norm = _update(state, loss)
-    return {"loss": mean_over_ranks(loss.detach()), "grad_norm": grad_norm,
+    return {"loss": mean_over_ranks(loss.detach(), data_group()), "grad_norm": grad_norm,
             "pred_mean": pred.detach().mean()}
 
 
@@ -155,22 +157,23 @@ def seg_forward_loss(model: nn.Module, batch: dict) -> tuple[torch.Tensor, torch
 def train_step_sem(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
     """One update of a segmentation model; returns loss and grad_norm as
     0-d tensors on the model's device. A ``Batch`` that this rank holds
-    whole (``sharded`` false: one the ranks cannot split, which each runs
-    whole, as the JAX mesh replicates it) keeps its global BatchNorms on
-    this process's statistics and count (parallel.replicated_batch)."""
+    whole (``sharded`` false: one the data axis cannot split, which each
+    data group runs whole, as the JAX mesh replicates it) keeps its global
+    BatchNorms on the model group's statistics and count
+    (parallel.replicated_batch)."""
     state.optimizer.zero_grad(set_to_none=True)
     whole = not getattr(batch, "sharded", True)
     with replicated_batch(unwrap(state.model)) if whole else contextlib.nullcontext():
         loss, _ = seg_forward_loss(state.model, batch)
     grad_norm = _update(state, loss)
-    return {"loss": mean_over_ranks(loss.detach()), "grad_norm": grad_norm}
+    return {"loss": mean_over_ranks(loss.detach(), data_group()), "grad_norm": grad_norm}
 
 
 def eval_step(model: nn.Module, batch: dict, confidence: bool = True):
     """Eval-mode forward and the median-scaled depth metrics of its
     prediction, or of its last pass: (metrics, N, pred). On a batch that
-    is split over ranks (``batch.sharded``) the metrics and N are the
-    global batch's, the same on every rank; pred is this rank's."""
+    is split over the data axis (``batch.sharded``) the metrics and N are
+    the global batch's, the same on every rank; pred is this data group's."""
     model = unwrap(model)
     model.eval()
     with torch.inference_mode():
@@ -178,6 +181,6 @@ def eval_step(model: nn.Module, batch: dict, confidence: bool = True):
         pred = out[-1] if isinstance(out, (list, tuple)) else out
         scored = [pred, batch["depth"], batch["mask"]]
         if getattr(batch, "sharded", False):
-            scored = [all_gather_cat(t) for t in scored]
+            scored = [all_gather_cat(t, data_group()) for t in scored]
         metrics, n = compute_depth_metrics(*scored)
     return metrics, n, pred

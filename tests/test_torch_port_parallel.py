@@ -284,13 +284,11 @@ def test_parse_mesh_follows_jax_build_mesh(capsys, spec, batch):
     (jkind, jval), jout = outcome(
         lambda: jax_build_mesh(argparse.Namespace(mesh=spec, batch=batch)))
     assert out == jout
-    if jkind == "ok" and jval is not None and dict(jval.shape)["model"] > 1:
-        # the model axis is not ported: it refuses, and never becomes data ranks
-        assert kind == "exit" and "patch axis is not ported yet (see ROADMAP)" in val
-    elif jkind == "ok":
+    if jkind == "ok":
         # a data axis that does not divide the batch too ("3", 8): the JAX
         # build_mesh returns it, and only the train entry point refuses
-        # (test_train_cli_alone_refuses_a_batch_the_data_axis_does_not_divide)
+        # (test_train_cli_alone_refuses_a_batch_the_data_axis_does_not_divide);
+        # and a model axis ("2,2", 8; tests/test_torch_port_model_axis.py)
         assert kind == "ok"
         assert (val.shape if val is not None else None) == (
             dict(jval.shape) if jval is not None else None)
@@ -313,16 +311,14 @@ def test_train_cli_alone_refuses_a_batch_the_data_axis_does_not_divide(cli):
 
 @pytest.mark.parametrize("spec", ["2", "1,2"])
 def test_mesh_never_falls_back(monkeypatch, spec):
-    # --mesh 2 on a machine with one card (here: none), and a model axis
+    # --mesh 2 on a machine with one card (here: none), and a model axis of
+    # 2: both need DATA * MODEL = 2 cards, with the JAX build_mesh's message
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     args = R.cli_args(["--mesh", spec])
     args.device = None
     with pytest.raises(SystemExit) as e:
         common.build_mesh(args)
-    if spec == "2":
-        assert "needs 2 devices but only 1 are available (platform='cuda')" in str(e.value)
-    else:
-        assert "patch axis is not ported yet" in str(e.value)
+    assert "needs 2 devices but only 1 are available (platform='cuda')" in str(e.value)
 
 
 def test_mesh_under_torchrun_takes_the_world_size(monkeypatch):
@@ -330,8 +326,10 @@ def test_mesh_under_torchrun_takes_the_world_size(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "4")
     args = R.cli_args(["--batch", "8"])
     assert common.build_mesh(args).shape == {"data": 4, "model": 1}
+    args.mesh = "2,2"
+    assert common.build_mesh(args).shape == {"data": 2, "model": 2}
     args.mesh = "2"
-    with pytest.raises(SystemExit, match="the data axis is the world size, 4"):
+    with pytest.raises(SystemExit, match=r"under torchrun DATA \* MODEL is the world size, 4"):
         common.build_mesh(args)
 
 

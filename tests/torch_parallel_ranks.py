@@ -1,5 +1,6 @@
-"""What the ranks of the data-parallel tests run (tests/test_torch_port_parallel.py,
-and the card's case in tests/test_torch_port_cuda.py).
+"""What the ranks of the multi-rank tests run (tests/test_torch_port_parallel.py,
+tests/test_torch_port_model_axis.py, and the card's case in
+tests/test_torch_port_cuda.py).
 
 Each function runs in a rank that ``omnifusion_torch.parallel.launch.spawn``
 started, with its process group up, and returns plain numbers and CPU
@@ -63,9 +64,9 @@ def spec() -> ProjectionSpec:
     return ProjectionSpec.create(ERP, PATCH, (80, 80), 4)
 
 
-def build(kind: str, device="cpu") -> torch.nn.Module:
+def build(kind: str, device="cpu", remat: bool = False) -> torch.nn.Module:
     """The test configuration of each model: one-block stages, depth 1."""
-    kw = dict(depth=1, encoder_stages=ONE_BLOCK, device=device)
+    kw = dict(depth=1, encoder_stages=ONE_BLOCK, device=device, remat=remat)
     if kind == "iterative":
         return SphericalFusionIterative(spec(), num_iters=2, **kw)
     if kind == "seg":
@@ -74,15 +75,15 @@ def build(kind: str, device="cpu") -> torch.nn.Module:
 
 
 def step(kind: str, state_dict: dict, batch: dict, dtype=torch.float64, device="cpu",
-         confidence: bool = True, whole: bool = False) -> dict:
+         confidence: bool = True, whole: bool = False, remat: bool = False) -> dict:
     """One train step of ``kind`` from ``state_dict`` on ``batch`` (numpy,
     this process's part): in DDP when a group is up, else in one process.
-    ``whole``: the batch is a ``Batch`` that every rank holds whole
-    (``sharded`` false), as the loader gives a batch the ranks cannot
+    ``whole``: the batch is a ``Batch`` that every data group holds whole
+    (``sharded`` false), as the loader gives a batch the data axis cannot
     split. Returns the reported loss and grad norm, the averaged gradients,
     and the parameters and BatchNorm statistics after the step, on the
     CPU."""
-    model = build(kind, device).to(dtype)
+    model = build(kind, device, remat).to(dtype)
     model.load_state_dict(state_dict, strict=True)
     state = create_train_state(model, LR, WD, T0, T_MULT, STEPS_PER_EPOCH)
     if parallel.is_distributed():
@@ -436,3 +437,136 @@ def card_checks(state_dict: dict) -> dict:
     device = parallel.device()
     return {"batchnorm": {k: batchnorm_check(k, device) for k in BN_SHARDS},
             **card_steps(state_dict, device)}
+
+
+# ---- the mesh's model axis (tests/test_torch_port_model_axis.py) ----
+MODEL_MESH = parallel.Mesh(2, 2)
+
+
+def data_part(batch: dict) -> tuple[dict, bool]:
+    """This data group's part of a global batch and whether the group holds
+    it whole (a batch the data axis does not divide), as the loader gives
+    it."""
+    n, dw = next(iter(batch.values())).shape[0], parallel.data_world()
+    if n % dw:
+        return batch, True
+    return shard(batch, parallel.data_rank(), dw), False
+
+
+def gradchecks() -> dict:
+    """torch.autograd.gradcheck, float64, of the model axis's gathers on
+    this rank. Every rank perturbs the same input in step with the others,
+    so each path starts from a replicated input: through sum_cotangent (its
+    gradient whole on every rank) and shard_rows to this rank's chunk of
+    2 * MODEL + 1 rows, which the model ranks split unequally. Then
+    gather_patches alone (the identity), and the token path as the trunk
+    composes it (gather_tokens, a map that mixes every row into every row as
+    attention does, shard_rows, gather_patches); and, as a witness, that
+    path with gather_patches in place of gather_tokens, whose gradient lacks
+    the other ranks' parts."""
+    from omnifusion_torch.parallel import model_axis as ma
+
+    n = 2 * parallel.model_world() + 1
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((n, 3)))
+    mix = torch.from_numpy(rng.standard_normal((n, n)))
+
+    def local(t):
+        return ma.shard_rows(ma.sum_cotangent(t))
+
+    def path(gather):
+        return lambda t: ma.gather_patches(ma.shard_rows(mix @ gather(local(t), n)), n)
+
+    def check(fn, **kw):
+        return torch.autograd.gradcheck(fn, (x.clone().requires_grad_(),), **kw)
+
+    return {"chunks": ma.row_chunks(n),
+            "gather_patches": check(lambda t: ma.gather_patches(local(t), n)),
+            "gather_tokens": check(path(ma.gather_tokens)),
+            "tokens_without_the_sum": check(path(ma.gather_patches), raise_exception=False)}
+
+
+def reform(workdir: str, mesh: parallel.Mesh) -> bool:
+    """Take this rank's process group down and bring up one on ``mesh``
+    over the first ``mesh.data * mesh.model`` ranks; returns whether this
+    rank is in it."""
+    import torch.distributed as dist
+
+    rank, n = parallel.rank(), mesh.data * mesh.model
+    parallel.destroy()
+    if rank >= n:
+        return False
+    store = dist.FileStore(os.path.join(workdir, f"store_{mesh.data}x{mesh.model}"), n)
+    parallel.init_process_group(rank, n, "cpu", "gloo", store=store, mesh=mesh)
+    return True
+
+
+def run_model_axis(workdir: str) -> dict:
+    """Every check of tests/test_torch_port_model_axis.py on MODEL_MESH's
+    four ranks, then on the same processes as data 1 x model 4 and as data
+    1 x model 2 (ranks 0 and 1). The weights come from ``workdir/init.pt``."""
+    from omnifusion_torch.parallel.model_axis import row_chunks
+
+    torch.set_num_threads(1)
+    init = torch.load(os.path.join(workdir, "init.pt"), weights_only=True)
+    out = {"rank": parallel.rank(), "mesh": parallel.current_mesh().shape,
+           "data_rank": parallel.data_rank(), "model_rank": parallel.model_rank()}
+    part, _ = data_part(depth_batch(0))
+    out["oneshot_f64"] = step("oneshot", init["oneshot"], part)
+    out["oneshot_f32"] = step("oneshot", init["oneshot"], part, torch.float32)
+    out["iterative_f64"] = step("iterative", init["iterative"], part, confidence=False)
+    out["seg_f64"] = step("seg", init["seg"], data_part(seg_batch(1))[0])
+    whole, held_whole = data_part(seg_batch(1, b=3))
+    out["seg_whole"] = {"held_whole": held_whole,
+                        **step("seg", init["seg"], whole, whole=held_whole)}
+    out["seg_as_shard"] = step("seg", init["seg"], whole)
+    out["eval"] = model_axis_eval(workdir, f"eval_{parallel.rank()}")
+    out["train"] = model_axis_train(workdir, f"train_{parallel.rank()}")
+    out["gradcheck"] = gradchecks()
+    reform(workdir, parallel.Mesh(1, 4))
+    out["unequal"] = {"chunks": row_chunks(18), "gradcheck": gradchecks(),
+                      "oneshot_f64": step("oneshot", init["oneshot"], depth_batch(0, b=1))}
+    if reform(workdir, parallel.Mesh(1, 2)):
+        out["remat"] = {"remat": step("oneshot", init["oneshot"], depth_batch(0), remat=True),
+                        "plain": step("oneshot", init["oneshot"], depth_batch(0))}
+    return out
+
+
+def model_axis_eval(workdir: str, name: str) -> dict:
+    """cli.test's run_eval over 3 synthetic panoramas at batch 2 on the
+    group's mesh (``--mesh DATA,MODEL``; no mesh outside a group), from
+    ``workdir/tamed.pt``: a batch split over the data axis, then one every
+    data group runs whole."""
+    from omnifusion_torch.cli import test as test_cli
+
+    mesh = parallel.current_mesh()
+    spec = f"{mesh.data},{mesh.model}" if mesh is not None else "none"
+    return test_cli.run_eval(cli_args(
+        ["--synthetic_size", "3", "--batch", "2", "--mesh", spec, "--checkpoint",
+         os.path.join(workdir, "tamed.pt"), "--visualize_interval", "0", "--save_path",
+         os.path.join(workdir, name)]))
+
+
+def model_axis_train(workdir: str, name: str) -> dict:
+    """cli.train over 2 synthetic panoramas at batch 2 for one epoch (one
+    step and a validation) on the group's mesh (no mesh outside a group),
+    from ``workdir/tamed.pt``: the history and, on rank 0, what
+    read_checkpoint holds of the latest checkpoint; rank 0 then removes the
+    checkpoints (each about 0.3 GB)."""
+    import shutil
+
+    from omnifusion_torch.cli import train as train_cli
+
+    mesh = parallel.current_mesh()
+    spec = f"{mesh.data},{mesh.model}" if mesh is not None else "none"
+    ckpt = os.path.join(workdir, name, "ckpt")
+    hist = train_cli.run_training(cli_args(
+        ["--batch", "2", "--synthetic_size", "2", "--workers", "1", "--epochs", "1",
+         "--mesh", spec, "--checkpoint", os.path.join(workdir, "tamed.pt"),
+         "--visualize_interval", "0", "--save_path",
+         os.path.join(workdir, name), "--save_checkpoint", ckpt], train=True))
+    out = {k: hist[k] for k in ("steps", "train_loss", "val")}
+    if parallel.rank() == 0:
+        out["latest"] = read_checkpoint(os.path.join(ckpt, "latest.pt"))
+        shutil.rmtree(ckpt)
+    return out
