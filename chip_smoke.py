@@ -451,6 +451,11 @@ DDP_RANKS, DDP_KINDS, DDP_TIMED_STEPS = 2, ("oneshot", "iterative", "seg"), 3
 # mesh_model: (data, model), the models each rank steps, and whether it
 # also runs the batch-2 eval forward
 MESH_MODEL_RUNS = (((1, 2), DDP_KINDS, True), ((2, 2), ("oneshot",), False))
+# the eval forward on 1 x 2 against the one-process forward, relative to
+# the depth: about 4x and 5x the median and 99.9% quantile measured on an
+# H100 (9.9e-7, 6.0e-6; only the convolutions' row counts differ), and no
+# pixel off by 5%
+MESH_EVAL_MEDIAN, MESH_EVAL_Q999 = 4e-6, 3e-5
 # GlobalBatchNorm2d against cuDNN's BatchNorm2d, f32: conv1's output at
 # the flagship at batch 8 (72 patches per rank), each rank's half drawn
 # from another distribution, so that per-rank statistics would differ
@@ -712,7 +717,8 @@ def mesh_parity(kind: str, ranks: list, refs: dict, f64_witness: dict, passes: i
 def mesh_model_phase(gpu: str, refs: dict, f64_witness: dict) -> dict:
     """mesh_model: the runs of MESH_MODEL_RUNS, each as gloo ranks sharing
     the card, held to ``refs`` (one_process_refs) with ``f64_witness``, and
-    the eval forward to the one-process forward at the serving bounds.
+    the eval forward to the one-process forward (MESH_EVAL_MEDIAN,
+    MESH_EVAL_Q999).
     Returns each run's rank-0 one-shot launches for the kernels line."""
     from omnifusion_torch import parallel
     from omnifusion_torch.parallel.launch import spawn
@@ -738,8 +744,13 @@ def mesh_model_phase(gpu: str, refs: dict, f64_witness: dict) -> dict:
         if with_eval:
             stats = rel_stats(ranks[0]["eval"]["depth"], ref_depth)
             eval_launches = [r["eval"]["launches"] for r in ranks]
-            good = parity_ok(stats) and all(lc == per_run(1) for lc in eval_launches)
+            good = (stats["median_rel"] < MESH_EVAL_MEDIAN and stats["q999_rel"] < MESH_EVAL_Q999
+                    and stats["frac_rel_gt_0.05"] == 0
+                    and all(lc == per_run(1) for lc in eval_launches))
             result["eval_forward"] = {"batch": BATCH, "vs_one_process": stats,
+                                      "bounds": {"median_rel": MESH_EVAL_MEDIAN,
+                                                 "q999_rel": MESH_EVAL_Q999,
+                                                 "frac_rel_gt_0.05": 0},
                                       "launches_per_rank": eval_launches,
                                       "launches_expected": per_run(1), "ok": good}
             ok = ok and good

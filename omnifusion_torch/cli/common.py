@@ -260,7 +260,7 @@ def build_dataset(args, split_file: str, train: bool):
             seed=args.seed,
         )
     # each data group draws its own augmentations; its model ranks, which
-    # split the same panoramas, draw the same
+    # split the same panoramas, take model rank 0's (DataLoader.to_device)
     return make_dataset(args.dataset, args.input_dir, split_file, rotate=train, flip=train,
                         seed=args.seed + parallel.data_rank())
 

@@ -9,24 +9,35 @@ non-blocking copy, so the copy of the next batch overlaps the step that
 runs on the current one.
 
 Under data parallelism (``rank`` and ``world``: the data rank and the data
-axis's size; the model ranks of a data group load the same batches) every
-rank draws the same order of global batches from the same seed and loads
-only its data group's contiguous slice of each, so that the data groups
-together see the single-device batches, as the JAX loader's batches
-sharded over the mesh's data axis. A batch that the data groups cannot
-split evenly (the ragged tail with ``drop_last=False``) is loaded whole on
-every rank, as the JAX loader replicates it. Batches are ``Batch`` dicts:
-``sharded`` says whether this rank holds a slice of a batch split over the
-data axis.
+axis's size) every data group draws the same order of global batches from
+the same seed and loads only its contiguous slice of each, so that the
+data groups together see the single-device batches, as the JAX loader's
+batches sharded over the mesh's data axis. A batch that the data groups
+cannot split evenly (the ragged tail with ``drop_last=False``) is loaded
+whole on every rank, as the JAX loader replicates it. Batches are ``Batch``
+dicts: ``sharded`` says whether this rank holds a slice of a batch split
+over the data axis.
+
+Under a model axis the model ranks of a data group split the same
+panoramas, so they must hold the same samples. The datasets draw their
+augmentations from one generator per dataset, in the order the worker
+threads reach the samples, so ranks that loaded on their own could hold
+differently augmented copies. ``to_device`` therefore loads each batch on
+model rank 0 of the data group alone and broadcasts it over the model
+group.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
-from typing import Iterator
+import itertools
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from omnifusion_torch.parallel import mesh
 
 
 class Batch(dict):
@@ -91,7 +102,8 @@ class DataLoader:
 
     def to_device(self, device) -> Iterator[Batch]:
         """Iterate batches as tensors on ``device``, keeping two copies in
-        flight ahead of the consumer."""
+        flight ahead of the consumer. Under a model axis, model rank 0 of
+        each data group loads them and the others receive them."""
         device = torch.device(device)
         pin = device.type == "cuda"
 
@@ -102,9 +114,12 @@ class DataLoader:
                 out[k] = t.pin_memory().to(device, non_blocking=True) if pin else t.to(device)
             return out
 
+        share = mesh.model_world() > 1
+        loads = not share or mesh.model_rank() == 0
         queue = []
-        for b in self:
-            queue.append(put(b))
+        for b in self if loads else itertools.repeat(None, len(self)):
+            b = None if b is None else put(b)
+            queue.append(_from_model_root(b, device) if share else b)
             if len(queue) > 2:
                 yield queue.pop(0)
         yield from queue
@@ -126,3 +141,19 @@ class DataLoader:
                 if next_submit < len(batches):
                     futures.append(pool.submit(self._load_batch, batches[next_submit]))
                     next_submit += 1
+
+
+def _from_model_root(b: Optional[Batch], device) -> Batch:
+    """Model rank 0's batch ``b`` on every rank of its model group (``b``
+    is None on the others): its layout, then each tensor, broadcast over
+    the model group."""
+    src, group = mesh.data_rank() * mesh.model_world(), mesh.model_group()
+    head = [None if b is None else (b.sharded, {k: (t.shape, t.dtype) for k, t in b.items()})]
+    dist.broadcast_object_list(head, src=src, group=group)
+    sharded, layout = head[0]
+    if b is None:
+        b = Batch({k: torch.empty(shape, dtype=dtype, device=device)
+                   for k, (shape, dtype) in layout.items()}, sharded=sharded)
+    for t in b.values():
+        dist.broadcast(t, src=src, group=group)
+    return b

@@ -50,7 +50,6 @@ from omnifusion_torch.models.layers import (
 )
 from omnifusion_torch.models.resnet import RESNET34_STAGES, ResNet34Encoder
 from omnifusion_torch.models.transformer import TransformerCascade
-from omnifusion_torch.parallel.mesh import model_world
 from omnifusion_torch.parallel.model_axis import gather_patches, gather_tokens, shard_rows
 from omnifusion_torch.parallel.sync_bn import remat_contexts
 from omnifusion_torch.projection.ops import equi2pers, pers2equi_cf
@@ -228,10 +227,8 @@ class DepthTrunk(ResNet34Encoder):
         """The model group's (pred, conf) rows of the ``b`` panoramas, for a
         merge that every model rank runs whole (``model_axis.gather_patches``);
         this rank's own without a model axis."""
-        if model_world() == 1:
-            return pred, conf
-        both = gather_patches(torch.cat([pred, conf], dim=1), b * self.n_patches)
-        return both[:, : pred.shape[1]], both[:, pred.shape[1] :]
+        n = b * self.n_patches
+        return gather_patches(pred, n), gather_patches(conf, n)
 
 
 def confidence_merge(

@@ -55,12 +55,6 @@ def shard_rows(x: torch.Tensor) -> torch.Tensor:
     return x if m == 1 else torch.tensor_split(x, m)[model_rank()]
 
 
-def _local(g: torch.Tensor) -> torch.Tensor:
-    chunks = row_chunks(g.shape[0])
-    start = sum(chunks[: model_rank()])
-    return g[start : start + chunks[model_rank()]]
-
-
 class _GatherRows(torch.autograd.Function):
     """The model group's chunks concatenated along dim 0 (``n`` rows in
     all); the backward is this rank's rows of the cotangent."""
@@ -79,7 +73,7 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return _local(g), None
+        return shard_rows(g), None
 
 
 class _SumCotangent(torch.autograd.Function):

@@ -25,7 +25,10 @@ by the entry point) and without a mesh.
   output once, equal to one process;
 - (f) --remat on data 1 x model 2 against the plain step there;
 - (g) both gathers' gradients by torch.autograd.gradcheck, float64, on the
-  ranks of both meshes.
+  ranks of both meshes;
+- the loader: on data 2 x model 2, the model ranks of a data group hold
+  the same augmented batches of a Stanford2D3D-format split loaded by
+  worker threads, though each rank's dataset draws its own augmentations.
 """
 
 import concurrent.futures
@@ -114,6 +117,16 @@ def _infer(tmp, mesh: str) -> dict:
             "depth": [np.load(p) for p in paths]}
 
 
+def _unaugmented_depth_sums(root: str, split: str) -> list[list[float]]:
+    """Each global batch's depth sums per sample, in one process without
+    augmentation (a flip and a roll keep a sample's sum)."""
+    c = R.MODEL_AXIS_LOADER
+    loader = R.DataLoader(R.SmallStanford(root, split), c["batch"], shuffle=True,
+                          num_workers=1, seed=3)
+    return [b["depth"].astype(np.float64).sum(axis=(1, 2, 3)).tolist()
+            for _ in range(c["epochs"]) for b in loader]
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The ranks' results (rank order) and this process's references."""
@@ -130,6 +143,7 @@ def runs(tmp_path_factory):
     (work / "in").mkdir()
     for i in range(3):
         np.save(work / "in" / f"p{i}.npy", rng.random((*R.ERP, 3), dtype=np.float32))
+    split = R.write_stanford_split(str(work), R.MODEL_AXIS_LOADER["n"])
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(spawn, R.run_model_axis, RANKS, (str(work),), lambda r: "cpu",
@@ -145,6 +159,7 @@ def runs(tmp_path_factory):
             "eval": R.model_axis_eval(str(work), "eval_ref"),
             "train": R.model_axis_train(str(work), "train_ref"),
             "infer": {m: _infer(work, m) for m in ("none", "1,2")},
+            "loader_depth_sums": _unaugmented_depth_sums(str(work), split),
         }
         ranks = ranks.result()
     return ranks, ref
@@ -321,6 +336,27 @@ def test_gathers_pass_gradcheck_on_the_ranks(runs, mesh):
         assert g["gather_patches"] and g["gather_tokens"]
         # the token gather's backward needs its sum over the model group
         assert not g["tokens_without_the_sum"]
+
+
+# ---- the loader ----
+
+
+def test_model_ranks_of_a_data_group_hold_the_same_augmented_batches(runs):
+    ranks, ref = runs
+    c, want = R.MODEL_AXIS_LOADER, ref["loader_depth_sums"]
+    per_group = c["batch"] // R.MODEL_MESH.data
+    assert len(want) == c["epochs"] * c["n"] // c["batch"]
+    for r in ranks:
+        got, d = r["loader"], r["data_rank"]
+        assert got["sharded"] == [True] * len(want)
+        # the data group's slice of each global batch, augmented
+        for sums, full in zip(got["depth_sums"], want):
+            np.testing.assert_allclose(sums, full[d * per_group : (d + 1) * per_group],
+                                       rtol=1e-12)
+        assert got["digests"] == ranks[d * R.MODEL_MESH.model]["loader"]["digests"]
+    assert ranks[0]["loader"]["digests"] != ranks[2]["loader"]["digests"]
+    # the witness: the ranks' own loads differ
+    assert ranks[0]["loader"]["own_digests"] != ranks[1]["loader"]["own_digests"]
 
 
 def test_one_process_has_no_model_axis():

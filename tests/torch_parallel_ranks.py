@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from omnifusion_torch import parallel
-from omnifusion_torch.data import DataLoader
+from omnifusion_torch.data import DataLoader, StanfordDataset
 from omnifusion_torch.data.loader import Batch
 from omnifusion_torch.losses import berhu_loss
 from omnifusion_torch.models import (
@@ -523,6 +523,7 @@ def run_model_axis(workdir: str) -> dict:
     out["eval"] = model_axis_eval(workdir, f"eval_{parallel.rank()}")
     out["train"] = model_axis_train(workdir, f"train_{parallel.rank()}")
     out["gradcheck"] = gradchecks()
+    out["loader"] = model_axis_loader(workdir)
     reform(workdir, parallel.Mesh(1, 4))
     out["unequal"] = {"chunks": row_chunks(18), "gradcheck": gradchecks(),
                       "oneshot_f64": step("oneshot", init["oneshot"], depth_batch(0, b=1))}
@@ -530,6 +531,67 @@ def run_model_axis(workdir: str) -> dict:
         out["remat"] = {"remat": step("oneshot", init["oneshot"], depth_batch(0), remat=True),
                         "plain": step("oneshot", init["oneshot"], depth_batch(0))}
     return out
+
+
+class SmallStanford(StanfordDataset):
+    """The Stanford2D3D reader at the tests' panorama size."""
+
+    pano_h, pano_w = ERP
+
+
+def write_stanford_split(root: str, n: int) -> str:
+    """``n`` panoramas in the Stanford2D3D format (8-bit RGB PNG, 16-bit
+    depth PNG of depth * 65535 / 128) under ``root``, and their split file."""
+    import cv2
+
+    rng = np.random.default_rng(21)
+    rows = []
+    for i in range(n):
+        rgb = rng.integers(0, 256, (*ERP, 3), dtype=np.uint8)
+        depth = rng.uniform(0.5, 7.5, ERP) * 65535 / 128
+        cv2.imwrite(os.path.join(root, f"pano{i}_rgb.png"), rgb)
+        cv2.imwrite(os.path.join(root, f"pano{i}_depth.png"), depth.astype(np.uint16))
+        rows.append(f"/pano{i}_rgb.png /pano{i}_depth.png")
+    split = os.path.join(root, "split.txt")
+    with open(split, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return split
+
+
+MODEL_AXIS_LOADER = dict(n=8, batch=4, epochs=2, workers=4)
+
+
+def model_axis_loader(workdir: str, device: str = "cpu") -> dict:
+    """Two epochs of a shuffled loader over ``workdir/split.txt`` with every
+    augmentation on and four worker threads, as cli.train builds it, but
+    with the dataset seeded by the global rank, so that ranks that load on
+    their own draw different augmentations whatever order the workers take:
+    each batch's digest and its samples' depth sums through
+    ``to_device(device)`` (what the model ranks train on), and the digests
+    of this rank's own loads, the witness."""
+    import hashlib
+
+    c = MODEL_AXIS_LOADER
+    loader = DataLoader(
+        SmallStanford(workdir, os.path.join(workdir, "split.txt"), rotate=True, flip=True,
+                      permute_color=True, gamma=True, seed=parallel.rank()),
+        c["batch"], shuffle=True, num_workers=c["workers"], seed=3,
+        rank=parallel.data_rank(), world=parallel.data_world())
+
+    def digest(b):
+        h = hashlib.sha1()
+        for k in sorted(b):
+            h.update(np.ascontiguousarray(b[k]).tobytes())
+        return h.hexdigest()
+
+    shared = [{k: t.cpu() for k, t in b.items()} | {"sharded": b.sharded}
+              for _ in range(c["epochs"]) for b in loader.to_device(device)]
+    own = [digest(b) for _ in range(c["epochs"]) for b in loader]
+    return {"digests": [digest({k: b[k].numpy() for k in ("rgb", "depth", "mask")})
+                        for b in shared],
+            "sharded": [b["sharded"] for b in shared],
+            "depth_sums": [b["depth"].double().sum(dim=(1, 2, 3)).tolist() for b in shared],
+            "own_digests": own}
 
 
 def model_axis_eval(workdir: str, name: str) -> dict:
