@@ -34,6 +34,14 @@ patch 128, fov 80, nrows 4, seeded random weights):
   versions; the check phase holds the 14-row merge, its spread, the
   perspective views (omnifusion_torch/projection/perspective.py, forward and
   backward) and the channel-last pers2equi to the plain versions;
+- the extras: pano_stretch (omnifusion_torch/ops/pano_stretch.py) forward
+  and backward at two (kx, ky), f32 and bf16, through the blend and spread
+  kernels on its own tables, each call held to the plain versions and timed
+  beside F.grid_sample; the DIBR chain (dibr_vertical, dibr_horizontal, the
+  photometric and guided smoothness losses, their backward to the depth, the
+  normals, chamfer on 16,384 points per cloud) held to the same chain in
+  float64 on the card and, where f32 rounding alone passes a fixed bound
+  (the plane-fit normals, the depth gradient), to the CPU's f32 chain;
 - the multi-device path (omnifusion_torch/parallel): ddp_gloo2 spawns two
   gloo ranks on the card (nccl refuses two ranks on one device), which
   probe gloo's collectives on CUDA tensors, hold GlobalBatchNorm2d to
@@ -190,6 +198,28 @@ VIEW_CENTERS = ((0.5, 0.0), (90.0, 20.0), (180.0, 0.0), (270.0, -20.0), (359.5, 
                 (45.0, 88.0), (135.0, -88.0), (225.0, -45.0))
 VIEW_FOV, VIEW_SIZE = (90.0, 90.0), (256, 256)
 WIDE_VIEW_CENTERS, WIDE_VIEW_FOV = ((0.0, 89.0), (359.9, 0.0)), (120.0, 120.0)
+# the extras: pano_stretch at each (kx, ky), f32 and bf16, forward and
+# backward, at the flagship's ERP and batch 2; the DIBR chain (the upstream
+# self-supervised path) at the same size, held against the same chain in
+# float64 on the card: its images, the cross normals and the curvature at
+# the serving bounds (parity_ok), its losses and the chamfer distance within
+# EXTRAS_LOSS_TOL (relative). Two results are further from float64 than a
+# fixed bound in any f32 run (f32 against float64 on the CPU, at 512x1024):
+# the plane fit's normals (its 3x3 Gram matrices are ill-conditioned: 16%
+# of the components more than 5% off; at 64x128 the JAX package's lie as
+# far, tests/test_torch_port_extras.py) and the depth gradient (the splat's
+# floor and weight threshold flip where f32 rounds a coordinate: 1.6% off,
+# 8x its move under a one-ulp nudge of the depth). Those two are held to
+# the CPU's f32 chain on the same inputs: the plane fit's statistics within
+# F64_RATIO times the CPU's distance from float64 (its share above 0.05 plus
+# PLANE_FIT_SHARE), the gradient as step_parity holds a train step (the
+# CPU's chain as the reference, float64 and the CPU's one-ulp nudge as the
+# witnesses). Chamfer runs on CHAMFER_POINTS seeded points of each cloud:
+# the whole cloud (524,288 points) would take a block of 1024 x 524,288 x 3
+# f32 (6.4 GB) per step
+STRETCH_KS = ((1.3, 0.8), (1.0, 1.0))
+DIBR_BASELINE, PHOTOMETRIC_WINDOW = 0.26, 7
+CHAMFER_POINTS, CHAMFER_BLOCK, EXTRAS_LOSS_TOL, PLANE_FIT_SHARE = 16384, 1024, 1e-5, 1e-4
 
 
 def emit(obj) -> None:
@@ -769,6 +799,275 @@ def mesh_model_phase(gpu: str, refs: dict, f64_witness: dict) -> dict:
         if not ok:
             raise AssertionError(f"mesh_model {mesh.shape}: see its line")
     return launches
+
+
+def smooth_depth(b: int, h: int, w: int, device, seed: int, lo: float = 1.0,
+                 hi: float = 8.0) -> torch.Tensor:
+    """(B, H, W, 1) f32 depth in [lo, hi] on ``device``: per panorama four
+    low-frequency cosines with seeded amplitudes, frequencies and phases."""
+    g = torch.Generator().manual_seed(seed)
+    y = torch.linspace(0, 1, h, dtype=torch.float64)[:, None]
+    x = torch.linspace(0, 1, w, dtype=torch.float64)[None]
+
+    def draw():
+        fx, fy = torch.randint(1, 4, (2,), generator=g).tolist()
+        a, phase = torch.rand(2, generator=g, dtype=torch.float64).tolist()
+        return a * torch.cos(2 * np.pi * (fx * x + (fy - 1) * y) + 6 * phase)
+
+    maps = []
+    for _ in range(b):
+        d = sum(draw() for _ in range(4))
+        maps.append(lo + (hi - lo) * (d - d.min()) / (d.max() - d.min()))
+    return torch.stack(maps)[..., None].float().to(device)
+
+
+def extras_chain(depth: torch.Tensor, rgb: torch.Tensor, true_depth: torch.Tensor,
+                 pick: torch.Tensor):
+    """The DIBR chain in ``depth``'s dtype: the views shifted vertically and
+    horizontally by DIBR_BASELINE, each held to ``rgb`` by the photometric
+    loss (Gaussian SSIM, window PHOTOMETRIC_WINDOW) on the pixels it
+    rendered; the guided smoothness loss of the depth's Sobel gradients
+    (imgrad_yx) under the rgb's; the backward of their sum to the depth;
+    the normals (cross, with the curvature, and the plane fit); the
+    symmetric chamfer distance between the ``pick`` points of the depth's
+    cloud and of ``true_depth``'s. Returns (images and normals, losses,
+    the depth's gradient)."""
+    from omnifusion_torch.evaluation import chamfer_distance_symmetric
+    from omnifusion_torch.geometry.sphere import create_image_grid, create_spherical_grid
+    from omnifusion_torch.losses import (
+        PhotometricLossParameters, guided_smoothness_loss, photometric_loss,
+    )
+    from omnifusion_torch.ops import (
+        depth_to_points, dibr_horizontal, dibr_vertical, imgrad_yx, normals_cross,
+        normals_plane_fit,
+    )
+
+    b, h, w, _ = depth.shape
+    dev, dt = depth.device, depth.dtype
+    uv = torch.from_numpy(create_image_grid(w, h)).to(dev, dt).expand(b, h, w, 2)
+    sg = torch.from_numpy(create_spherical_grid(w)).to(dev, dt).expand(b, h, w, 2)
+    depth = depth.detach().requires_grad_()
+    images = {"dibr_vertical": dibr_vertical(depth, rgb, uv, sg, DIBR_BASELINE),
+              "dibr_horizontal": dibr_horizontal(depth, rgb, uv, sg, DIBR_BASELINE)}
+    params = PhotometricLossParameters(window=PHOTOMETRIC_WINDOW)
+    losses = {f"photometric_{k}": photometric_loss(v, rgb, params, (v.detach() != 0).any(
+        -1, keepdim=True)) for k, v in images.items()}
+    losses["guided_smoothness"] = guided_smoothness_loss(
+        imgrad_yx(depth).abs(), imgrad_yx(rgb).abs(), depth.detach() > 0)
+    sum(losses.values()).backward()
+    with torch.no_grad():
+        images["normals_cross"], images["curvature"] = normals_cross(depth, return_curvature=True)
+        images["normals_plane_fit"] = normals_plane_fit(depth)
+        clouds = [depth_to_points(d).reshape(b, h * w, 3)[:, pick] for d in (depth, true_depth)]
+        losses["chamfer_symmetric"] = chamfer_distance_symmetric(*clouds, block=CHAMFER_BLOCK)
+    return ({k: v.detach() for k, v in images.items()}, {k: v.item() for k, v in losses.items()},
+            depth.grad)
+
+
+def extras_phase(gpu: str, timer) -> dict:
+    """The extras (see STRETCH_KS): the stretch's tables and its path, each
+    call held to the plain blend and spread, its time rows beside F.grid_sample;
+    the DIBR chain against float64, and its time rows. Returns the stretch
+    path's launches, its time rows by kernel and the largest f32 differences
+    from the plain versions."""
+    import torch.nn.functional as F
+
+    from omnifusion_torch.evaluation import chamfer_distance_symmetric
+    from omnifusion_torch.geometry.sphere import create_image_grid, create_spherical_grid
+    from omnifusion_torch.losses import (
+        PhotometricLossParameters, guided_smoothness_loss, photometric_loss,
+    )
+    from omnifusion_torch.ops import (
+        depth_to_points, dibr_horizontal, dibr_vertical, imgrad_yx, normals_cross,
+        normals_plane_fit, pano_stretch,
+    )
+    from omnifusion_torch.ops.pano_stretch import stretch_grid, stretch_tables
+    from omnifusion_torch.ops.quad_blend import (
+        STAGE_MAX_FOOTPRINT, quad_blend, quad_blend_plain, quad_spread, quad_spread_plain,
+    )
+    from omnifusion_torch.utils.profiling import blend_bound, nbytes, spread_bound
+
+    dev = torch.device(DEVICE)
+    b, (h, w) = BATCH, ERP
+    g = torch.Generator(device=dev).manual_seed(13)
+    t0_phase = time.perf_counter()
+
+    # ---- the stretch's tables (host seconds, each pair built once) ----
+    tables, build_s = {}, {}
+    for ks in STRETCH_KS:
+        t0 = time.perf_counter()
+        tables[ks] = stretch_tables(h, w, *ks, dev)
+        build_s[f"{ks[0]},{ks[1]}"] = time.perf_counter() - t0
+    emit({"phase": "tables_stretch", "seconds": build_s, **{
+        f"{ks[0]},{ks[1]}": {"n_out": t.n_out, "k": t.k, "n_in": t.n_in,
+                             "tile": list(t.tiles.shape), "tiles": t.tiles.n_tiles,
+                             "max_footprint_pixels": t.tiles.pitch,
+                             "footprint_per_output": t.tiles.footprint,
+                             "staged": t.tiles.footprint <= STAGE_MAX_FOOTPRINT,
+                             "k_t": t.vjp.k_t, "overflow": t.vjp.n_over,
+                             "heavy_pixels": t.vjp.heavy.numel()}
+        for ks, t in tables.items()}})
+
+    # ---- the path: pano_stretch forward and backward through the public
+    # op, each (kx, ky), f32 and bf16, its launches counted ----
+    x32 = torch.rand(b, h, w, 3, device=dev, generator=g)
+    cot32 = torch.rand(b, h, w, 3, device=dev, generator=g)
+    runs = {}
+    zero_counts()
+    for ks in STRETCH_KS:
+        for dt in (torch.float32, torch.bfloat16):
+            img = x32.to(dt, copy=True).requires_grad_()  # a leaf of its own
+            out = pano_stretch(img, *ks)
+            out.backward(cot32.to(dt))
+            runs[ks, dt] = img, out.detach()
+    torch.cuda.synchronize()
+    launches = counts()
+    want = {k: 0 for k in launches}
+    want.update(quad_blend=len(runs), quad_spread=len(runs))
+    emit({"phase": "extras_stretch", "shape": [b, h, w, 3], "ks": [list(k) for k in STRETCH_KS],
+          "dtypes": ["float32", "bfloat16"], "launches": launches, "launches_expected": want})
+    if launches != want:
+        raise AssertionError(f"pano_stretch launches {launches}, expected {want}")
+    errs = {"quad_blend": 0.0, "quad_spread": 0.0}
+    for (ks, dt), (img, out) in runs.items():
+        t = tables[ks]
+        case = f"pano_stretch_{ks[0]}_{ks[1]}_{str(dt)[6:]}"
+        f32 = dt == torch.float32
+        rows_in = img.detach().reshape(b, h * w, 3)
+        err = check("quad_blend", case, out.reshape(b, h * w, 3),
+                    quad_blend_plain(rows_in, t, True, dt), BLEND_TOL,
+                    0.0 if f32 else UP2X_BF16_RTOL, footprint=t.tiles.footprint)
+        s_atol, s_rtol = SPREAD_TOL[dt]
+        s_err = check("quad_spread", case, img.grad.reshape(b, h * w, 3),
+                      quad_spread_plain(cot32.to(dt).reshape(b, h * w, 3), t.vjp, True).to(dt),
+                      s_atol, s_rtol, overflow=t.vjp.n_over)
+        if f32:
+            errs["quad_blend"] = max(errs["quad_blend"], err)
+            errs["quad_spread"] = max(errs["quad_spread"], s_err)
+    del runs, img, out
+
+    # ---- its time rows: (1.3, 0.8), f32, the kernels beside their bounds,
+    # plain versions and F.grid_sample (forward; its backward for the
+    # spread) on the same grid ----
+    ks = STRETCH_KS[0]
+    t = tables[ks]
+    x, cot = x32.reshape(b, h * w, 3), cot32.reshape(b, h * w, 3)
+    out = quad_blend(x, t, True, torch.float32)
+    grad = quad_spread(cot, t.vjp, True)
+    grid = torch.from_numpy(np.stack(stretch_grid(h, w, *ks), -1)).float().to(dev)
+    grid = grid.expand(b, h, w, 2).contiguous()
+    x_nchw, cot_nchw = (a.permute(0, 3, 1, 2).contiguous() for a in (x32, cot32))
+
+    def lib():
+        return F.grid_sample(x_nchw, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    def lib_backward():  # bilinear (0), zeros (0), align_corners, the input's gradient only
+        return torch.ops.aten.grid_sampler_2d_backward(cot_nchw, x_nchw, grid, 0, 0, True,
+                                                       [True, False])[0]
+
+    def nhwc_rows(a):
+        return a.permute(0, 2, 3, 1).reshape(b, h * w, 3)
+
+    rows = {}
+    b_ms, b_by = blend_bound(x, t, out)
+    rows["quad_blend"] = {
+        "case": "pano_stretch", "kx": ks[0], "ky": ks[1], "shape": [b, h, w, 3], "dtype": "float32",
+        "launches": launches["quad_blend"],
+        "ms": timer(lambda: quad_blend(x, t, True, torch.float32)),
+        "plain_ms": timer(lambda: quad_blend_plain(x, t, True, torch.float32), iters=5, warmup=1),
+        "library": "F.grid_sample(bilinear, zeros, align_corners=True)", "library_ms": timer(lib),
+        "library_max_abs_err": (nhwc_rows(lib()) - out).abs().max().item(),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "tile_table_bytes": nbytes(t.tiles.off, t.tiles.grp, t.tiles.grp_ptr),
+    }
+    s_ms, s_by = spread_bound(cot, t.vjp, grad)
+    rows["quad_spread"] = {
+        "case": "pano_stretch_backward", "kx": ks[0], "ky": ks[1], "shape": [b, h, w, 3],
+        "dtype": "float32", "launches": launches["quad_spread"], "overflow": t.vjp.n_over,
+        "heavy": t.vjp.heavy.numel(),
+        "ms": timer(lambda: quad_spread(cot, t.vjp, True)),
+        "plain_ms": timer(lambda: quad_spread_plain(cot, t.vjp, True), iters=5, warmup=1),
+        "library": "aten.grid_sampler_2d_backward (F.grid_sample's input gradient)",
+        "library_ms": timer(lib_backward),
+        "library_max_abs_err": (nhwc_rows(lib_backward()) - grad).abs().max().item(),
+        "bound_ms": s_ms, "bound_by": s_by,
+    }
+    for kernel, r in rows.items():
+        emit({"phase": "time", "kernel": kernel, "gpu": gpu, **r})
+    del x, cot, out, grad, grid, x_nchw, cot_nchw
+
+    # ---- the DIBR chain against float64, with the CPU's f32 chain (the
+    # path the tests hold to the JAX package) as the witness where f32
+    # rounding alone moves a result past a fixed bound ----
+    depth = smooth_depth(b, h, w, dev, seed=21)
+    true_depth = smooth_depth(b, h, w, dev, seed=22)
+    rgb = torch.rand(b, h, w, 3, device=dev, generator=g)
+    pick = torch.randperm(h * w, generator=torch.Generator().manual_seed(23))[:CHAMFER_POINTS]
+    nudge = torch.rand(depth.shape, generator=torch.Generator().manual_seed(24)) < 0.5
+    ims, losses, grad = extras_chain(depth, rgb, true_depth, pick.to(dev))
+    ims64, losses64, grad64 = extras_chain(depth.double(), rgb.double(), true_depth.double(),
+                                           pick.to(dev))
+    host = [a.cpu() for a in (depth, rgb, true_depth)] + [pick]
+    ims_cpu, losses_cpu, grad_cpu = extras_chain(*host)
+    nudged = torch.where(nudge, torch.nextafter(host[0], host[0] + 1), host[0])
+    _, losses_nudged, grad_nudged = extras_chain(nudged, *host[1:])
+    ref = {k: v.cpu().numpy() for k, v in ims64.items()}
+    image_stats = {k: rel_stats(v.cpu().numpy(), ref[k]) for k, v in ims.items()}
+    plane_cpu = rel_stats(ims_cpu["normals_plane_fit"].numpy(), ref["normals_plane_fit"])
+    loss_rel = {k: abs(v / losses64[k] - 1) for k, v in losses.items()}
+    differentiated = [k for k in losses if k != "chamfer_symmetric"]
+
+    def step(ls, gr):  # step_parity's (loss, {name: gradient})
+        return sum(ls[k] for k in differentiated), {"depth": gr.detach().double().cpu()}
+
+    grad_par, grad_ok = step_parity(step(losses, grad), step(losses_cpu, grad_cpu),
+                                    step(losses64, grad64), step(losses_nudged, grad_nudged),
+                                    loss_tol=EXTRAS_LOSS_TOL)
+    plane = image_stats["normals_plane_fit"]
+    ok = (all(parity_ok(st) for k, st in image_stats.items() if k != "normals_plane_fit")
+          and all(plane[k] <= F64_RATIO * plane_cpu[k] + (PLANE_FIT_SHARE if k.startswith("frac")
+                                                          else 0.0)
+                  for k in ("median_rel", "q999_rel", "frac_rel_gt_0.05"))
+          and all(r < EXTRAS_LOSS_TOL for r in loss_rel.values()) and grad_ok)
+    emit({"phase": "extras_dibr", "shape": [b, h, w], "baseline": DIBR_BASELINE,
+          "photometric_window": PHOTOMETRIC_WINDOW, "chamfer_points": CHAMFER_POINTS,
+          "precision": "f32 (tf32 off) against float64 on the card", "images": image_stats,
+          "normals_plane_fit_cpu_f32": plane_cpu, "plane_fit_ratio": F64_RATIO,
+          "plane_fit_share_slack": PLANE_FIT_SHARE, "losses": losses, "losses_f64": losses64,
+          "losses_cpu": losses_cpu, "loss_rel": loss_rel, "loss_tol": EXTRAS_LOSS_TOL,
+          "depth_grad": grad_par, "f64_ratio": F64_RATIO, "ulp_ratio": ULP_RATIO,
+          "finite": all(bool(torch.isfinite(v).all()) for v in ims.values())})
+    if not ok or not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError("extras_dibr: see its line")
+    del ims64, grad64, ims_cpu, grad_cpu, grad_nudged, host, nudged, ref
+    pick = pick.to(dev)
+
+    # ---- its time rows: device ms per call of each extra at that size ----
+    uv = torch.from_numpy(create_image_grid(w, h)).to(dev).float().expand(b, h, w, 2)
+    sg = torch.from_numpy(create_spherical_grid(w)).to(dev).float().expand(b, h, w, 2)
+    view = ims["dibr_vertical"]
+    mask = (view != 0).any(-1, keepdim=True)
+    params = PhotometricLossParameters(window=PHOTOMETRIC_WINDOW)
+    clouds = [depth_to_points(d).reshape(b, h * w, 3)[:, pick] for d in (depth, true_depth)]
+    calls = {
+        "dibr_vertical": lambda: dibr_vertical(depth, rgb, uv, sg, DIBR_BASELINE),
+        "dibr_horizontal": lambda: dibr_horizontal(depth, rgb, uv, sg, DIBR_BASELINE),
+        "photometric_loss": lambda: photometric_loss(view, rgb, params, mask),
+        "guided_smoothness_loss": lambda: guided_smoothness_loss(
+            imgrad_yx(depth).abs(), imgrad_yx(rgb).abs(), depth > 0),
+        "normals_cross": lambda: normals_cross(depth, return_curvature=True),
+        "normals_plane_fit": lambda: normals_plane_fit(depth),
+        "chamfer_distance_symmetric": lambda: chamfer_distance_symmetric(*clouds,
+                                                                         block=CHAMFER_BLOCK),
+        "chain_with_backward": lambda: extras_chain(depth, rgb, true_depth, pick),
+    }
+    emit({"phase": "time_extras", "gpu": gpu, "shape": [b, h, w],
+          "ms": {k: timer(fn, iters=5, warmup=1) for k, fn in calls.items()}})
+    emit({"phase": "extras", "seconds": time.perf_counter() - t0_phase})
+    stretch_tables.cache_clear()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rows": rows, "errs": errs}
 
 
 def multi_device_phases(gpu: str, f64_witness: dict) -> dict:
@@ -1589,6 +1888,12 @@ def main() -> int:
     perspective_tables.cache_clear()
     inverse_perspective_tables.cache_clear()
     torch.cuda.empty_cache()
+
+    # ---- the extras: pano_stretch on the blend and spread kernels, and the
+    # DIBR chain against float64 ----
+    extras = extras_phase(gpu, timer)
+    for name, err in extras["errs"].items():
+        note(name, err)
 
     # ---- serving: panoramas through the entry point ----
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as tmp:
@@ -2707,6 +3012,13 @@ def main() -> int:
             "launches_mesh1_of": f"cli.train --mesh 1: {TRAIN_STEPS} steps at batch "
                                  f"{TRAIN_BATCH}, {val_forwards} validation forwards",
             **{f"launches_{k}": v[name] for k, v in tool_launches.items()},
+            **({"launches_pano_stretch": extras["launches"][name],
+                "launches_pano_stretch_of": "pano_stretch forward and backward at "
+                                            f"{len(STRETCH_KS)} (kx, ky), f32 and bf16, batch "
+                                            f"{BATCH}",
+                **{f"{k}_pano_stretch": extras["rows"][name][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+               if name in extras["rows"] else {}),
             "launches_tools_of": "each tool's run in this process (bench_train: f32, tf32, "
                                  "bf16 and iterative_f32, the forwards and steps its JSON "
                                  "line counts; remat: bench_train --remat --skip_fwd; "

@@ -38,6 +38,8 @@ What lives here:
 - ``quad_blend_plain`` and ``quad_spread_plain``: the same functions in
   plain PyTorch. Autograd never differentiates them: both run inside the
   Function, with autograd off.
+- ``gather_blend``: the K-way weighted gather of ``sparse_blend.py:165``,
+  plain PyTorch (XLA in the JAX package, not a Pallas kernel).
 - ``BlendTables`` and ``SpreadTables``: the tables as tensors on one device;
   ``BlendTables`` also carries ``tiles`` (``TileTables``, built by
   ``tile_tables``): the output tiles of the kernel's blocks, each tile's
@@ -415,6 +417,17 @@ def quad_spread_plain(
             )
         out += torch.roll(plane, off, dims=1)  # out[i] += plane[(i - off) mod N_in]
     return _unrows(out, b, c, channel_last)
+
+
+def gather_blend(src_flat: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted gather along the pixel axis (sparse_blend.py:165-187).
+
+    src_flat (B, N_in, C); idx (N_out, K) indices into N_in (entries with
+    zero weight may point anywhere valid); w (N_out, K) weights, cast to the
+    source's dtype, as the JAX package does. Returns (B, N_out, C) =
+    sum_k w[n, k] * src_flat[:, idx[n, k], :]."""
+    g = src_flat[:, idx.long()]  # (B, N_out, K, C)
+    return (g * w.to(src_flat.dtype)[..., None]).sum(2)
 
 
 def _strides(x: torch.Tensor, channel_last: bool):

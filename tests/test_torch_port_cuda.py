@@ -607,3 +607,36 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
         # per rank and step: 2 blends, 1 spread, 5 upsamples and 5 adjoints
         assert r["launches"] == {"quad_blend": 2, "quad_spread": 1, "up2x": 5,
                                  "up2x_adjoint": 5}, r["launches"]
+
+
+# ---- the extras: pano_stretch on the blend and spread kernels ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_pano_stretch_kernels_match_plain(cuda, dtype, channels):
+    # forward through the blend kernel, backward through the spread kernel,
+    # each held to its plain version on the same tables
+    from omnifusion_torch.ops.pano_stretch import pano_stretch, stretch_tables
+
+    h, w = 64, 128
+    gen = torch.Generator().manual_seed(11)
+    img = torch.rand(2, h, w, channels, generator=gen).to(cuda, dtype).requires_grad_()
+    cot = torch.rand(2, h, w, channels, generator=gen).to(cuda, dtype)
+    tables = stretch_tables(h, w, 1.3, 0.8, img.device)
+    before = quad_blend.launches, quad_spread.launches
+    out = pano_stretch(img, 1.3, 0.8)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert (quad_blend.launches, quad_spread.launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == img.grad.dtype == dtype
+    rows = (2, h * w, channels)
+    # f32: the plain version's sums in another order; bf16: the same f32
+    # sums rounded once, so at most one bf16 ulp apart
+    tol = dict(rtol=0, atol=2e-6) if dtype == torch.float32 else dict(rtol=2.0**-7, atol=1e-6)
+    torch.testing.assert_close(out.detach().reshape(rows),
+                               quad_blend_plain(img.detach().reshape(rows), tables, True, dtype),
+                               **tol)
+    s_tol = dict(rtol=1.3e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=8e-3, atol=1e-5)
+    torch.testing.assert_close(img.grad.reshape(rows),
+                               quad_spread_plain(cot.reshape(rows), tables.vjp, True).to(dtype),
+                               **s_tol)
