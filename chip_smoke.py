@@ -220,6 +220,26 @@ WIDE_VIEW_CENTERS, WIDE_VIEW_FOV = ((0.0, 89.0), (359.9, 0.0)), (120.0, 120.0)
 STRETCH_KS = ((1.3, 0.8), (1.0, 1.0))
 DIBR_BASELINE, PHOTOMETRIC_WINDOW = 0.26, 7
 CHAMFER_POINTS, CHAMFER_BLOCK, EXTRAS_LOSS_TOL, PLANE_FIT_SHARE = 16384, 1024, 1e-5, 1e-4
+# the uniform patch layout ("uniform:RxC", the v2 grid): UNIFORM is the JAX
+# package's own test's grid (tests/test_variants.py), driven through the
+# three models; UNIFORM_STRESS the blend's stress case, 72 patches and up
+# to 17 quads per ERP pixel, more than the kernel keeps in registers on half
+# of them
+UNIFORM, UNIFORM_STRESS = "uniform:4x6", "uniform:6x12"
+UNIFORM_LAYOUTS = (UNIFORM, UNIFORM_STRESS)
+# uniform_layout's forwards tame the heads to the features that reach them
+# (tame_heads_to_features: each head's term at this RMS, the depth bias +2).
+# Its train step's witnesses pool the batch and UNIFORM_POOL nudged copies
+# of it (each nudge seed moves one ulp at a random half of the values):
+# the gradient of mlp_points.0.weight is a residual that train-mode
+# BatchNorm nearly cancels (its column of ones takes exactly 0), whose f32
+# rounding moves 0.3-2.9% from float64 between draws of the same path (an
+# H100, 9 draws at UNIFORM: the kernels 0.74-2.76%, the plain versions
+# 0.32-2.89%), so one draw of the witnesses fails a correct path on 4 of 9
+# draws at UNIFORM and 1 of 9 at the rings layout; each statistic of
+# step_parity is then the median over the draws, held to the same ratios
+UNIFORM_HEAD_RMS = {"pred": 0.5, "weight_pred": 1.0}
+UNIFORM_POOL = tuple(range(20, 28))
 
 
 def emit(obj) -> None:
@@ -1070,6 +1090,463 @@ def extras_phase(gpu: str, timer) -> dict:
     return {"launches": launches, "rows": rows, "errs": errs}
 
 
+def _plan(tiles, units: int, cpu: int, elem_size: int) -> dict:
+    from omnifusion_torch.ops.quad_blend import blend_plan
+
+    staged, chunk, unit_block = blend_plan(tiles, units, cpu, elem_size)
+    return {"staged": staged, "chunk_units": chunk, "unit_block": unit_block}
+
+
+def uniform_tables_phase(dev) -> dict:
+    """tables_uniform: each uniform layout's tables at the flagship, the
+    host seconds of each part (the spec's numpy tables, the kernel's tile
+    tables, the transposed tables with the heavy list), the merge's quads
+    per ERP pixel, the footprints, the plans the blend's rule picks and the
+    heavy pixels; and the quarter-resolution equi2pers of UNIFORM. Returns
+    {layout: (spec, e2p tables, merge tables)} and the quarter tables."""
+    from omnifusion_torch.ops import quad_blend as qb
+    from omnifusion_torch.ops.quad_blend import SpreadTables, overflow_load
+    from omnifusion_torch.projection import ProjectionSpec
+    from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
+    from omnifusion_torch.projection.spec import build_equi2pers_grids, build_pers2equi_grids
+
+    out, info = {}, {}
+    for layout in UNIFORM_LAYOUTS:
+        spec = ProjectionSpec.create(ERP, PATCH, (FOV, FOV), NROWS, layout=layout)
+        t0 = time.perf_counter()
+        grids = build_equi2pers_grids(spec), build_pers2equi_grids(spec)
+        spec_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        t_e2p, t_p2e = equi2pers_tables(spec, dev), pers2equi_tables(spec, dev)
+        torch.cuda.synchronize()
+        on_card_s = time.perf_counter() - t0
+        tile_s, spread_s = {}, {}
+        for name, t, g, stride in (("e2p", t_e2p, grids[0], spec.erp_w),
+                                   ("merge", t_p2e, grids[1], spec.patch_w)):
+            t0 = time.perf_counter()
+            t.with_tiles(t.tiles.shape)
+            tile_s[name] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            SpreadTables.create(g.vjp, stride, t.n_out, dev)
+            torch.cuda.synchronize()
+            spread_s[name] = time.perf_counter() - t0
+        quads = (grids[1].w4.sum(-1) > 0).sum(1)
+        out[layout] = spec, t_e2p, t_p2e
+        info[layout] = {
+            "patches": spec.n_patches,
+            "seconds": {"spec_tables": spec_s, "tile_tables": tile_s, "spread_tables": spread_s,
+                        "blend_tables_on_card": on_card_s},
+            "e2p": {"n_out": t_e2p.n_out, "k": t_e2p.k, "tile": list(t_e2p.tiles.shape),
+                    "max_footprint_pixels": t_e2p.tiles.pitch,
+                    "footprint_per_output": t_e2p.tiles.footprint,
+                    "entries": t_e2p.tiles.entries,
+                    "plan_b2_f32": _plan(t_e2p.tiles, BATCH, 3, 4),
+                    "plan_b2_bf16": _plan(t_e2p.tiles, BATCH, 3, 2),
+                    "k_t": t_e2p.vjp.k_t, "overflow": t_e2p.vjp.n_over,
+                    "heavy_pixels": t_e2p.vjp.heavy.numel()},
+            "merge": {"n_in": t_p2e.n_in, "k_dense": int(grids[1].idx.shape[1]), "k": t_p2e.k,
+                      "tail_entries": t_p2e.n_tail, "entries": t_p2e.tiles.entries,
+                      "register_budget": qb.MAX_ENTRIES,
+                      "quads_per_pixel_max": int(quads.max()),
+                      "quads_per_pixel_mean": float(quads.mean()),
+                      "share_past_capped_k": float((quads > t_p2e.k).mean()),
+                      "share_past_register_budget": float((quads > qb.MAX_ENTRIES).mean()),
+                      "tile": list(t_p2e.tiles.shape), "max_footprint_pixels": t_p2e.tiles.pitch,
+                      "footprint_per_output": t_p2e.tiles.footprint,
+                      "stage_max_footprint": qb.STAGE_MAX_FOOTPRINT,
+                      "plan_b2_f32": _plan(t_p2e.tiles, 2 * BATCH, 1, 4),
+                      "plan_b8_f16": _plan(t_p2e.tiles, 2 * TRAIN_BATCH, 1, 2),
+                      "k_t": t_p2e.vjp.k_t, "overflow": t_p2e.vjp.n_over,
+                      "max_overflow_load": int(overflow_load(
+                          t_p2e.vjp.over_ptr.cpu().numpy(), PATCH).max()),
+                      "heavy_threshold": t_p2e.vjp.threshold,
+                      "heavy_pixels": t_p2e.vjp.heavy.numel(), "wide": t_p2e.vjp.n_wide}}
+    spec_q = out[UNIFORM][0].with_patch_scale(4)
+    t0 = time.perf_counter()
+    t_q = equi2pers_tables(spec_q, dev)
+    info["e2p_q"] = {"layout": UNIFORM, "patch": spec_q.patch_h, "seconds": time.perf_counter() - t0,
+                     "n_out": t_q.n_out, "tile": list(t_q.tiles.shape),
+                     "footprint_per_output": t_q.tiles.footprint,
+                     "plan_b2": _plan(t_q.tiles, BATCH, 1, 4), "k_t": t_q.vjp.k_t,
+                     "overflow": t_q.vjp.n_over, "heavy_pixels": t_q.vjp.heavy.numel()}
+    emit({"phase": "tables_uniform", **info})
+    stress = info[UNIFORM_STRESS]["merge"]
+    if stress["entries"] <= qb.MAX_ENTRIES:
+        raise AssertionError(f"the {UNIFORM_STRESS} merge holds {stress['entries']} quads per "
+                             f"pixel, not more than the register budget")
+    return out, t_q
+
+
+def uniform_checks(tables: dict, t_q, dev, g) -> dict:
+    """Each kernel on the uniform layouts' tables against its plain version
+    (the rings rows' tolerances): the blend for equi2pers (f32 and bf16
+    sources, f32 results; the bf16 store bit for bit the cast of the f32
+    result) and for the merge (f32 and f16), at batches 2 and 8, the merge
+    also staged and gathered from global memory; the spread on each merge's
+    cotangent at batch 8 (f32, f16 and bf16), three calls bit for bit; the
+    quarter-resolution equi2pers and its spread. Returns the largest f32
+    differences."""
+    from omnifusion_torch.ops import quad_blend as qb
+    from omnifusion_torch.ops.quad_blend import (
+        quad_blend, quad_blend_plain, quad_spread, quad_spread_plain,
+    )
+
+    errs = {"quad_blend": 0.0, "quad_spread": 0.0}
+
+    def note(name, err, f32=True):
+        if f32:
+            errs[name] = max(errs[name], err)
+
+    n_erp = ERP[0] * ERP[1]
+    atol, rtol = SPREAD_TOL[torch.float32]
+    for layout, (_, t_e2p, t_p2e) in tables.items():
+        tag = layout.split(":")[1]
+        for b in (BATCH, TRAIN_BATCH):
+            x = torch.rand(b, n_erp, 3, device=dev, generator=g)
+            for dt in (torch.float32, torch.bfloat16):
+                xd = x.to(dt)
+                got = quad_blend(xd, t_e2p, channel_last=True)
+                note("quad_blend", check("quad_blend", f"e2p_{tag}_{str(dt)[6:]}_b{b}", got,
+                                         quad_blend_plain(xd, t_e2p, channel_last=True),
+                                         BLEND_TOL, footprint=t_e2p.tiles.footprint),
+                     dt == torch.float32)
+                if dt == torch.bfloat16:
+                    stored = quad_blend(xd, t_e2p, channel_last=True, out_dtype=dt)
+                    torch.cuda.synchronize()
+                    same = torch.equal(stored, got.to(dt))
+                    emit({"phase": "check", "kernel": "quad_blend",
+                          "case": f"e2p_{tag}_bfloat16_store_b{b}",
+                          "bitwise_equal_to_cast": same})
+                    if not same:
+                        raise AssertionError(f"quad_blend e2p {tag} bf16 store differs from the cast")
+            x = torch.rand(b, 2, t_p2e.n_in, device=dev, generator=g)
+            for dt in (torch.float32, torch.float16):
+                xd = x.to(dt)
+                want = quad_blend_plain(xd, t_p2e)
+                note("quad_blend", check("quad_blend", f"merge_{tag}_{str(dt)[6:]}_b{b}",
+                                         quad_blend(xd, t_p2e), want, BLEND_TOL,
+                                         entries=t_p2e.tiles.entries, tail_entries=t_p2e.n_tail),
+                     dt == torch.float32)
+                if b == BATCH:  # the plan the rule did not pick, too
+                    for staged in (True, False):
+                        note("quad_blend", check(
+                            "quad_blend", f"merge_{tag}_{str(dt)[6:]}_b{b}_staged_{staged}",
+                            qb._blend_kernel(xd, t_p2e, False, staged=staged), want, BLEND_TOL,
+                            entries=t_p2e.tiles.entries), dt == torch.float32)
+        cot = torch.rand(TRAIN_BATCH, 2, n_erp, device=dev, generator=g)
+        for dt in (torch.float32, torch.float16, torch.bfloat16):
+            c = cot.to(dt)
+            note("quad_spread", check("quad_spread", f"merge_{tag}_{str(dt)[6:]}_cot_b{TRAIN_BATCH}",
+                                      quad_spread(c, t_p2e.vjp), quad_spread_plain(c, t_p2e.vjp),
+                                      atol, rtol, overflow=t_p2e.vjp.n_over,
+                                      heavy=t_p2e.vjp.heavy.numel()))
+        calls = [quad_spread(cot, t_p2e.vjp) for _ in range(3)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(calls[0], c) for c in calls[1:])
+        emit({"phase": "check", "kernel": "quad_spread", "case": f"merge_{tag}_run_to_run",
+              "calls": 3, "bitwise_equal": same})
+        if not same:
+            raise AssertionError(f"quad_spread merge {tag}: calls differ")
+        del x, xd, want, got, cot, c, calls
+    tag = UNIFORM.split(":")[1]
+    for b in (BATCH, TRAIN_BATCH):
+        depth = torch.rand(b, n_erp, 1, device=dev, generator=g) * 7 + 0.3
+        note("quad_blend", check("quad_blend", f"e2p_q_{tag}_b{b}",
+                                 quad_blend(depth, t_q, channel_last=True),
+                                 quad_blend_plain(depth, t_q, channel_last=True), BLEND_TOL,
+                                 BLEND_TOL))
+        cot = torch.rand(b, t_q.n_out, 1, device=dev, generator=g)
+        note("quad_spread", check("quad_spread", f"e2p_q_{tag}_b{b}",
+                                  quad_spread(cot, t_q.vjp, channel_last=True),
+                                  quad_spread_plain(cot, t_q.vjp, channel_last=True), atol, rtol,
+                                  overflow=t_q.vjp.n_over))
+    torch.cuda.empty_cache()
+    return errs
+
+
+def tame_heads_to_features(model, x: torch.Tensor) -> None:
+    """tame_heads with each head kernel scaled so that its term over the
+    patches (the 3x3 conv of de_conv4_0's output in ``model``'s forward on
+    ``x``, the first pass's for the iterative model) has the RMS of
+    UNIFORM_HEAD_RMS, and the depth (or logit) bias raised by 2, in place:
+    the fixed scale of tame_heads leaves 83% of the one-shot depth at 0 in
+    eval mode at full depth (the features grow through the BatchNorms'
+    initial statistics), where a parity check says little. As
+    tests/test_torch_port_flagship.py tames the JAX model's heads."""
+    feats = []
+    hook = model.de_conv4_0.register_forward_hook(lambda m, i, o: feats.append(o.float()))
+    with torch.inference_mode():
+        model(x)
+    hook.remove()
+    sd = model.state_dict()
+    for head, rms in UNIFORM_HEAD_RMS.items():
+        w = sd[f"{head}.weight"]
+        term = torch.nn.functional.conv2d(feats[0], w.float(), padding=1)
+        sd[f"{head}.weight"] = w * (rms / term.square().mean().sqrt()).to(w.dtype)
+    sd["pred.bias"] = sd["pred.bias"] + 2.0
+    model.load_state_dict(sd)
+
+
+def uniform_layout_phase(gpu: str, tables: dict, dev, g) -> dict:
+    """uniform_layout: the three models' Python API at UNIFORM and the
+    one-shot forward at UNIFORM_STRESS, seeded weights (seed 0), each run's
+    kernel launches counted (zeroed just before it, read just after) and
+    its result held to the same run on the plain versions. The forwards
+    (heads tamed to their features, tame_heads_to_features): the one-shot
+    depth in f32 (serve's bounds) and the bf16 recipe (serve_bf16's ratio to
+    the plain versions' distance from f32), the iterative model's passes,
+    the segmentation logits. One f32 train step at batch 8 (heads tamed as
+    train_parity_vs_plain_on_card tames them) with that phase's float64 and
+    one-ulp witnesses, on the batch and UNIFORM_POOL nudged copies of it:
+    each witness statistic is the median over the pool (module constants).
+    Returns the launches of each run and of all."""
+    from omnifusion_torch.models import (
+        SphericalFusion, SphericalFusionIterative, SphericalFusionSeg, init_weights,
+    )
+
+    spec, spec_s = tables[UNIFORM][0], tables[UNIFORM_STRESS][0]
+    x = torch.rand(BATCH, *ERP, 3, device=dev, generator=g)
+    launches, out = {}, {}
+
+    def seeded(model):
+        model = init_weights(model, 0).eval()
+        tame_heads_to_features(model, x)
+        return model
+
+    def forward(name, model, want):
+        """The model's forward on x, its launches (per_run ``want``
+        expected), and the same forward on the plain versions."""
+        zero_counts()
+        with torch.inference_mode():
+            kern = model(x)
+            torch.cuda.synchronize()
+            launches[name] = counts()
+            with plain_versions():
+                plain = model(x)
+        if launches[name] != want:
+            raise AssertionError(f"uniform {name} launches {launches[name]}, expected {want}")
+        kern, plain = (kern, plain) if isinstance(kern, list) else ([kern], [plain])
+        for k in kern:
+            if not torch.isfinite(k).all():
+                raise AssertionError(f"uniform {name}: non-finite output")
+        return [k.float().cpu().numpy() for k in kern], [p.float().cpu().numpy() for p in plain]
+
+    one = seeded(SphericalFusion(spec, device=dev))
+    if tuple(one.transformer.pos_emb.shape[:2]) != (1, spec.n_patches):
+        raise AssertionError(f"pos_emb {tuple(one.transformer.pos_emb.shape)}")
+    (kern,), (plain,) = forward("oneshot_f32", one, per_run(1))
+    if kern.shape != (BATCH, *ERP, 1) or (kern < 0).any():
+        raise AssertionError(f"uniform depth: shape {kern.shape}, min {kern.min()}")
+    out["oneshot_f32_vs_plain"] = rel_stats(kern, plain)
+    one16 = SphericalFusion(spec, dtype=torch.bfloat16, merge_dtype=torch.float16, device=dev)
+    one16.load_state_dict(one.state_dict())
+    (kern16,), (plain16,) = forward("oneshot_bf16", one16.eval(), per_run(1))
+    k_stats, p_stats = rel_stats(kern16, kern), rel_stats(plain16, kern)
+    out["oneshot_bf16"] = {"recipe": "bf16 trunk + f16 merge", "kernels_vs_f32": k_stats,
+                           "plain_vs_f32": p_stats, "kernels_vs_plain": rel_stats(kern16, plain16),
+                           "ratio_bound": BF16_RATIO}
+    del one, one16
+
+    it = seeded(SphericalFusionIterative(spec, num_iters=ITERS, device=dev))
+    kern_it, plain_it = forward("iterative", it, per_run(1, passes=ITERS))
+    out["iterative_passes_vs_plain"] = [rel_stats(k, p) for k, p in zip(kern_it, plain_it)]
+    del it
+
+    seg = seeded(SphericalFusionSeg(spec, num_classes=SEG_CLASSES, device=dev))
+    (logits,), (logits_plain,) = forward("segmentation", seg, per_run(1))
+    out["segmentation_logits_vs_plain"] = rel_stats(logits, logits_plain)
+    del seg, logits, logits_plain
+
+    # one f32 train step at batch 8, on the batch and UNIFORM_POOL nudged
+    # copies: in train mode (each draw's float64 run and one-ulp nudge of
+    # the plain versions as its witnesses), then with the BatchNorms on the
+    # running statistics the first step left
+    tb = synthetic_batch(spec, TRAIN_BATCH, dev)
+    model = init_weights(SphericalFusion(spec, device=dev), 0)
+    sd0 = tame_heads(copy.deepcopy(model.state_dict()))
+    draws = []
+    zero_counts()
+    with deterministic_cudnn():
+        for seed in (None,) + UNIFORM_POOL:
+            b = tb if seed is None else nudged(tb, seed)
+            kern_s = loss_and_grads(model, b, sd0)
+            if seed is None:
+                sd1 = copy.deepcopy(model.state_dict())
+                kern_rs = loss_and_grads(model, b, sd1, train=False)
+            with plain_versions():
+                plain_s = [loss_and_grads(model, bb, sd0) for bb in (b, nudged(b, 5))]
+                f64 = loss_and_grads(*as_f64(model, b, sd0))
+                model.float()
+                if seed is None:
+                    plain_rs = [loss_and_grads(model, bb, sd1, train=False) for bb in (b, nudged(b, 5))]
+                    f64_rs = loss_and_grads(*as_f64(model, b, sd1), train=False)
+                    model.float()
+            draws.append(step_parity(kern_s, plain_s[0], f64, plain_s[1])[0])
+            del kern_s, plain_s, f64
+        torch.cuda.synchronize()
+        launches["train_step"] = counts()
+    del model
+    torch.cuda.empty_cache()
+    n_steps = len(draws) + 1
+    if launches["train_step"] != per_run(0, n_steps):
+        raise AssertionError(f"uniform train steps' launches {launches['train_step']}, "
+                             f"expected {per_run(0, n_steps)}")
+    par_rs, ok_rs = step_parity(kern_rs, plain_rs[0], f64_rs, plain_rs[1])
+    pooled = {}
+    for k in ("grad_rel_max", "grad_rel_median"):
+        pooled[k] = {
+            "ours_vs_f64": float(np.median([d["ours_vs_f64"][k] for d in draws])),
+            "witness": float(np.median([max(d["ref_vs_f64"][k], d["ref_vs_ref_nudged"][k])
+                                        for d in draws])),
+            "ours_vs_ref": float(np.median([d[k] for d in draws])),
+            "ref_vs_ref_nudged": float(np.median([d["ref_vs_ref_nudged"][k] for d in draws])),
+        }
+    loss_rel = max(d["loss_rel"] for d in draws)
+    ok = (loss_rel < LOSS_TOL
+          and all(v["ours_vs_f64"] <= F64_RATIO * v["witness"] for v in pooled.values())
+          and pooled["grad_rel_max"]["ours_vs_ref"]
+          <= ULP_RATIO * pooled["grad_rel_max"]["ref_vs_ref_nudged"])
+    out["train_step"] = {
+        "batch": TRAIN_BATCH, "heads": "tamed (tame_heads)",
+        "precision": "f32 (tf32 off), cuDNN deterministic", "loss_tol": LOSS_TOL,
+        "f64_ratio": F64_RATIO, "ulp_ratio": ULP_RATIO, "median_tol_running_stats": GRAD_TOL,
+        "pool": {"draws": len(draws), "nudge_seeds": list(UNIFORM_POOL), "loss_rel_max": loss_rel,
+                 "medians": pooled,
+                 "per_draw": [{k: d[k] for k in ("loss_rel", "grad_rel_max", "grad_rel_worst")}
+                              | {"ours_vs_f64_max": d["ours_vs_f64"]["grad_rel_max"],
+                                 "ref_vs_f64_max": d["ref_vs_f64"]["grad_rel_max"],
+                                 "ref_vs_ref_nudged_max": d["ref_vs_ref_nudged"]["grad_rel_max"]}
+                              for d in draws]},
+        "train_mode_batch": draws[0], "running_stats": par_rs,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del kern_rs, plain_rs, f64_rs
+
+    stress = seeded(SphericalFusion(spec_s, device=dev))
+    (kern_s6,), (plain_s6,) = forward("oneshot_f32_" + UNIFORM_STRESS.split(":")[1], stress,
+                                      per_run(1))
+    out["stress_oneshot_f32_vs_plain"] = rel_stats(kern_s6, plain_s6)
+    del stress
+    torch.cuda.empty_cache()
+
+    total = {k: sum(run[k] for run in launches.values()) for k in next(iter(launches.values()))}
+    emit({"phase": "uniform_layout", "layout": UNIFORM, "stress_layout": UNIFORM_STRESS,
+          "batch": BATCH, "heads": "tamed to their features (forwards)",
+          "precision": "f32 (tf32 off)", "gpu": gpu, "launches": launches,
+          "launches_total": total, **out})
+    for name in ("oneshot_f32_vs_plain", "segmentation_logits_vs_plain",
+                 "stress_oneshot_f32_vs_plain"):
+        assert_parity(out[name], f"uniform {name}")
+        if out[name]["live_frac"] <= 0.5:
+            raise AssertionError(f"uniform {name}: the heads are not live: {out[name]}")
+    for key in ("median_rel", "q999_rel", "frac_rel_gt_0.05"):
+        slack = BF16_SHARE if key == "frac_rel_gt_0.05" else 0.0
+        if not k_stats[key] <= BF16_RATIO * p_stats[key] + slack:
+            raise AssertionError(f"uniform bf16 recipe {key}: kernels {k_stats}, plain {p_stats}")
+    for i, s in enumerate(out["iterative_passes_vs_plain"]):
+        assert_parity(s, f"uniform iterative pass {i + 1} vs plain forward")
+    if not (ok and ok_rs and par_rs["grad_rel_median"] < GRAD_TOL):
+        raise AssertionError(f"uniform train step vs plain versions: {out['train_step']}")
+    return {"runs": launches, "total": total}
+
+
+def uniform_time_rows(gpu: str, tables: dict, t_q, launches: dict, dev, g, timer) -> dict:
+    """The uniform layouts' time rows: per call at batch 2 (equi2pers, the
+    quarter-resolution equi2pers, the merge, f32) or 8 (the merge's spread),
+    the kernel beside its bound, its plain version and torch.sparse.mm on
+    the same map, and the calls of its shape in uniform_layout's runs."""
+    from omnifusion_torch.ops import quad_blend as qb
+    from omnifusion_torch.ops.quad_blend import (
+        quad_blend, quad_blend_plain, quad_spread, quad_spread_plain,
+    )
+    from omnifusion_torch.utils.profiling import blend_bound, blend_matrix, spread_bound
+
+    n_erp = ERP[0] * ERP[1]
+    # the calls on each table in uniform_layout's runs, whatever their
+    # dtype: one equi2pers per forward (the iterative model's later passes
+    # blend on the quarter-resolution tables), one merge per pass, one
+    # spread per step; at UNIFORM four forwards (one-shot f32 and bf16,
+    # iterative, segmentation) and the steps', at UNIFORM_STRESS one
+    steps = launches["runs"]["train_step"]["quad_spread"]
+    per_table = {
+        (UNIFORM, "e2p"): 4 + steps, (UNIFORM, "merge"): 3 + ITERS + steps,
+        (UNIFORM, "e2p_q"): ITERS - 1, (UNIFORM, "spread"): steps,
+        (UNIFORM_STRESS, "e2p"): 1, (UNIFORM_STRESS, "merge"): 1, (UNIFORM_STRESS, "spread"): 0,
+    }
+    rows = {"quad_blend": [], "quad_spread": []}
+    for layout, (_, t_e2p, t_p2e) in tables.items():
+        tag = layout.split(":")[1]
+        cases = [("e2p", torch.rand(BATCH, n_erp, 3, device=dev, generator=g), t_e2p, True),
+                 ("merge", torch.rand(BATCH, 2, t_p2e.n_in, device=dev, generator=g), t_p2e,
+                  False)]
+        if layout == UNIFORM:
+            cases.append(("e2p_q", torch.rand(BATCH, n_erp, 1, device=dev, generator=g) * 7 + 0.3,
+                          t_q, True))
+        for name, x, t, cl in cases:
+            out = quad_blend(x, t, channel_last=cl)
+            b_ms, b_by = blend_bound(x, t, out)
+            plan = _plan(t.tiles, BATCH if cl else x.shape[0] * x.shape[1],
+                         x.shape[2] if cl else 1, 4)
+            w_csr = blend_matrix(t, x.dtype)
+            dense = (x.permute(1, 0, 2) if cl else x.permute(2, 0, 1)).reshape(t.n_in, -1).contiguous()
+            lib_err = (torch.sparse.mm(w_csr, dense) - (out.permute(1, 0, 2) if cl else out.permute(
+                2, 0, 1)).reshape(t.n_out, -1)).abs().max().item()
+            rows["quad_blend"].append({
+                "case": f"{name}_{tag}", "layout": layout, "shape": list(x.shape), "batch": BATCH,
+                "calls_in_uniform_layout": per_table[layout, name],
+                "entries": t.tiles.entries, "footprint_per_output": t.tiles.footprint,
+                "plan": plan,
+                "ms": timer(lambda: quad_blend(x, t, channel_last=cl)),
+                # the plan blend_plan's rule did not pick (ROADMAP §2 item 4)
+                "ms_other_plan": timer(lambda: qb._blend_kernel(
+                    x, t, cl, None, staged=not plan["staged"])),
+                "plain_ms": timer(lambda: quad_blend_plain(x, t, channel_last=cl), iters=5,
+                                  warmup=1),
+                "library_ms": timer(lambda: torch.sparse.mm(w_csr, dense)),
+                "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by,
+            })
+            del out, w_csr, dense
+        cot = torch.rand(TRAIN_BATCH, 2, n_erp, device=dev, generator=g)
+        t = t_p2e.vjp
+        out = quad_spread(cot, t)
+        s_ms, s_by = spread_bound(cot, t, out)
+        wt_csr = spread_matrix(t)
+        dense = cot.permute(2, 0, 1).reshape(t.n_out, -1).contiguous()
+        lib_err = (torch.sparse.mm(wt_csr, dense) - out.permute(2, 0, 1).reshape(t.n_in, -1)
+                   ).abs().max().item()
+        split = kernel_split_ms(lambda: quad_spread(cot, t),
+                                ("quad_spread_kernel", "quad_spread_heavy_kernel"))
+        rows["quad_spread"].append({
+            "case": f"merge_{tag}_b{TRAIN_BATCH}", "layout": layout, "shape": list(cot.shape),
+            "calls_in_uniform_layout": per_table[layout, "spread"], "overflow": t.n_over,
+            "heavy": t.heavy.numel(), "wide": t.n_wide,
+            "ms": timer(lambda: quad_spread(cot, t)),
+            "ms_light": split["quad_spread_kernel"], "ms_heavy": split["quad_spread_heavy_kernel"],
+            "plain_ms": timer(lambda: quad_spread_plain(cot, t), iters=5, warmup=1),
+            "library_ms": timer(lambda: torch.sparse.mm(wt_csr, dense)),
+            "library_max_abs_err": lib_err, "bound_ms": s_ms, "bound_by": s_by,
+        })
+        del cot, out, wt_csr, dense
+    for kernel, rs in rows.items():
+        for r in rs:
+            emit({"phase": "time", "kernel": kernel, "gpu": gpu, **r})
+    torch.cuda.empty_cache()
+    return rows
+
+
+def uniform_phase(gpu: str, timer) -> dict:
+    """The uniform layout (UNIFORM_LAYOUTS): tables_uniform, each kernel on
+    its tables against its plain version, uniform_layout (the models), and
+    the time rows. Returns the largest f32 differences from the plain
+    versions, the launches and the time rows."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(14)
+    tables, t_q = uniform_tables_phase(dev)
+    errs = uniform_checks(tables, t_q, dev, g)
+    launches = uniform_layout_phase(gpu, tables, dev, g)
+    rows = uniform_time_rows(gpu, tables, t_q, launches, dev, g, timer)
+    return {"errs": errs, "launches": launches, "rows": rows}
+
+
 def multi_device_phases(gpu: str, f64_witness: dict) -> dict:
     """ddp_gloo2, mesh_model and mesh1 (see the comment above DDP_RANKS);
     ``f64_witness``: the float64 steps of the train parity phases, by
@@ -1893,6 +2370,12 @@ def main() -> int:
     # DIBR chain against float64 ----
     extras = extras_phase(gpu, timer)
     for name, err in extras["errs"].items():
+        note(name, err)
+
+    # ---- the uniform patch layout: its tables, the kernels on them, the
+    # three models through their Python API (uniform_layout), time rows ----
+    uniform = uniform_phase(gpu, timer)
+    for name, err in uniform["errs"].items():
         note(name, err)
 
     # ---- serving: panoramas through the entry point ----
@@ -2960,6 +3443,15 @@ def main() -> int:
             seg_rows_t = [(r, 1) for r in rs]
         segmentation = {f"{k}_segmentation": sum(r[k] * n for r, n in seg_rows_t)
                         for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        # the uniform layouts' calls per forward at batch 2 (equi2pers and
+        # the merge) or per step at batch 8 (the merge's spread)
+        uni = {}
+        for layout in UNIFORM_LAYOUTS:
+            tag = layout.split(":")[1]
+            u_rows = [r for r in uniform["rows"].get(name, [])
+                      if r["layout"] == layout and not r["case"].startswith("e2p_q")]
+            uni.update({f"{k}_uniform_{tag}": sum(r[k] for r in u_rows)
+                        for k in ("ms", "plain_ms", "bound_ms", "library_ms")} if u_rows else {})
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": train_launches[name],
@@ -3011,6 +3503,14 @@ def main() -> int:
             "launches_mesh1": multi_launches["mesh1"][name],
             "launches_mesh1_of": f"cli.train --mesh 1: {TRAIN_STEPS} steps at batch "
                                  f"{TRAIN_BATCH}, {val_forwards} validation forwards",
+            "launches_uniform_layout": uniform["launches"]["total"][name],
+            "launches_uniform_layout_of": f"uniform_layout: at {UNIFORM}, one-shot forwards "
+                                          f"(f32, bf16 recipe), the iterative model ({ITERS} "
+                                          f"passes) and segmentation at batch {BATCH}, two f32 "
+                                          f"train steps at batch {TRAIN_BATCH} (train mode, "
+                                          f"running statistics); at {UNIFORM_STRESS}, a one-shot "
+                                          f"forward at batch {BATCH}",
+            **uni,
             **{f"launches_{k}": v[name] for k, v in tool_launches.items()},
             **({"launches_pano_stretch": extras["launches"][name],
                 "launches_pano_stretch_of": "pano_stretch forward and backward at "

@@ -15,7 +15,10 @@ equi2pers_v3.py:41-43 vs pers2equi_v3.py:44-47). Both packages use a single
 consistent table (the forward one) so the round trip is self-consistent.
 
 Only what the port's projection tables use is copied: the ring layout's
-patch counts and centers.
+patch counts and centers, and the uniform grid's centers. The JAX module's
+``patch_centers_normalized`` and ``patch_centers_radians`` are the spec's
+``centers_normalized`` and ``centers_radians`` here (projection/spec.py),
+which follow either layout.
 """
 
 from __future__ import annotations
@@ -54,3 +57,16 @@ def patch_centers(nrows: int) -> np.ndarray:
             centers.append((j * theta_interval + theta_interval / 2.0, phi_c))
     return np.asarray(centers, dtype=np.float64)
 
+
+def uniform_patch_centers(num_rows: int, num_cols: int) -> np.ndarray:
+    """Uniform-grid patch centers (the v2 layout, equi_pers/equi2pers_v2.py:26-35):
+    rows at the midpoints of linspace(-90, 90, rows+1), columns at the
+    midpoints of linspace(-180, 180, cols+1).  Returns (rows*cols, 2) degrees
+    as (theta in (0, 360), phi in (-90, 90)), row-major from the bottom row.
+    """
+    rows = np.linspace(-90.0, 90.0, num_rows + 1)
+    rows = (rows[:-1] + rows[1:]) * 0.5
+    cols = np.linspace(-180.0, 180.0, num_cols + 1)
+    cols = (cols[:-1] + cols[1:]) * 0.5
+    centers = [(c + 180.0, r) for r in rows for c in cols]
+    return np.asarray(centers, dtype=np.float64)

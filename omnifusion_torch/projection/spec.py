@@ -26,7 +26,7 @@ import functools
 import numpy as np
 
 from omnifusion_torch.geometry import gnomonic
-from omnifusion_torch.geometry.layout import num_patches, patch_centers
+from omnifusion_torch.geometry.layout import num_patches, patch_centers, uniform_patch_centers
 from omnifusion_torch.projection import table_cache
 
 
@@ -38,10 +38,11 @@ def _pair(t):
 class ProjectionSpec:
     """Static configuration of the tangent-patch projection pair.
 
-    Same fields, defaults and repr as the JAX package's ProjectionSpec (the
-    repr keys the table cache). Only the JAX package's default patch layout,
-    "rings" (equi2pers_v3), is ported; ``layout`` stays a field so that the
-    reprs agree."""
+    Same fields, defaults, layouts and repr as the JAX package's
+    ProjectionSpec (the repr keys the table cache): ``layout`` is "rings"
+    (equi2pers_v3, ``nrows`` rows of patches) or "uniform:RxC" (the v2 grid
+    of R rows by C columns; ``nrows`` is not read). As in the JAX spec, a
+    layout that does not start with "uniform" is the rings layout."""
 
     erp_h: int
     erp_w: int
@@ -50,14 +51,22 @@ class ProjectionSpec:
     fov_h: float
     fov_w: float
     nrows: int
-    layout: str = "rings"
+    layout: str = "rings"  # "rings" (equi2pers_v3) or "uniform:RxC" (v2)
 
     def __post_init__(self):
-        if self.layout != "rings":
-            raise ValueError(f"only the 'rings' patch layout is ported, got {self.layout!r}")
+        # the JAX spec fails on these at its first table; refuse them here
+        if self.layout.startswith("uniform"):
+            try:
+                rows, cols = self._uniform_shape()
+            except (IndexError, ValueError):
+                raise ValueError(f"a uniform layout is 'uniform:RxC', got {self.layout!r}") from None
+            if rows < 1 or cols < 1:
+                raise ValueError(f"a uniform layout needs a row and a column, got {self.layout!r}")
 
     @classmethod
-    def create(cls, erp_size, patch_size, fov=(80, 80), nrows: int = 4) -> "ProjectionSpec":
+    def create(
+        cls, erp_size, patch_size, fov=(80, 80), nrows: int = 4, layout: str = "rings"
+    ) -> "ProjectionSpec":
         erp_h, erp_w = _pair(erp_size)
         patch_h, patch_w = _pair(patch_size)
         fov_h, fov_w = _pair(fov)
@@ -69,14 +78,24 @@ class ProjectionSpec:
             fov_h=float(fov_h),
             fov_w=float(fov_w),
             nrows=int(nrows),
+            layout=str(layout),
         )
+
+    def _uniform_shape(self):
+        rows, cols = self.layout.split(":", 1)[1].split("x")
+        return int(rows), int(cols)
 
     @property
     def n_patches(self) -> int:
+        if self.layout.startswith("uniform"):
+            r, c = self._uniform_shape()
+            return r * c
         return num_patches(self.nrows)
 
     def centers_deg(self) -> np.ndarray:
         """Patch centers in degrees (theta in (0,360), phi in (-90,90))."""
+        if self.layout.startswith("uniform"):
+            return uniform_patch_centers(*self._uniform_shape())
         return patch_centers(self.nrows)
 
     def centers_radians(self) -> np.ndarray:

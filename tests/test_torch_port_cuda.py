@@ -640,3 +640,66 @@ def test_pano_stretch_kernels_match_plain(cuda, dtype, channels):
     torch.testing.assert_close(img.grad.reshape(rows),
                                quad_spread_plain(cot.reshape(rows), tables.vjp, True).to(dtype),
                                **s_tol)
+
+
+# ---- the uniform patch layout ("uniform:RxC") ----
+
+UNIFORM_6X12 = ProjectionSpec.create((512, 1024), 128, (80, 80), 4, layout="uniform:6x12")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("staged", [True, False])
+def test_blend_kernel_uniform_6x12_merge(cuda, staged, dtype):
+    # the 6x12 grid at 512x1024, patch 128: 72 patches, capped K = 12 plus up
+    # to 5 tail entries, 17 quads on the most covered pixels; more than the
+    # 8 a pixel keeps in registers on half the ERP. The merge's 2 rows of
+    # batch 2, and 16 rows
+    tables = pers2equi_tables(UNIFORM_6X12, cuda)
+    assert tables.tiles.entries == 17 > qb.MAX_ENTRIES
+    for rows in (4, 16):
+        x = _blend_source(tables, rows, False, dtype)
+        got = qb._blend_kernel(x, tables, False, staged=staged)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, quad_blend_plain(x, tables), rtol=0, atol=2e-6)
+    # the wrapper's own plan
+    before = quad_blend.launches
+    quad_blend(x, tables)
+    assert quad_blend.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_spread_kernel_on_uniform_6x12_merge(cuda, dtype):
+    # the 6x12 merge's backward: K_T = 4 plus an overflow with heavy pixels;
+    # the same bits from two calls
+    tables = pers2equi_tables(UNIFORM_6X12, cuda).vjp
+    assert tables.n_over > 0 and tables.heavy.numel() > 0
+    cot = torch.rand(8, 2, tables.n_out, generator=torch.Generator().manual_seed(14)).to(cuda, dtype)
+    got = quad_spread(cot, tables)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, quad_spread(cot, tables))
+    torch.testing.assert_close(got, quad_spread_plain(cot, tables), rtol=1.3e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["uniform:4x6", "uniform:6x12"])
+def test_uniform_layout_projections_match_plain(cuda, layout):
+    # equi2pers and pers2equi through the public ops on a uniform spec,
+    # forward and backward, against the plain versions on the same tables
+    from omnifusion_torch.projection import build_pers2equi_grids, pers2equi
+
+    spec = ProjectionSpec.create((64, 128), (16, 16), (80, 80), 4, layout=layout)
+    t_e2p, t_p2e = equi2pers_tables(spec, cuda), pers2equi_tables(spec, cuda)
+    gen = torch.Generator().manual_seed(15)
+    erp = torch.rand(2, 64, 128, 3, generator=gen).to(cuda).requires_grad_()
+    pers = equi2pers(erp, build_equi2pers_grids(spec))
+    back = pers2equi(pers, build_pers2equi_grids(spec))
+    cot = torch.rand(back.shape, generator=gen).to(cuda)
+    back.backward(cot)
+    torch.cuda.synchronize()
+    assert pers.shape == (2, spec.n_patches, 16, 16, 3)
+    want_p = quad_blend_plain(erp.detach().reshape(2, -1, 3), t_e2p, True)
+    torch.testing.assert_close(pers.detach().reshape(want_p.shape), want_p, rtol=0, atol=2e-6)
+    want_b = quad_blend_plain(pers.detach().reshape(2, -1, 3), t_p2e, True)
+    torch.testing.assert_close(back.detach().reshape(want_b.shape), want_b, rtol=0, atol=2e-6)
+    g_pers = quad_spread_plain(cot.reshape(2, -1, 3), t_p2e.vjp, True)
+    g_erp = quad_spread_plain(g_pers, t_e2p.vjp, True)
+    torch.testing.assert_close(erp.grad.reshape(g_erp.shape), g_erp, rtol=1.3e-4, atol=1e-5)

@@ -46,6 +46,9 @@ def test_port_imports_no_jax():
             "omnifusion_torch.data.datasets", "omnifusion_torch.models.torch_import",
             "omnifusion_torch.native", "omnifusion_torch.utils.colorize",
             "omnifusion_torch.utils.ply"} <= set(result["modules"])
+    # both patch layouts' tables: the spec imports them from here
+    assert {"omnifusion_torch.geometry.layout",
+            "omnifusion_torch.projection.spec"} <= set(result["modules"])
     assert result["bad"] == []
     assert result["imaging"] == []
 

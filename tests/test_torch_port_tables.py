@@ -90,10 +90,19 @@ def test_table_cache_roundtrip(tmp_path, monkeypatch):
 
 
 def test_spec_refuses_unported_layouts():
+    # both layouts of the JAX spec are ported: what it refuses is a uniform
+    # layout it cannot build, and the rings spec's repr (the cache key) is
+    # the one it had before the uniform layout came
     spec = port_spec.ProjectionSpec.create((64, 128), 16, (80, 80), 4)
     assert spec.layout == "rings"
-    with pytest.raises(ValueError, match="rings"):
-        port_spec.ProjectionSpec(64, 128, 16, 16, 80.0, 80.0, 4, layout="uniform:3x6")
+    assert repr(spec) == (
+        "ProjectionSpec(erp_h=64, erp_w=128, patch_h=16, patch_w=16, fov_h=80.0, "
+        "fov_w=80.0, nrows=4, layout='rings')"
+    )
+    assert port_spec.ProjectionSpec(64, 128, 16, 16, 80.0, 80.0, 4, layout="uniform:3x6").n_patches == 18
+    for layout in ("uniform:3", "uniform", "uniform:3x6x2", "uniform:ax6", "uniform:0x6"):
+        with pytest.raises(ValueError, match="uniform"):
+            port_spec.ProjectionSpec(64, 128, 16, 16, 80.0, 80.0, 4, layout=layout)
 
 
 def test_cache_dir_is_the_ports_own(monkeypatch):
