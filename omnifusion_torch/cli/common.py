@@ -36,6 +36,7 @@ come from ``--seed`` (``models.init_weights``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -50,8 +51,10 @@ from omnifusion_torch.models import SphericalFusion, SphericalFusionIterative, i
 from omnifusion_torch.models.torch_import import import_checkpoint
 from omnifusion_torch.parallel import launch
 from omnifusion_torch.projection import ProjectionSpec
+from omnifusion_torch.utils.profiling import recording, trace
 
 MERGE_DTYPES = {"f32": None, "f16": torch.float16, "bf16": torch.bfloat16}
+PROFILE_STEPS = (10, 14)  # --profile_dir: the first and last traced step of epoch 0
 
 
 def pair_arg(value: str) -> tuple[int, int]:
@@ -125,7 +128,8 @@ def add_common_args(parser: argparse.ArgumentParser, train: bool) -> argparse.Ar
         parser.add_argument("--tensorboard_path", default=None)
         parser.add_argument("--workers", type=int, default=8)
         parser.add_argument("--profile_dir", default=None,
-                            help="write a torch.profiler trace of steps 10-14 of epoch 0")
+                help="write a torch.profiler trace of steps 10-14 of epoch 0, "
+                                 "with the program's spans (profile_steps)")
     else:
         parser.add_argument("--save_ply", action="store_true")
     return parser
@@ -263,6 +267,24 @@ def build_dataset(args, split_file: str, train: bool):
     # split the same panoramas, take model rank 0's (DataLoader.to_device)
     return make_dataset(args.dataset, args.input_dir, split_file, rotate=train, flip=train,
                         seed=args.seed + parallel.data_rank())
+
+
+def profile_steps(batches, profile_dir: Optional[str], steps=PROFILE_STEPS):
+    """Yield ``batches``; with ``profile_dir``, the steps ``steps[0]`` to
+    ``steps[1]`` (counted from 0) run under ``trace(profile_dir)`` with the
+    program's spans recorded, so that its ``trace.json`` holds each step's
+    ``span:train_step`` with its ``forward``, ``loss``, ``backward`` and
+    ``optimizer`` ranges and the model's stages (utils/profiling.py). Fewer
+    batches than ``steps[1]`` end the trace with the last."""
+    with contextlib.ExitStack() as window:
+        for it, batch in enumerate(batches):
+            if profile_dir and it == steps[0]:
+                window.enter_context(trace(profile_dir))
+                window.enter_context(recording())
+            yield batch
+            if profile_dir and it == steps[1]:
+                window.close()
+                print(f"## wrote profiler trace to {profile_dir}")
 
 
 def dump_run_config(args) -> None:

@@ -26,8 +26,10 @@ the loss computed in f32; ``--merge_dtype`` sets the merge's source
 precision. ``--tensorboard_path`` logs the loss and gradient norm every
 ``--visualize_interval`` steps, the validation metrics, and the first
 validation batch's RGB, ground truth and predicted depth.
-``--profile_dir`` writes a ``torch.profiler`` trace of steps 10-14 of epoch
-0. Runs on the CUDA card unless ``--device`` names another device.
+``--profile_dir`` writes a ``torch.profiler`` trace (``trace.json``) of
+steps 10-14 of epoch 0 with the program's spans in it (cli/common.py:
+``profile_steps``). Runs on the CUDA card unless ``--device`` names another
+device.
 
 ``--mesh`` (cli/common.py) trains on a (data, model) mesh, one process per
 card: each data group on its slice of every global batch of ``--batch``,
@@ -56,12 +58,14 @@ import torch
 
 from omnifusion_torch import parallel
 from omnifusion_torch.cli.common import (
+    PROFILE_STEPS,
     add_common_args,
     build_dataset,
     build_model,
     dump_run_config,
     entry_device,
     is_train_checkpoint,
+    profile_steps,
     run_on_mesh,
     uses_confidence,
 )
@@ -76,10 +80,9 @@ from omnifusion_torch.training import (
     restore_state,
     train_step,
 )
-from omnifusion_torch.utils.profiling import Throughput, trace
+from omnifusion_torch.utils.profiling import Throughput
 
 METRICS = ("abs_rel", "sq_rel", "lin_rms_sq", "log_rms_sq", "d1", "d2", "d3")
-PROFILE_STEPS = (10, 14)  # --profile_dir: the first and last traced step of epoch 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -158,8 +161,8 @@ def _train(args) -> dict:
     history: dict = {"train_loss": [], "val": []}
     best_abs_rel = float("inf")
     first_epoch = state.step // steps_per_epoch
-    profile = args.profile_dir and main_rank
-    with contextlib.ExitStack() as files, contextlib.ExitStack() as profiling:
+    profile_dir = args.profile_dir if main_rank else None
+    with contextlib.ExitStack() as files:
         csvfile = files.enter_context(open(csv_path, "a", newline="")) if main_rank else None
         csvwriter = csv.writer(csvfile) if main_rank else None
         if new_csv and main_rank:
@@ -168,16 +171,12 @@ def _train(args) -> dict:
         for epoch in range(first_epoch, args.epochs):
             t0 = time.time()
             pending = []  # device scalars; read at the end of the epoch
-            for it, batch in enumerate(train_loader.to_device(device)):
-                if profile and epoch == 0 and it == PROFILE_STEPS[0]:
-                    profiling.enter_context(trace(args.profile_dir))
+            batches = profile_steps(train_loader.to_device(device),
+                                    profile_dir if epoch == 0 else None, PROFILE_STEPS)
+            for batch in batches:
                 m = train_step(state, batch, confidence)
                 pending.append((m["loss"], m["grad_norm"]))
                 throughput.update(args.batch)
-                if profile and epoch == 0 and it == PROFILE_STEPS[1]:
-                    profiling.close()
-                    print(f"## wrote profiler trace to {args.profile_dir}")
-            profiling.close()  # an epoch 0 shorter than the window ends the trace
             losses = [float(loss) for loss, _ in pending]
             mean_loss = float(np.mean(losses)) if losses else float("nan")
             history["train_loss"].append(mean_loss)

@@ -19,7 +19,9 @@ weights start from ``--seed``. ``--bf16`` trains the bf16 trunk on f32
 parameters; the logits and the merge stay f32. As in the JAX entry point,
 the depth CLIs' ``--model``, ``--checkpoint``, ``--merge_dtype``,
 ``--synthetic_size``, ``--val_interval`` and logging flags are not read
-here. Runs on the CUDA card unless ``--device`` names another device.
+here. ``--profile_dir`` writes a ``torch.profiler`` trace (``trace.json``)
+of steps 10-14 of epoch 0 with the program's spans in it, as cli/train.py
+does. Runs on the CUDA card unless ``--device`` names another device.
 
 ``--mesh`` (cli/common.py) trains on a (data, model) mesh as cli/train.py
 does: the cross-entropy's mean is over the global batch's valid labels,
@@ -39,9 +41,11 @@ import torch
 
 from omnifusion_torch import parallel
 from omnifusion_torch.cli.common import (
+    PROFILE_STEPS,
     add_common_args,
     dump_run_config,
     entry_device,
+    profile_steps,
     resolve_erp_size,
     run_on_mesh,
 )
@@ -106,10 +110,13 @@ def _train_sem(args) -> dict:
 
     history: dict = {"train_loss": [], "miou": []}
     best_miou = 0.0
+    profile_dir = args.profile_dir if parallel.rank() == 0 else None
     for epoch in range(args.epochs):
         t0 = time.time()
+        batches = profile_steps(train_loader.to_device(device),
+                                profile_dir if epoch == 0 else None, PROFILE_STEPS)
         pending = [train_step_sem(state, batch)["loss"]  # device scalars, read once
-                   for batch in train_loader.to_device(device)]
+                   for batch in batches]
         mean_loss = float(np.mean([float(x) for x in pending])) if pending else float("nan")
         history["train_loss"].append(mean_loss)
         mgr.save(state, "latest")

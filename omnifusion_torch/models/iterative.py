@@ -46,6 +46,7 @@ from omnifusion_torch.projection.spec import (
     build_equi2pers_grids,
     build_pers2equi_grids,
 )
+from omnifusion_torch.utils.profiling import span
 
 
 class SphericalFusionIterative(DepthTrunk):
@@ -109,24 +110,32 @@ class SphericalFusionIterative(DepthTrunk):
             raise ValueError(f"input {tuple(rgb.shape)} does not match {spec}")
         b, p = rgb.shape[0], spec.n_patches
         h, w = spec.patch_h, spec.patch_w
-        p2e = build_pers2equi_grids(spec)
-        grids_q = build_equi2pers_grids(spec_q)
-        if self.dtype is not None:
-            rgb = rgb.to(self.dtype)
-        patches = equi2pers(rgb, build_equi2pers_grids(spec))  # (B, P, h, w, 3)
-        x = patches.permute(0, 1, 4, 2, 3).reshape(b * p, 3, h, w)
+        with span("model"):
+            p2e = build_pers2equi_grids(spec)
+            grids_q = build_equi2pers_grids(spec_q)
+            with span("e2p"):
+                if self.dtype is not None:
+                    rgb = rgb.to(self.dtype)
+                patches = equi2pers(rgb, build_equi2pers_grids(spec))  # (B, P, h, w, 3)
+                x = patches.permute(0, 1, 4, 2, 3).reshape(b * p, 3, h, w)
 
-        def merge(heads):
-            pred, conf = self.gather_heads(*heads, b)
-            return confidence_merge(pred.reshape(b, p, h, w), conf.reshape(b, p, h, w), p2e,
-                                    use_confidence=confidence, dtype=self.merge_dtype)
+            def merge(heads):
+                with span("merge"):
+                    pred, conf = self.gather_heads(*heads, b)
+                    return confidence_merge(pred.reshape(b, p, h, w), conf.reshape(b, p, h, w),
+                                            p2e, use_confidence=confidence,
+                                            dtype=self.merge_dtype)
 
-        # pass 1: the unit sphere, embedded once for all the batch
-        preds = [merge(self.trunk(x, self.mlp_points1(self.xyz), b))]
-        x = shard_rows(x)
-        for _ in range(self.num_iters - 1):
-            depth = equi2pers(sum_cotangent(preds[-1]), grids_q)  # (B, P, h/4, w/4, 1) f32
-            points = self.xyz * depth.permute(0, 1, 4, 2, 3)  # (B, P, 3, h/4, w/4)
-            points = shard_rows(points.reshape(b * p, 3, spec_q.patch_h, spec_q.patch_w))
-            preds.append(merge(self.trunk_rows(x, self.mlp_points2(points), b)))
-        return preds
+            # pass 1: the unit sphere, embedded once for all the batch
+            with span("points"):
+                point_feat = self.mlp_points1(self.xyz)
+            preds = [merge(self.trunk(x, point_feat, b))]
+            x = shard_rows(x)
+            for _ in range(self.num_iters - 1):
+                with span("points"):
+                    depth = equi2pers(sum_cotangent(preds[-1]), grids_q)  # (B, P, h/4, w/4, 1) f32
+                    points = self.xyz * depth.permute(0, 1, 4, 2, 3)  # (B, P, 3, h/4, w/4)
+                    points = shard_rows(points.reshape(b * p, 3, spec_q.patch_h, spec_q.patch_w))
+                    point_feat = self.mlp_points2(points)
+                preds.append(merge(self.trunk_rows(x, point_feat, b)))
+            return preds

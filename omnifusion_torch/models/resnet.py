@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from omnifusion_torch.models.layers import TorchBatchNorm, max_pool_3x3_s2, torch_conv
+from omnifusion_torch.utils.profiling import span
 
 
 class BasicBlock(nn.Module):
@@ -94,17 +95,18 @@ class ResNet34Encoder(nn.Module):
             in_features = features
 
     def encode(self, x, extra_layer1_features=None) -> dict:
-        feats = {}
-        x = F.relu(self.bn1(self.conv1(x)))
-        feats["conv1"] = x
-        x = max_pool_3x3_s2(x)
-        for i in range(1, len(self.stages) + 1):
-            x = getattr(self, f"layer{i}")(x)
-            if i == 1 and extra_layer1_features is not None:
-                # geometric point features added to layer1
-                x = x + extra_layer1_features
-            feats[f"layer{i}"] = x
-        return feats
+        with span("encoder"):
+            feats = {}
+            x = F.relu(self.bn1(self.conv1(x)))
+            feats["conv1"] = x
+            x = max_pool_3x3_s2(x)
+            for i in range(1, len(self.stages) + 1):
+                x = getattr(self, f"layer{i}")(x)
+                if i == 1 and extra_layer1_features is not None:
+                    # geometric point features added to layer1
+                    x = x + extra_layer1_features
+                feats[f"layer{i}"] = x
+            return feats
 
     def forward(self, x, extra_layer1_features=None) -> dict:
         return self.encode(x, extra_layer1_features)

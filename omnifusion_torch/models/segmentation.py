@@ -29,6 +29,7 @@ from omnifusion_torch.projection.spec import (
     build_equi2pers_grids,
     build_pers2equi_grids,
 )
+from omnifusion_torch.utils.profiling import span
 
 
 class SphericalFusionSeg(DepthTrunk):
@@ -75,24 +76,30 @@ class SphericalFusionSeg(DepthTrunk):
             raise ValueError(f"input {tuple(rgb.shape)} does not match {spec}")
         b, p, nc = rgb.shape[0], spec.n_patches, self.num_classes
         h, w = spec.patch_h, spec.patch_w
-        if self.dtype is not None:
-            rgb = rgb.to(self.dtype)
-        patches = equi2pers(rgb, build_equi2pers_grids(spec))  # (B, P, h, w, 3)
-        x = patches.permute(0, 1, 4, 2, 3).reshape(b * p, 3, h, w)
-        logits, conf = self.gather_heads(*self.trunk(x, self.mlp_points(self.geo), b), b)
-        # channel-first (B, C, P*h*w) in f32 (segmentation.py:82-83; f64
-        # for an f64 model): num and den packed into one merge of C + 1 rows
-        # per panorama
-        mdt = torch.promote_types(logits.dtype, torch.float32)
-        lg = logits.to(mdt).reshape(b, p, nc, h * w).transpose(1, 2).reshape(b, nc, -1)
-        p2e = build_pers2equi_grids(spec)
-        if not confidence:
-            return pers2equi_cf(lg, p2e).permute(0, 2, 3, 1)
-        conf = conf.to(mdt).reshape(b, 1, -1)
-        merged = pers2equi_cf(torch.cat([lg * conf, conf], dim=1), p2e)  # (B, C+1, H, W)
-        num, den = merged[:, :nc], merged[:, nc:]
-        zero = (den <= 1e-8).to(den.dtype)
-        return (num / (den + 1e-8 * zero)).permute(0, 2, 3, 1)
+        with span("model"):
+            with span("e2p"):
+                if self.dtype is not None:
+                    rgb = rgb.to(self.dtype)
+                patches = equi2pers(rgb, build_equi2pers_grids(spec))  # (B, P, h, w, 3)
+                x = patches.permute(0, 1, 4, 2, 3).reshape(b * p, 3, h, w)
+            with span("points"):
+                point_feat = self.mlp_points(self.geo)
+            heads = self.trunk(x, point_feat, b)
+            with span("merge"):
+                logits, conf = self.gather_heads(*heads, b)
+                # channel-first (B, C, P*h*w) in f32 (segmentation.py:82-83; f64
+                # for an f64 model): num and den packed into one merge of C + 1
+                # rows per panorama
+                mdt = torch.promote_types(logits.dtype, torch.float32)
+                lg = logits.to(mdt).reshape(b, p, nc, h * w).transpose(1, 2).reshape(b, nc, -1)
+                p2e = build_pers2equi_grids(spec)
+                if not confidence:
+                    return pers2equi_cf(lg, p2e).permute(0, 2, 3, 1)
+                conf = conf.to(mdt).reshape(b, 1, -1)
+                merged = pers2equi_cf(torch.cat([lg * conf, conf], dim=1), p2e)  # (B, C+1, H, W)
+                num, den = merged[:, :nc], merged[:, nc:]
+                zero = (den <= 1e-8).to(den.dtype)
+                return (num / (den + 1e-8 * zero)).permute(0, 2, 3, 1)
 
 
 def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,

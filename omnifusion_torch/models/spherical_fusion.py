@@ -59,6 +59,7 @@ from omnifusion_torch.projection.spec import (
     build_equi2pers_grids,
     build_pers2equi_grids,
 )
+from omnifusion_torch.utils.profiling import span
 
 
 class MlpPoints(nn.Sequential):
@@ -159,18 +160,19 @@ class DepthTrunk(ResNet34Encoder):
         tokens come out of the transformer in f32 (transformer.py) and are
         added to layer4. Under a model axis the transformer runs on the
         model group's tokens, gathered, and this rank keeps its rows."""
-        rows, n = l4.shape[0], b * self.n_patches
-        tok = gather_tokens(getattr(self, self.DOWN)(l4).reshape(rows, self.emb), n)
-        tok = self.transformer(tok.reshape(b, self.n_patches, self.emb))
-        tok = shard_rows(tok.reshape(n, self.emb))
-        if self.emb == l4.shape[1]:
-            # bf16 + f32 promotes to f32, as in JAX (spherical_fusion.py:147),
-            # so under a bf16 trunk the first decoder upsample runs in f32
-            return l4 + tok.reshape(rows, self.emb, 1, 1)
-        # up_proj computes in the trunk's dtype: the sum keeps it
-        # (spherical_fusion.py:151-153)
-        hh, ww = l4.shape[-2:]
-        return l4 + self.up_proj(tok.reshape(rows, 32, hh, ww))
+        with span("transformer"):
+            rows, n = l4.shape[0], b * self.n_patches
+            tok = gather_tokens(getattr(self, self.DOWN)(l4).reshape(rows, self.emb), n)
+            tok = self.transformer(tok.reshape(b, self.n_patches, self.emb))
+            tok = shard_rows(tok.reshape(n, self.emb))
+            if self.emb == l4.shape[1]:
+                # bf16 + f32 promotes to f32, as in JAX (spherical_fusion.py:147),
+                # so under a bf16 trunk the first decoder upsample runs in f32
+                return l4 + tok.reshape(rows, self.emb, 1, 1)
+            # up_proj computes in the trunk's dtype: the sum keeps it
+            # (spherical_fusion.py:151-153)
+            hh, ww = l4.shape[-2:]
+            return l4 + self.up_proj(tok.reshape(rows, 32, hh, ww))
 
     def trunk(self, x, point_feat, b: int):
         bp = x.shape[0]
@@ -204,24 +206,26 @@ class DepthTrunk(ResNet34Encoder):
             x = conv0(resize_bilinear(x, skip.shape[-2:]))
             return conv1(torch.cat([x, skip.to(x.dtype)], dim=1))
 
-        x = up_stage(l4, l3, self.de_conv0_0, self.de_conv0_1)
-        x = up_stage(x, l2, self.de_conv1_0, self.de_conv1_1)
-        x = up_stage(x, l1, self.de_conv2_0, self.de_conv2_1)
-        x = up_stage(x, conv1, self.de_conv3_0, self.de_conv3_1)
-        x = self.de_conv4_0(resize_bilinear(x, (h, w)))
+        with span("decoder"):
+            x = up_stage(l4, l3, self.de_conv0_0, self.de_conv0_1)
+            x = up_stage(x, l2, self.de_conv1_0, self.de_conv1_1)
+            x = up_stage(x, l1, self.de_conv2_0, self.de_conv2_1)
+            x = up_stage(x, conv1, self.de_conv3_0, self.de_conv3_1)
+            x = self.de_conv4_0(resize_bilinear(x, (h, w)))
 
         # fused heads: one conv with both heads' kernels reads the feature
         # map once; each head keeps its own parameters, cast to the feature
         # map's dtype (spherical_fusion.py:174-175)
-        y = F.conv2d(
-            x,
-            torch.cat([self.pred.weight, self.weight_pred.weight]).to(x.dtype),
-            torch.cat([self.pred.bias, self.weight_pred.bias]).to(x.dtype),
-            padding=1,
-        )
-        k = self.pred_channels
-        pred = F.relu(y[:, :k]) if self.pred_activation == "relu" else y[:, :k]
-        return pred, torch.sigmoid(y[:, k:])
+        with span("heads"):
+            y = F.conv2d(
+                x,
+                torch.cat([self.pred.weight, self.weight_pred.weight]).to(x.dtype),
+                torch.cat([self.pred.bias, self.weight_pred.bias]).to(x.dtype),
+                padding=1,
+            )
+            k = self.pred_channels
+            pred = F.relu(y[:, :k]) if self.pred_activation == "relu" else y[:, :k]
+            return pred, torch.sigmoid(y[:, k:])
 
     def gather_heads(self, pred, conf, b: int):
         """The model group's (pred, conf) rows of the ``b`` panoramas, for a
@@ -314,20 +318,26 @@ class SphericalFusion(DepthTrunk):
             raise ValueError(f"input {tuple(rgb.shape)} does not match {spec}")
         b, p = rgb.shape[0], spec.n_patches
         h, w = spec.patch_h, spec.patch_w
-        # cast before the projection, so that the e2p blend reads the
-        # trunk's dtype (spherical_fusion.py:264-266)
-        if self.dtype is not None:
-            rgb = rgb.to(self.dtype)
-        patches = equi2pers(rgb, build_equi2pers_grids(spec))  # (B, P, h, w, 3)
-        x = patches.permute(0, 1, 4, 2, 3).reshape(b * p, 3, h, w)
-        pred, conf = self.gather_heads(*self.trunk(x, self.mlp_points(self.geo), b), b)
-        return confidence_merge(
-            pred.reshape(b, p, h, w),
-            conf.reshape(b, p, h, w),
-            build_pers2equi_grids(spec),
-            use_confidence=confidence,
-            dtype=self.merge_dtype,
-        )
+        with span("model"):
+            with span("e2p"):
+                # cast before the projection, so that the e2p blend reads the
+                # trunk's dtype (spherical_fusion.py:264-266)
+                if self.dtype is not None:
+                    rgb = rgb.to(self.dtype)
+                patches = equi2pers(rgb, build_equi2pers_grids(spec))  # (B, P, h, w, 3)
+                x = patches.permute(0, 1, 4, 2, 3).reshape(b * p, 3, h, w)
+            with span("points"):
+                point_feat = self.mlp_points(self.geo)
+            heads = self.trunk(x, point_feat, b)
+            with span("merge"):
+                pred, conf = self.gather_heads(*heads, b)
+                return confidence_merge(
+                    pred.reshape(b, p, h, w),
+                    conf.reshape(b, p, h, w),
+                    build_pers2equi_grids(spec),
+                    use_confidence=confidence,
+                    dtype=self.merge_dtype,
+                )
 
 
 def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:

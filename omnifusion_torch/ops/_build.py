@@ -25,6 +25,8 @@ import tempfile
 
 import torch
 
+from omnifusion_torch.utils.profiling import count, span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -87,6 +89,7 @@ def build() -> str:
     path = _library_path()
     if os.path.exists(path):
         return path
+    count("kernel_library.built")
     os.makedirs(BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
         cu = [s for s in sources() if s.endswith(".cu")]
@@ -117,13 +120,16 @@ def build() -> str:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    lib = ctypes.CDLL(build())
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    """The loaded kernel library, built on first use (the span
+    ``kernel_library``; the counter ``kernel_library.built`` when nvcc
+    runs)."""
+    with span("kernel_library"):
+        lib = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        return lib
 
 
 def on_cuda(x: torch.Tensor, what: str) -> bool:

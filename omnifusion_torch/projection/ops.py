@@ -11,7 +11,8 @@ Each op is one static sparse gather-blend (ops/quad_blend.py): on a CUDA
 tensor it launches its kernel, on a CPU tensor it runs its plain version.
 Each is differentiable in its input: the backward applies the transposed
 tables (the transposed kernel on the card). The tables, forward and
-transposed, move to a device once per (spec, device) and stay cached.
+transposed, move to a device once per (spec, device) and stay cached (the
+span ``tables``, the counter ``tables.uploaded``; utils/profiling.py).
 ``equi2pers_full``, ``project`` and ``unproject`` add the static geometric
 features and the grids' lookup, as the JAX functions do.
 """
@@ -31,6 +32,7 @@ from omnifusion_torch.projection.spec import (
     build_equi2pers_grids,
     build_pers2equi_grids,
 )
+from omnifusion_torch.utils.profiling import count, span
 
 
 class PatchProjection(NamedTuple):
@@ -50,27 +52,31 @@ E2P_TILE = (4, 32)
 @functools.lru_cache(maxsize=None)
 def equi2pers_tables(spec: ProjectionSpec, device: torch.device) -> BlendTables:
     g = build_equi2pers_grids(spec)
-    return BlendTables.create(
-        g.idx, g.w4, spec.erp_w, spec.erp_h * spec.erp_w, device, vjp=g.vjp,
-        out_w=spec.patch_w, tile=E2P_TILE,
-    )
+    with span("tables"):
+        count("tables.uploaded")
+        return BlendTables.create(
+            g.idx, g.w4, spec.erp_w, spec.erp_h * spec.erp_w, device, vjp=g.vjp,
+            out_w=spec.patch_w, tile=E2P_TILE,
+        )
 
 
 @functools.lru_cache(maxsize=None)
 def pers2equi_tables(spec: ProjectionSpec, device: torch.device) -> BlendTables:
     g = build_pers2equi_grids(spec)
     n_in = spec.n_patches * spec.patch_h * spec.patch_w
-    if g.capped is None:
+    with span("tables"):
+        count("tables.uploaded")
+        if g.capped is None:
+            return BlendTables.create(
+                g.idx, g.w4, spec.patch_w, n_in, device, vjp=g.vjp, out_w=spec.erp_w
+            )
+        # the capped map is the dense one re-packed: one transposed table serves both
+        c = g.capped
         return BlendTables.create(
-            g.idx, g.w4, spec.patch_w, n_in, device, vjp=g.vjp, out_w=spec.erp_w
+            c.idx, c.w4, spec.patch_w, n_in, device,
+            tail_ptr=c.tail_ptr, tail_pix=c.tail_pix, tail_idx=c.tail_idx, tail_w=c.tail_w,
+            vjp=g.vjp, out_w=spec.erp_w,
         )
-    # the capped map is the dense one re-packed: one transposed table serves both
-    c = g.capped
-    return BlendTables.create(
-        c.idx, c.w4, spec.patch_w, n_in, device,
-        tail_ptr=c.tail_ptr, tail_pix=c.tail_pix, tail_idx=c.tail_idx, tail_w=c.tail_w,
-        vjp=g.vjp, out_w=spec.erp_w,
-    )
 
 
 def equi2pers(erp: torch.Tensor, grids: Equi2PersGrids) -> torch.Tensor:

@@ -16,6 +16,11 @@ Differences from the JAX module:
 - the transposed backward tables (``TransposedTables``) carry CSR row
   pointers over their overflow, sorted by destination (``over_ptr``), so
   the transposed kernel walks each source pixel's overflow the same way.
+
+``build_equi2pers_grids`` and ``build_pers2equi_grids`` keep one set of
+tables per spec in the process; where they build one, they open the span
+``tables`` and count ``tables.computed`` or ``tables.from_disk``
+(utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 from omnifusion_torch.geometry import gnomonic
 from omnifusion_torch.geometry.layout import num_patches, patch_centers, uniform_patch_centers
 from omnifusion_torch.projection import table_cache
+from omnifusion_torch.utils.profiling import count, span
 
 
 def _pair(t):
@@ -309,16 +315,19 @@ def _vjp_from(cached: dict) -> TransposedTables:
 
 @functools.lru_cache(maxsize=None)
 def build_equi2pers_grids(spec: ProjectionSpec) -> Equi2PersGrids:
-    cached = table_cache.load("e2p", spec)
-    if cached is not None:
-        vjp = _vjp_from(cached)  # takes the vjp_* arrays out of ``cached``
-        return Equi2PersGrids(vjp=vjp, spec=spec, **cached)
-    g = _build_equi2pers_grids(spec)
-    table_cache.save(
-        "e2p", spec,
-        dict(idx=g.idx, w4=g.w4, xyz=g.xyz, uv=g.uv, centers=g.centers, **_vjp_arrays(g.vjp)),
-    )
-    return g
+    with span("tables"):
+        cached = table_cache.load("e2p", spec)
+        if cached is not None:
+            count("tables.from_disk")
+            vjp = _vjp_from(cached)  # takes the vjp_* arrays out of ``cached``
+            return Equi2PersGrids(vjp=vjp, spec=spec, **cached)
+        count("tables.computed")
+        g = _build_equi2pers_grids(spec)
+        table_cache.save(
+            "e2p", spec,
+            dict(idx=g.idx, w4=g.w4, xyz=g.xyz, uv=g.uv, centers=g.centers, **_vjp_arrays(g.vjp)),
+        )
+        return g
 
 
 def _build_equi2pers_grids(spec: ProjectionSpec) -> Equi2PersGrids:
@@ -370,22 +379,26 @@ _CAPPED_KEYS = ("idx", "w4", "tail_pix", "tail_idx", "tail_w", "tail_ptr")
 
 @functools.lru_cache(maxsize=None)
 def build_pers2equi_grids(spec: ProjectionSpec) -> Pers2EquiGrids:
-    cached = table_cache.load("p2e", spec)
-    if cached is not None:
-        capped = (
-            CappedTables(**{k: cached[f"cap_{k}"] for k in _CAPPED_KEYS})
-            if "cap_idx" in cached
-            else None
-        )
-        return Pers2EquiGrids(
-            idx=cached["idx"], w4=cached["w4"], capped=capped, vjp=_vjp_from(cached), spec=spec
-        )
-    g = _build_pers2equi_grids(spec)
-    arrays = dict(idx=g.idx, w4=g.w4, **_vjp_arrays(g.vjp))
-    if g.capped is not None:
-        arrays.update({f"cap_{k}": getattr(g.capped, k) for k in _CAPPED_KEYS})
-    table_cache.save("p2e", spec, arrays)
-    return g
+    with span("tables"):
+        cached = table_cache.load("p2e", spec)
+        if cached is not None:
+            count("tables.from_disk")
+            capped = (
+                CappedTables(**{k: cached[f"cap_{k}"] for k in _CAPPED_KEYS})
+                if "cap_idx" in cached
+                else None
+            )
+            return Pers2EquiGrids(
+                idx=cached["idx"], w4=cached["w4"], capped=capped, vjp=_vjp_from(cached),
+                spec=spec,
+            )
+        count("tables.computed")
+        g = _build_pers2equi_grids(spec)
+        arrays = dict(idx=g.idx, w4=g.w4, **_vjp_arrays(g.vjp))
+        if g.capped is not None:
+            arrays.update({f"cap_{k}": getattr(g.capped, k) for k in _CAPPED_KEYS})
+        table_cache.save("p2e", spec, arrays)
+        return g
 
 
 def _build_pers2equi_grids(spec: ProjectionSpec) -> Pers2EquiGrids:

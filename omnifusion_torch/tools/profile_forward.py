@@ -1,138 +1,132 @@
-"""Device time of the flagship forward, or train step, by kernel and by stage.
+"""Device and host time of the flagship forward, or train step, by kernel and by span.
 
-    python -m omnifusion_torch.tools.profile_forward --batch 8 --bf16 --merge_dtype f16
-    python -m omnifusion_torch.tools.profile_forward --batch 8 --train
+    python -m omnifusion_torch.tools.profile_forward --batch 64 --bf16 --merge_dtype f16 --host_reps 10
+    python -m omnifusion_torch.tools.profile_forward --batch 8 --train --host_reps 10
     python -m omnifusion_torch.tools.profile_forward --device cpu --erp_size 64,128 --patchsize 32 --batch 1
 
-The port's counterpart of ``tools/profile_forward.py``. It traces ``--reps``
-warm forwards of the one-shot model (seeded weights; ``--bf16``,
-``--merge_dtype``), or with ``--train`` warm train steps
-(``training.train_step``, AdamW, BerHu on synthetic targets), under
-``utils.profiling.trace``, then prints two tables: device time by kernel
-name, and device time by stage, each with its share, and last one JSON
-line with both, the device's busy share of the traced window and ``runs``,
-the forwards or steps it ran (the reps and one warm-up).
+The port's counterpart of ``tools/profile_forward.py``. It runs warm
+forwards of the one-shot model, or of the iterative one with ``--model
+iterative`` (seeded weights; ``--bf16``, ``--merge_dtype``), or with
+``--train`` warm train steps (``training.train_step``, AdamW, BerHu on
+synthetic targets), in these windows, each of them ended by one
+synchronize:
 
-Stages come from marks that this tool sets with hooks of its own; the
-model's modules hold no profiling code. A mark is an empty
-``record_function`` range named ``stage:<name>``, and a kernel belongs to
-the last mark before the host call that launched it (the launch's
-correlation id in the Chrome trace). Forward: e2p (the model's pre-hook),
-points (``mlp_points``), encoder (``conv1``), transformer (``down``),
-decoder (after the transformer or ``up_proj``), heads (after
-``de_conv4_0``), merge (``confidence_merge``, wrapped for the run).
-``--train``: forward, loss (the model's output hook), backward (a hook on
-the output's gradient; the gradient norm falls in it), optimizer (the
-optimizer's step pre-hook). On the CPU there are no kernels: the tables
-hold the host time of each operator (self time) and of each stage.
+- the warm-up: one forward or step, recorded; ``setup`` holds the seconds
+  of its ``kernel_library`` and ``tables`` spans (the kernel library built
+  or loaded, the tables computed or read from disk and moved to the
+  device) and its counters;
+- with ``--host_reps N``, four host windows of N each, spans off, on, on,
+  off: ``host_window`` holds the ms a rep of each on the host clock, and
+  the host table holds the spans' host time in the two with spans on, where
+  no profiler runs;
+- ``--reps`` under ``utils.profiling.trace`` with the spans recorded, in
+  the Chrome trace as ``span:<name>`` ranges. A device op counts in every
+  span range open on the stepping thread when the host call that launched
+  it ran (the launch's correlation id; autograd's thread launches the
+  backward, inside the stepping thread's ``backward``), and each gap in
+  which the device idles is named by the innermost range open on the
+  stepping thread when it began. Without ``--host_reps`` the host table is
+  this window's, so it holds the profiler's cost too.
+
+It prints device time by kernel name, by stage and by idle gap (the card
+only), host time by stage and the set-up line, then one JSON line with all
+of them, the device's busy share of the traced window and ``runs``, the
+forwards or steps it ran. The stages are the program's spans
+(``utils/profiling.py``): for a forward the ``model`` span's children (e2p,
+points, encoder, transformer, decoder, heads, merge; the iterative model
+opens them per pass), with ``--train`` the ``train_step`` span's (forward,
+loss, backward, optimizer; the gradient norm falls in the optimizer);
+``by_span`` holds every span's device time. On the CPU there are no
+kernels: the tables hold the host time of each operator (self time) and of
+each stage.
 """
 
 from __future__ import annotations
 
 import argparse
-import bisect
 import collections
 import contextlib
 import json
 import os
 import tempfile
+import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-import omnifusion_torch.models.spherical_fusion as sf
 from omnifusion_torch.cli.common import MERGE_DTYPES, pair_arg
 from omnifusion_torch.device import resolve_device
-from omnifusion_torch.models import SphericalFusion, init_weights
+from omnifusion_torch.models import SphericalFusion, SphericalFusionIterative, init_weights
 from omnifusion_torch.projection import ProjectionSpec
 from omnifusion_torch.training import create_train_state, train_step
-from omnifusion_torch.utils.profiling import trace
+from omnifusion_torch.utils.profiling import recording, trace
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_PREFIX = "cuda_"  # CUDA API calls; a launch carries its kernel's correlation id
+_SPAN = "span:"
+OUTSIDE = "outside the stages"
+SETUP_SPANS = ("kernel_library", "tables")
+MODELS = {"oneshot": SphericalFusion, "iterative": SphericalFusionIterative}
 
 
-def mark(name: str) -> None:
-    with record_function(f"stage:{name}"):
-        pass
-
-
-@contextlib.contextmanager
-def stage_marks(model: SphericalFusion, optimizer=None):
-    """Install the stage marks of the module docstring for the duration."""
-    handles = []
-
-    def pre(module, name):
-        handles.append(module.register_forward_pre_hook(lambda *_: mark(name)))
-
-    def post(module, name):
-        handles.append(module.register_forward_hook(lambda *_: mark(name)))
-
-    saved = sf.confidence_merge
-    if optimizer is None:
-        pre(model, "e2p")
-        pre(model.mlp_points, "points")
-        pre(model.conv1, "encoder")
-        pre(model.down, "transformer")
-        post(getattr(model, "up_proj", model.transformer), "decoder")
-        post(model.de_conv4_0, "heads")
-
-        def merge(*args, **kwargs):
-            mark("merge")
-            return saved(*args, **kwargs)
-
-        sf.confidence_merge = merge
-    else:
-        pre(model, "forward")
-
-        def loss_and_backward_marks(module, args, out):
-            mark("loss")
-            if out.requires_grad:
-                out.register_hook(lambda g: mark("backward"))
-
-        handles.append(model.register_forward_hook(loss_and_backward_marks))
-        handles.append(optimizer.register_step_pre_hook(lambda *_: mark("optimizer")))
-        handles.append(optimizer.register_step_post_hook(lambda *_: mark("end")))
-    try:
-        yield
-    finally:
-        sf.confidence_merge = saved
-        for h in handles:
-            h.remove()
-
-
-def split_trace(path: str) -> dict:
-    """Device ms by kernel name and by stage from a Chrome trace, the
-    window's span and the host ms of each stage (from its mark to the next;
-    ``end`` marks close a rep)."""
+def split_trace(path: str, parent: str) -> dict:
+    """Device ms by kernel name, by span (inclusive) and by idle gap from a
+    Chrome trace, as the module docstring says; the stepping thread is the
+    one whose ranges are ``span:<parent>``."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    marks = sorted((e["ts"], e["name"][len("stage:"):]) for e in events
-                   if e.get("cat") == "user_annotation" and e["name"].startswith("stage:"))
-    if not marks:
-        raise RuntimeError(f"no stage marks in {path}")
-    starts = [t for t, _ in marks]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"].startswith(_SPAN)]
+    tids = {e["tid"] for e in spans if e["name"] == _SPAN + parent}
+    if not tids:
+        raise RuntimeError(f"no span:{parent} in {path}")
+    # (start, end, name) on the stepping thread; nested ranges start later
+    ranges = sorted((e["ts"], e["ts"] + e.get("dur", 0), e["name"][len(_SPAN):])
+                    for e in spans if e["tid"] in tids)
+
+    def open_at(t):
+        return [name for t0, t1, name in ranges if t0 <= t <= t1]
+
     launch = {e["args"]["correlation"]: e["ts"] for e in events
               if e.get("cat", "").startswith(_LAUNCH_PREFIX) and "correlation" in e.get("args", {})}
     by_kernel = collections.defaultdict(float)
-    by_stage = collections.defaultdict(float)
-    span = [float("inf"), float("-inf")]
+    by_span = collections.defaultdict(float)
+    busy = []
     for e in events:
         if e.get("cat") not in _DEVICE_CATS:
             continue
         ms = e.get("dur", 0) / 1e3
         by_kernel[e["name"]] += ms
         t = launch.get(e.get("args", {}).get("correlation"))
-        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
-        by_stage[marks[i][1] if i >= 0 else "before the first mark"] += ms
-        span = [min(span[0], e["ts"]), max(span[1], e["ts"] + e.get("dur", 0))]
+        for name in set(open_at(t)) if t is not None else ():
+            by_span[name] += ms
+        busy.append((e["ts"], e["ts"] + e.get("dur", 0)))
+    if not busy:
+        return {"by_kernel": {}, "by_span": {}, "idle_by_span": {}, "busy_ms": 0.0,
+                "device_window_ms": 0.0}
+    busy.sort()
+    idle = collections.defaultdict(float)
+    first, (start, end) = busy[0][0], busy[0]
+    union = 0.0
+    for t0, t1 in busy:
+        if t0 > end:  # the device idles from ``end`` to ``t0``
+            inner = open_at(end)
+            idle[inner[-1] if inner else OUTSIDE] += (t0 - end) / 1e3
+            union += end - start
+            start = t0
+        end = max(end, t1)
+    union += end - start
+    return {"by_kernel": dict(by_kernel), "by_span": dict(by_span), "idle_by_span": dict(idle),
+            "busy_ms": union / 1e3, "device_window_ms": (end - first) / 1e3}
+
+
+def host_by_stage(spans, parent: str) -> dict:
+    """Host ms of each child span of ``parent``, summed by name."""
     host = collections.defaultdict(float)
-    for (t0, name), (t1, _) in zip(marks, marks[1:]):
-        if name != "end":
-            host[name] += (t1 - t0) / 1e3
-    return {"by_kernel": dict(by_kernel), "by_stage": dict(by_stage), "host_by_stage": dict(host),
-            "device_window_ms": max(span[1] - span[0], 0.0) / 1e3}
+    for s in spans:
+        if s.parent == parent:
+            host[s.name] += (s.end_ns - s.start_ns) / 1e6
+    return dict(host)
 
 
 def table(title: str, rows: dict, reps: int, top: int) -> list[dict]:
@@ -147,12 +141,15 @@ def table(title: str, rows: dict, reps: int, top: int) -> list[dict]:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description="profile the one-shot forward (PyTorch port)")
+    ap = argparse.ArgumentParser(description="profile the flagship forward (PyTorch port)")
+    ap.add_argument("--model", choices=sorted(MODELS), default="oneshot")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--bf16", action="store_true", help="bf16 trunk")
     ap.add_argument("--merge_dtype", choices=sorted(MERGE_DTYPES), default="f32")
     ap.add_argument("--train", action="store_true", help="train steps, not forwards")
-    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=3, help="forwards or steps traced")
+    ap.add_argument("--host_reps", type=int, default=0,
+                    help="forwards or steps in each of the four host windows (default: none)")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--erp_size", type=pair_arg, default=(512, 1024))
     ap.add_argument("--patchsize", type=pair_arg, default=(128, 128))
@@ -165,8 +162,8 @@ def run(args) -> dict:
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
     spec = ProjectionSpec.create(args.erp_size, args.patchsize, (80.0, 80.0), 4)
-    model = SphericalFusion(spec, dtype=torch.bfloat16 if args.bf16 else None,
-                            merge_dtype=MERGE_DTYPES[args.merge_dtype], device=device)
+    model = MODELS[args.model](spec, dtype=torch.bfloat16 if args.bf16 else None,
+                               merge_dtype=MERGE_DTYPES[args.merge_dtype], device=device)
     init_weights(model, 0)
     rng = np.random.default_rng(0)
     shape = (args.batch, *args.erp_size)
@@ -182,53 +179,85 @@ def run(args) -> dict:
         def step(b):
             return train_step(state, b)["loss"]
 
-        marks = stage_marks(model, state.optimizer)
+        parent = "train_step"
         grad = contextlib.nullcontext()
     else:
         model.eval()
 
         def step(b):
-            out = model(b["rgb"])
-            mark("end")
-            return out.sum()
+            out = model(b["rgb"])  # the iterative model's passes: the last
+            return (out[-1] if isinstance(out, list) else out).float().sum()  # f16 would overflow
 
-        marks = stage_marks(model)
+        parent = "model"
         grad = torch.inference_mode()
+
+    def window(n: int) -> float:
+        """``n`` forwards or steps over the batches in turn, ended by one
+        synchronize (reading their sum); host ms."""
+        t0 = time.perf_counter()
+        total = float(sum(step(batches[i % len(batches)]) for i in range(n)))
+        if not np.isfinite(total):
+            raise RuntimeError(f"non-finite result while profiling: {total}")
+        return (time.perf_counter() - t0) * 1e3
+
     prof_dir = args.profile_dir or tempfile.mkdtemp(prefix="profile_forward_")
+    host_windows, host_spans = [], []
     with grad:
-        float(step(batches[0]))  # warm-up: cuDNN's choices, the tables, the kernel library
-        with marks, trace(prof_dir) as prof:
-            checksum = sum(float(step(b)) for b in batches)
-            if on_card:
-                torch.cuda.synchronize(device)
-    if not np.isfinite(checksum):
-        raise RuntimeError(f"non-finite result while profiling: {checksum}")
-    split = split_trace(os.path.join(prof_dir, "trace.json"))
+        with recording() as setup:
+            window(1)  # warm-up: cuDNN's choices, the tables, the kernel library
+        for spans_on in ((False, True, True, False) if args.host_reps else ()):
+            with recording() if spans_on else contextlib.nullcontext() as rec:
+                host_windows.append((spans_on, window(args.host_reps)))
+            host_spans += rec.spans if spans_on else []
+        with trace(prof_dir) as prof, recording() as rec:
+            window(args.reps)
     what = "train step" if args.train else "forward"
-    result = {"what": what, "batch": args.batch, "dtype": "bf16" if args.bf16 else "f32",
-              "merge_dtype": args.merge_dtype, "reps": args.reps,
-              "runs": args.reps + 1,  # the traced reps and the warm-up
+    result = {"what": what, "model": args.model, "batch": args.batch,
+              "dtype": "bf16" if args.bf16 else "f32", "merge_dtype": args.merge_dtype,
+              "reps": args.reps, "host_reps": args.host_reps,
+              "runs": args.reps + 4 * args.host_reps + 1,  # traced, host windows, warm-up
               "device": torch.cuda.get_device_name(device) if on_card else "cpu",
               "trace": os.path.join(prof_dir, "trace.json")}
+    stages = host_by_stage(rec.spans, parent)
     if on_card:
+        split = split_trace(result["trace"], parent)
         busy = sum(split["by_kernel"].values())
         if not busy:
             raise RuntimeError(f"the trace {result['trace']} holds no device time")
+        by_stage = {k: v for k, v in split["by_span"].items() if k in stages}
+        by_stage[OUTSIDE] = busy - sum(by_stage.values())
         result.update(
             top_kernels=table(f"device time by kernel, {what}", split["by_kernel"],
                               args.reps, args.top),
-            stages=table(f"device time by stage, {what}", split["by_stage"], args.reps, 99),
+            stages=table(f"device time by stage, {what}", by_stage, args.reps, 99),
+            idle=table(f"device idle by the innermost span open, {what}",
+                       split["idle_by_span"], args.reps, 99),
+            by_span={k: v / args.reps for k, v in split["by_span"].items()},
             device_ms_per_rep=busy / args.reps,
-            device_busy_share=busy / split["device_window_ms"],
+            device_busy_share=split["busy_ms"] / split["device_window_ms"],
         )
     else:
         ops = {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()
-               if not e.key.startswith("stage:")}
+               if not e.key.startswith(_SPAN)}
         result.update(
             top_ops=table(f"host self time by operator, {what} (cpu)", ops, args.reps, args.top),
         )
-    result["host_stages"] = table(f"host time by stage, {what}", split["host_by_stage"],
-                                  args.reps, 99)
+    if host_windows:
+        off = [ms for on, ms in host_windows if not on]
+        on = [ms for on, ms in host_windows if on]
+        result["host_window"] = {"ms_per_rep_spans_off": sum(off) / (2 * args.host_reps),
+                                 "ms_per_rep_spans_on": sum(on) / (2 * args.host_reps),
+                                 "windows_ms": [ms for _, ms in host_windows]}
+        print(f"\n== host windows, spans off, on, on, off ==  {result['host_window']}")
+        result["host_stages"] = table(f"host time by stage, {what} (spans on, no profiler)",
+                                      host_by_stage(host_spans, parent), 2 * args.host_reps, 99)
+    else:
+        result["host_stages"] = table(f"host time by stage, {what} (under the profiler)",
+                                      stages, args.reps, 99)
+    seconds = setup.seconds()
+    result["setup"] = {"seconds": {k: seconds[k] for k in SETUP_SPANS if k in seconds},
+                       "counters": setup.counters}
+    print(f"\n== set-up in the warm-up ==  {result['setup']}")
     print(json.dumps(result), flush=True)
     return result
 

@@ -3,7 +3,10 @@
 The port's counterpart of ``omnifusion_tpu/training/trainer.py``, with the
 reference training recipe (train_erp_depth.py:156-294): AdamW (lr 1e-4,
 weight decay 0.01) under per-step cosine warm restarts, BerHu supervision,
-BatchNorm running statistics updated once per train forward.
+BatchNorm running statistics updated once per train forward. A train step
+opens the span ``train_step`` and, inside it, ``forward``, ``loss``,
+``backward`` and ``optimizer`` (the gradient norm, the rate and the update;
+utils/profiling.py).
 
 ``TrainState`` holds the model, the optimizer, the schedule and the update
 count; ``train_step`` updates all of them in place, where the JAX package
@@ -40,6 +43,7 @@ from omnifusion_torch.parallel.ddp import unwrap
 from omnifusion_torch.parallel.mesh import all_gather_cat, data_group, mean_over_ranks
 from omnifusion_torch.parallel.sync_bn import replicated_batch
 from omnifusion_torch.training.schedule import cosine_warm_restarts
+from omnifusion_torch.utils.profiling import span
 
 
 def param_groups(
@@ -114,35 +118,41 @@ def forward_loss(
     mean of their losses, and pred is the last pass (trainer.py:107-117 of
     the JAX package)."""
     model.train()
-    out = model(batch["rgb"], confidence=confidence)
-    preds = out if isinstance(out, (list, tuple)) else [out]
-    losses = [berhu_loss(p, batch["depth"], batch["mask"]) for p in preds]
-    return torch.stack(losses).mean(), preds[-1]
+    with span("forward"):
+        out = model(batch["rgb"], confidence=confidence)
+    with span("loss"):
+        preds = out if isinstance(out, (list, tuple)) else [out]
+        losses = [berhu_loss(p, batch["depth"], batch["mask"]) for p in preds]
+        return torch.stack(losses).mean(), preds[-1]
 
 
 def _update(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
     """Backward of ``loss`` and one AdamW update at the schedule's rate;
     returns the global L2 norm of all the gradients."""
-    loss.backward()
-    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-    grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-    lr = state.schedule(state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr * group["lr_scale"]
-    state.optimizer.step()
-    state.step += 1
-    return grad_norm
+    with span("backward"):
+        loss.backward()
+    with span("optimizer"):
+        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+        grad_norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        lr = state.schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr * group["lr_scale"]
+        state.optimizer.step()
+        state.step += 1
+        return grad_norm
 
 
 def train_step(state: TrainState, batch: dict, confidence: bool = True) -> dict[str, torch.Tensor]:
     """One update; returns loss, grad_norm (global L2 norm of all the
     gradients) and pred_mean as 0-d tensors on the model's device, so that
     the caller decides when to sync. ``confidence``: the model's merge."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, pred = forward_loss(state.model, batch, confidence)
-    grad_norm = _update(state, loss)
-    return {"loss": mean_over_ranks(loss.detach(), data_group()), "grad_norm": grad_norm,
-            "pred_mean": pred.detach().mean()}
+    with span("train_step"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, pred = forward_loss(state.model, batch, confidence)
+        grad_norm = _update(state, loss)
+        return {"loss": mean_over_ranks(loss.detach(), data_group()), "grad_norm": grad_norm,
+                "pred_mean": pred.detach().mean()}
 
 
 def seg_forward_loss(model: nn.Module, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -150,8 +160,10 @@ def seg_forward_loss(model: nn.Module, batch: dict) -> tuple[torch.Tensor, torch
     over the labels that are not -1: (loss, logits). batch: rgb (B, H, W,
     3), labels (B, H, W) (cli/train_sem.py of the JAX package)."""
     model.train()
-    logits = model(batch["rgb"])
-    return cross_entropy_ignore(logits, batch["labels"]), logits
+    with span("forward"):
+        logits = model(batch["rgb"])
+    with span("loss"):
+        return cross_entropy_ignore(logits, batch["labels"]), logits
 
 
 def train_step_sem(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
@@ -161,12 +173,13 @@ def train_step_sem(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
     data group runs whole, as the JAX mesh replicates it) keeps its global
     BatchNorms on the model group's statistics and count
     (parallel.replicated_batch)."""
-    state.optimizer.zero_grad(set_to_none=True)
-    whole = not getattr(batch, "sharded", True)
-    with replicated_batch(unwrap(state.model)) if whole else contextlib.nullcontext():
-        loss, _ = seg_forward_loss(state.model, batch)
-    grad_norm = _update(state, loss)
-    return {"loss": mean_over_ranks(loss.detach(), data_group()), "grad_norm": grad_norm}
+    with span("train_step"):
+        state.optimizer.zero_grad(set_to_none=True)
+        whole = not getattr(batch, "sharded", True)
+        with replicated_batch(unwrap(state.model)) if whole else contextlib.nullcontext():
+            loss, _ = seg_forward_loss(state.model, batch)
+        grad_norm = _update(state, loss)
+        return {"loss": mean_over_ranks(loss.detach(), data_group()), "grad_norm": grad_norm}
 
 
 def eval_step(model: nn.Module, batch: dict, confidence: bool = True):

@@ -2,6 +2,8 @@
 
 The port's counterpart of ``omnifusion_tpu/utils/profiling.py``:
 
+- ``span(name)``, ``count(name, n)`` and ``recording()``: the program's
+  spans and counters (below).
 - ``trace(log_dir)``: a ``torch.profiler`` context over CPU and CUDA
   activity that writes a Chrome trace (``trace.json``) into ``log_dir``;
   the profile is the context's value.
@@ -33,19 +35,46 @@ the port are two different quantities. ``mfu`` is FLOPs over time against
 the dense peak of the precision the work runs in (``PEAK_FLOPS``: f32 on
 the CUDA cores, TF32 and bf16 on the tensor cores), with no allowance for
 the elementwise work.
+
+Spans. The port opens a span at each of its layer boundaries: ``model``
+around a model's forward, with ``e2p``, ``points``, ``encoder``,
+``transformer``, ``decoder``, ``heads`` and ``merge`` inside it (each pass
+of the iterative model opens the trunk's and the merge's again);
+``train_step`` around an update, with ``forward``, ``loss``, ``backward``
+and ``optimizer`` inside it; and in set-up ``kernel_library`` (the kernel
+library built or loaded, ``ops/_build.py``) and ``tables`` (the projection
+tables computed or read from disk, and the blend tables made and moved to
+a device). Counters: ``kernel_library.built`` (nvcc ran),
+``tables.computed``, ``tables.from_disk`` and ``tables.uploaded``.
+
+Off, which is the default, ``span`` returns one shared context that does
+nothing: it records nothing, allocates nothing and touches no CUDA API.
+Under ``recording()`` each span appends ``(name, parent, thread,
+start_ns, end_ns)`` to the recording's ``spans`` on
+``time.perf_counter_ns()``, ``parent`` being the innermost span open on
+the same thread, and ``count`` adds to its ``counters``. While a
+``torch.profiler`` is active as well, each span also opens
+``record_function("span:<name>")``, so that the profiler's Chrome trace
+holds the spans on its own clock beside the host ops, the CUDA launches
+and the device ops. Spans stay in memory; the profiler's trace is the only
+thing written out.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import os
 import subprocess
+import threading
 import time
+from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import torch
 
-from omnifusion_torch.ops.quad_blend import BlendTables
+if TYPE_CHECKING:
+    from omnifusion_torch.ops.quad_blend import BlendTables
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # H100 SXM5 dense peaks by precision, NVIDIA data sheet: f32 outside the
@@ -54,6 +83,107 @@ PEAK_FLOPS = {"f32": 66.9e12, "tf32": 494.7e12, "bf16": 989.4e12}
 F32_FLOPS = PEAK_FLOPS["f32"]
 WINDOW_HOST_MS = 1.0  # time_ms: host time of the calls between two events
 L2_BYTES = 50 * 2**20  # H100 SXM
+
+
+class Span(NamedTuple):
+    name: str
+    parent: Optional[str]  # the innermost span open on the same thread
+    thread: int  # threading.get_ident()
+    start_ns: int  # time.perf_counter_ns()
+    end_ns: int
+
+
+@dataclasses.dataclass
+class Recording:
+    """The spans and counters recorded under ``recording()``."""
+
+    spans: list = dataclasses.field(default_factory=list)  # Span, in the order they closed
+    counters: dict = dataclasses.field(default_factory=dict)
+    _open: threading.local = dataclasses.field(default_factory=threading.local, repr=False)
+
+    def open_spans(self) -> list:
+        """The names of the spans open on the calling thread, outermost first."""
+        if not hasattr(self._open, "names"):
+            self._open.names = []
+        return self._open.names
+
+    def seconds(self) -> dict:
+        """Seconds of each span name, summed over its instances, in the
+        order the names first closed."""
+        out = {}
+        for s in self.spans:
+            out[s.name] = out.get(s.name, 0.0) + (s.end_ns - s.start_ns) / 1e9
+        return out
+
+
+_RECORDING: Optional[Recording] = None
+
+
+class _NoSpan:
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("rec", "name", "parent", "annotation", "start")
+
+    def __init__(self, rec: Recording, name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        names = self.rec.open_spans()
+        self.parent = names[-1] if names else None
+        names.append(self.name)
+        self.annotation = None
+        if torch.autograd._profiler_enabled():
+            self.annotation = torch.profiler.record_function(f"span:{self.name}")
+            self.annotation.__enter__()
+        self.start = time.perf_counter_ns()
+        return None
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        self.rec.open_spans().pop()
+        self.rec.spans.append(Span(self.name, self.parent, threading.get_ident(), self.start, end))
+        return False
+
+
+def span(name: str):
+    """A context that records the span ``name`` under ``recording()`` and
+    does nothing otherwise (the module's docstring)."""
+    rec = _RECORDING
+    if rec is None:
+        return _NO_SPAN
+    return _Span(rec, name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` under ``recording()``."""
+    rec = _RECORDING
+    if rec is not None:
+        rec.counters[name] = rec.counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans and counters for the duration; the ``Recording`` is
+    the context's value. A recording entered inside another takes the
+    spans until it ends."""
+    global _RECORDING
+    saved, rec = _RECORDING, Recording()
+    _RECORDING = rec
+    try:
+        yield rec
+    finally:
+        _RECORDING = saved
 
 
 @contextlib.contextmanager
