@@ -78,7 +78,12 @@ patch 128, fov 80, nrows 4, seeded random weights):
 
 The up2x adjoint is held to its plain version bit for bit (f32 and bf16,
 every decoder stage at batch 8, odd sides, an unaligned view, and past 2^31
-cotangents at batch 256).
+cotangents at batch 256). The fused heads kernel (2 and 14 outputs, f32 and
+bf16, at batch 2 and at the batched cells' batch 64) is held within the
+bound that f32 sums and bf16 roundings allow between two correct versions
+(verify_kernels.heads_gap), and timed beside its bytes' bound and its plain
+version (cuDNN's convolution and the activations); the models run it once a
+pass in every forward that records no gradients, never in a train step.
 
 Then it times each kernel beside its bound, its plain version and one
 library call that computes the same function (the up2x adjoint also with
@@ -124,8 +129,8 @@ sys.path.insert(0, REPO)
 # shares with this script (a directory without the repository fails here)
 from omnifusion_torch.tools.verify_kernels import (  # noqa: E402
     BLEND_TOL, F64_RATIO, GRAD_TOL, HEAD_SCALE, LOSS_TOL, SPREAD_TOL, ULP_RATIO, UP2X_BF16_RTOL,
-    UP2X_TOL, as_f64, compare, grad_parity, loss_and_grads, nudged, plain_versions, step_parity,
-    tame_heads,
+    UP2X_TOL, as_f64, compare, grad_parity, heads_gap, heads_params, loss_and_grads, nudged,
+    plain_versions, step_parity, tame_heads,
 )
 
 DEVICE = "cuda"
@@ -333,12 +338,13 @@ def assert_parity(stats: dict, what: str) -> None:
 
 
 def _wrappers() -> dict:
+    from omnifusion_torch.ops.heads import fused_heads
     from omnifusion_torch.ops.probe import probe
     from omnifusion_torch.ops.quad_blend import quad_blend, quad_spread
     from omnifusion_torch.ops.upsample import up2x, up2x_adjoint
 
     return {"quad_blend": quad_blend, "up2x": up2x, "quad_spread": quad_spread,
-            "up2x_adjoint": up2x_adjoint, "probe": probe}
+            "up2x_adjoint": up2x_adjoint, "fused_heads": fused_heads, "probe": probe}
 
 
 def counts() -> dict:
@@ -352,11 +358,13 @@ def per_run(forwards: int, steps: int = 0, passes: int = 1) -> dict:
     and per pass runs the decoder's 5 upsamples and one merge; each pass
     after the first blends the previous depth into quarter-resolution
     patches. The backward spreads through every blend but the first (the
-    ERP takes no gradient) and runs each upsample's adjoint."""
+    ERP takes no gradient) and runs each upsample's adjoint. The heads
+    kernel runs once a pass in a forward that records no gradients (each of
+    the ``forwards``), never in a step."""
     fwd = forwards + steps
     return {"quad_blend": 2 * passes * fwd, "up2x": 5 * passes * fwd,
             "quad_spread": (2 * passes - 1) * steps, "up2x_adjoint": 5 * passes * steps,
-            "probe": 0}
+            "fused_heads": passes * forwards, "probe": 0}
 
 
 def straddling_tables(threshold: int, row_stride: int = 128, rows: int = 512,
@@ -1547,6 +1555,51 @@ def uniform_phase(gpu: str, timer) -> dict:
     return {"errs": errs, "launches": launches, "rows": rows}
 
 
+HEADS_BATCH = 64  # the batched serving cells' batch: 1152 maps of 32 x 128 x 128
+
+
+def heads_phase(gpu: str, timer) -> dict:
+    """The fused heads kernel (omnifusion_torch/ops/heads.py) at the
+    flagship's patch, 2 and 14 outputs (depth; the segmentation model), f32
+    and bf16, at BATCH and at HEADS_BATCH: each call within rounding's bound
+    of its plain version (heads_gap, at most 1), then timed beside its
+    bytes' bound and the plain version (cuDNN's convolution and the
+    activations). Returns the worst bound ratio and the time rows."""
+    from omnifusion_torch.ops.heads import fused_heads, fused_heads_plain
+    from omnifusion_torch.projection import ProjectionSpec
+    from omnifusion_torch.utils.profiling import bound_ms as bound, nbytes
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(31)
+    n_patches = ProjectionSpec.create(ERP, PATCH, (FOV, FOV), NROWS).n_patches
+    worst, rows = 0.0, []
+    for b, n_out, dtype in ((BATCH, 2, torch.float32), (BATCH, 2, torch.bfloat16),
+                            (BATCH, 14, torch.float32), (BATCH, 14, torch.bfloat16),
+                            (HEADS_BATCH, 2, torch.bfloat16), (HEADS_BATCH, 14, torch.bfloat16)):
+        params = heads_params(n_out, g)
+        act = "relu" if n_out == 2 else "none"
+        x = torch.randn(b * n_patches, 32, PATCH, PATCH, device=dev, generator=g).to(dtype)
+        case = f"{n_out}_outputs_{str(dtype)[6:]}_b{b}"
+        got = fused_heads(x, *params, act)
+        torch.cuda.synchronize()
+        gap = heads_gap(got, fused_heads_plain(x, *params, act), x, *params)
+        emit({"phase": "check", "kernel": "fused_heads", "case": case, "shape": list(x.shape),
+              "dtype": str(dtype), **gap, "bound_ratio_tol": 1.0})
+        if gap["bound_ratio"] > 1:
+            raise AssertionError(f"fused_heads {case}: {gap}")
+        worst = max(worst, gap["bound_ratio"])
+        b_ms, b_by = bound(nbytes(x, *got), 0)
+        rows.append({"case": case, "shape": list(x.shape),
+                     "on_path": (b, n_out, dtype) == (HEADS_BATCH, 2, torch.bfloat16),
+                     "ms": timer(lambda: fused_heads(x, *params, act)),
+                     "plain_ms": timer(lambda: fused_heads_plain(x, *params, act), iters=5),
+                     "bound_ms": b_ms, "bound_by": b_by})
+        emit({"phase": "time", "kernel": "fused_heads", "gpu": gpu, **rows[-1]})
+        del x, got
+        torch.cuda.empty_cache()
+    return {"bound_ratio": worst, "rows": rows}
+
+
 def multi_device_phases(gpu: str, f64_witness: dict) -> dict:
     """ddp_gloo2, mesh_model and mesh1 (see the comment above DDP_RANKS);
     ``f64_witness``: the float64 steps of the train parity phases, by
@@ -2365,6 +2418,10 @@ def main() -> int:
     perspective_tables.cache_clear()
     inverse_perspective_tables.cache_clear()
     torch.cuda.empty_cache()
+
+    # ---- the fused heads at the flagship's patch, and at the batched
+    # serving cells' batch ----
+    heads = heads_phase(gpu, timer)
 
     # ---- the extras: pano_stretch on the blend and spread kernels, and the
     # DIBR chain against float64 ----
@@ -3534,6 +3591,22 @@ def main() -> int:
                                      "library_ms")},
         "ms_per": "call on (256, 128) f32", "library": "torch.mul(x, 2)",
         "launches_verify_kernels": tool_launches["verify_kernels"]["probe"],
+    })
+    head_row = next(r for r in heads["rows"] if r["on_path"])
+    kernels.append({
+        "name": "fused_heads", "route": "cuda", "source": "omnifusion_torch/csrc/heads.cu",
+        "replaces": "no Pallas kernel (XLA's convolution, omnifusion_tpu/models/"
+                    "spherical_fusion.py:174-175)",
+        "launches": train_launches["fused_heads"],
+        "launches_of": f"training run: {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (none), "
+                       f"{val_forwards} validation forwards",
+        "launches_serve": serve_launches["fused_heads"],
+        "launches_serve_iterative": serve_it_launches["fused_heads"],
+        "launches_serve_seg": serve_seg_launches["fused_heads"],
+        "bound_ratio": heads["bound_ratio"],
+        **{k: head_row[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "ms_per": f"call on the batch-{HEADS_BATCH} bf16 map, 2 outputs",
+        "library": "the plain version: F.conv2d (cuDNN) and the activations",
     })
     emit({"kernels": kernels})
     print(gpu, flush=True)

@@ -37,7 +37,6 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -50,6 +49,8 @@ from omnifusion_torch.models.layers import (
 )
 from omnifusion_torch.models.resnet import RESNET34_STAGES, ResNet34Encoder
 from omnifusion_torch.models.transformer import TransformerCascade
+from omnifusion_torch.ops.heads import OUTPUTS as HEAD_OUTPUTS
+from omnifusion_torch.ops.heads import fused_heads, fused_heads_plain
 from omnifusion_torch.parallel.model_axis import gather_patches, gather_tokens, shard_rows
 from omnifusion_torch.parallel.sync_bn import remat_contexts
 from omnifusion_torch.projection.ops import equi2pers, pers2equi_cf
@@ -89,6 +90,8 @@ class DepthTrunk(ResNet34Encoder):
     all B*P without a model axis); ``trunk_rows`` takes those rows
     already sharded, and ``gather_heads`` gathers the group's heads.
     ``pred_activation``: "relu" (depth) or "none" (segmentation logits).
+    The fused heads run on their kernel (``ops/heads.py``) where autograd
+    records nothing, and as a cuDNN convolution where it records.
     The token projection sits at ``DOWN``, the upstream checkpoint's name
     for it. ``use_transformer=False``: no global
     fusion (no token projection, transformer or up_proj); layer4 goes
@@ -215,17 +218,16 @@ class DepthTrunk(ResNet34Encoder):
 
         # fused heads: one conv with both heads' kernels reads the feature
         # map once; each head keeps its own parameters, cast to the feature
-        # map's dtype (spherical_fusion.py:174-175)
+        # map's dtype (spherical_fusion.py:174-175). Where autograd records
+        # nothing (serving, eval) and the kernel is built for the heads'
+        # output count, the heads kernel; where it records, the conv that
+        # cuDNN differentiates
         with span("heads"):
-            y = F.conv2d(
-                x,
-                torch.cat([self.pred.weight, self.weight_pred.weight]).to(x.dtype),
-                torch.cat([self.pred.bias, self.weight_pred.bias]).to(x.dtype),
-                padding=1,
-            )
-            k = self.pred_channels
-            pred = F.relu(y[:, :k]) if self.pred_activation == "relu" else y[:, :k]
-            return pred, torch.sigmoid(y[:, k:])
+            params = (self.pred.weight, self.pred.bias, self.weight_pred.weight,
+                      self.weight_pred.bias, self.pred_activation)
+            if torch.is_grad_enabled() or self.pred_channels + 1 not in HEAD_OUTPUTS:
+                return fused_heads_plain(x, *params)
+            return fused_heads(x, *params)
 
     def gather_heads(self, pred, conf, b: int):
         """The model group's (pred, conf) rows of the ``b`` panoramas, for a

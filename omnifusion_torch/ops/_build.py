@@ -10,8 +10,8 @@ process; a later process with the same sources loads it without building.
 
 Pointers and the stream go through ctypes as ``c_void_p``, sizes and strides
 as ``c_int64``. Every entry returns ``cudaGetLastError()`` of its launch;
-the wrappers in ``quad_blend.py``, ``upsample.py`` and ``probe.py`` raise when
-it is not 0.
+the wrappers in ``quad_blend.py``, ``upsample.py``, ``heads.py`` and
+``probe.py`` raise when it is not 0.
 """
 
 from __future__ import annotations
@@ -62,6 +62,11 @@ _SIGNATURES = {
     "omnifusion_up2x": (_P, _P, _I, _L, _L, _L, _P),
     "omnifusion_up2x_adjoint": (_P, _P, _I, _L, _L, _L, _P),
     "omnifusion_probe": (_P, _P, _L, _P),  # x, out, n, stream
+    "omnifusion_fused_heads": (
+        _P, _I, _P, _P, _P, _P,  # x, dtype, pred weight, bias, conf weight, bias
+        _P, _P, _I, _L, _L, _L, _I,  # pred, conf, outputs, rows, h, w, relu
+        _P,  # stream
+    ),
 }
 
 

@@ -28,15 +28,16 @@ synchronize:
   stepping thread when it began. Without ``--host_reps`` the host table is
   this window's, so it holds the profiler's cost too.
 
-It prints device time by kernel name, by stage and by idle gap (the card
-only), host time by stage and the set-up line, then one JSON line with all
-of them, the device's busy share of the traced window and ``runs``, the
-forwards or steps it ran. The stages are the program's spans
-(``utils/profiling.py``): for a forward the ``model`` span's children (e2p,
-points, encoder, transformer, decoder, heads, merge; the iterative model
-opens them per pass), with ``--train`` the ``train_step`` span's (forward,
-loss, backward, optimizer; the gradient norm falls in the optimizer);
-``by_span`` holds every span's device time. On the CPU there are no
+It prints device time by kernel name, by stage, by kernel within each
+stage and by idle gap (the card only), host time by stage and the set-up
+line, then one JSON line with all of them, the device's busy share of the
+traced window and ``runs``, the forwards or steps it ran. The stages are
+the program's spans (``utils/profiling.py``): for a forward the ``model``
+span's children (e2p, points, encoder, transformer, decoder, heads, merge;
+the iterative model opens them per pass), with ``--train`` the
+``train_step`` span's (forward, loss, backward, optimizer; the gradient
+norm falls in the optimizer); ``by_span`` holds every span's device time
+and ``kernels_by_stage`` each stage's by kernel. On the CPU there are no
 kernels: the tables hold the host time of each operator (self time) and of
 each stage.
 """
@@ -91,6 +92,7 @@ def split_trace(path: str, parent: str) -> dict:
               if e.get("cat", "").startswith(_LAUNCH_PREFIX) and "correlation" in e.get("args", {})}
     by_kernel = collections.defaultdict(float)
     by_span = collections.defaultdict(float)
+    by_span_kernel = collections.defaultdict(lambda: collections.defaultdict(float))
     busy = []
     for e in events:
         if e.get("cat") not in _DEVICE_CATS:
@@ -100,10 +102,11 @@ def split_trace(path: str, parent: str) -> dict:
         t = launch.get(e.get("args", {}).get("correlation"))
         for name in set(open_at(t)) if t is not None else ():
             by_span[name] += ms
+            by_span_kernel[name][e["name"]] += ms
         busy.append((e["ts"], e["ts"] + e.get("dur", 0)))
     if not busy:
-        return {"by_kernel": {}, "by_span": {}, "idle_by_span": {}, "busy_ms": 0.0,
-                "device_window_ms": 0.0}
+        return {"by_kernel": {}, "by_span": {}, "by_span_kernel": {}, "idle_by_span": {},
+                "busy_ms": 0.0, "device_window_ms": 0.0}
     busy.sort()
     idle = collections.defaultdict(float)
     first, (start, end) = busy[0][0], busy[0]
@@ -116,8 +119,10 @@ def split_trace(path: str, parent: str) -> dict:
             start = t0
         end = max(end, t1)
     union += end - start
-    return {"by_kernel": dict(by_kernel), "by_span": dict(by_span), "idle_by_span": dict(idle),
-            "busy_ms": union / 1e3, "device_window_ms": (end - first) / 1e3}
+    return {"by_kernel": dict(by_kernel), "by_span": dict(by_span),
+            "by_span_kernel": {k: dict(v) for k, v in by_span_kernel.items()},
+            "idle_by_span": dict(idle), "busy_ms": union / 1e3,
+            "device_window_ms": (end - first) / 1e3}
 
 
 def host_by_stage(spans, parent: str) -> dict:
@@ -233,6 +238,9 @@ def run(args) -> dict:
             idle=table(f"device idle by the innermost span open, {what}",
                        split["idle_by_span"], args.reps, 99),
             by_span={k: v / args.reps for k, v in split["by_span"].items()},
+            kernels_by_stage={k: table(f"device time by kernel in {k}, {what}", v, args.reps,
+                                       args.top)
+                              for k, v in split["by_span_kernel"].items() if k in stages},
             device_ms_per_rep=busy / args.reps,
             device_busy_share=split["busy_ms"] / split["device_window_ms"],
         )

@@ -15,6 +15,8 @@ The port's counterpart of ``tools/verify_kernels.py``, at its small spec
 - ``up2x`` (f32, bf16) and ``up2x_adjoint`` (f32, bf16; bit for bit) at the
   decoder's five stages;
 - the probe (bit for bit);
+- the fused heads (f32 and bf16, 2 and 14 outputs) at the decoder's last
+  stage, within rounding's bound of the plain version (``heads_gap``);
 - the composed check: one train step of a small model (depth 2, one block
   per stage, tamed heads) on the kernels against the same step on the plain
   versions: the loss, the gradient norm and every gradient tensor, with a
@@ -27,8 +29,9 @@ needs the card: without one it exits 1 with a message. The JAX tool's
 versions are held against the JAX package by the CPU test suite.
 
 This module also holds what chip_smoke.py's parity phases share with it:
-``plain_versions``, ``tame_heads``, ``nudged``, ``as_f64``,
-``loss_and_grads``, ``grad_parity`` and ``step_parity``.
+``plain_versions``, ``heads_gap``, ``heads_params``, ``tame_heads``,
+``nudged``, ``as_f64``, ``loss_and_grads``, ``grad_parity`` and
+``step_parity``.
 """
 
 from __future__ import annotations
@@ -86,16 +89,20 @@ def plain_versions():
     the kernel's plain version, on the card; the autograd Functions stay, so
     autograd still never differentiates the plain code. Only the parity
     checks do this, to compare the whole forward and train step."""
+    import omnifusion_torch.ops.heads as hd
     import omnifusion_torch.ops.quad_blend as qb
     import omnifusion_torch.ops.upsample as ups
 
-    saved = qb._blend_kernel, qb._spread_kernel, ups._up2x_kernel, ups._adjoint_kernel
+    saved = (qb._blend_kernel, qb._spread_kernel, ups._up2x_kernel, ups._adjoint_kernel,
+             hd._heads_kernel)
     qb._blend_kernel, qb._spread_kernel = qb.quad_blend_plain, qb.quad_spread_plain
     ups._up2x_kernel, ups._adjoint_kernel = ups.up2x_plain, ups.up2x_adjoint_plain
+    hd._heads_kernel = hd.fused_heads_plain
     try:
         yield
     finally:
-        qb._blend_kernel, qb._spread_kernel, ups._up2x_kernel, ups._adjoint_kernel = saved
+        (qb._blend_kernel, qb._spread_kernel, ups._up2x_kernel, ups._adjoint_kernel,
+         hd._heads_kernel) = saved
 
 
 @contextlib.contextmanager
@@ -132,6 +139,51 @@ def compare(got: torch.Tensor, want, atol: float, rtol: float = 0.0, chunk=None)
         ok = ok and bool((e <= atol + rtol * w.abs()).all())
         err = max(err, e.max().item())
     return err, ok
+
+
+def heads_gap(got, want, x, pred_weight, pred_bias, conf_weight, conf_bias,
+              chunk: int = 64) -> dict:
+    """How far two versions of the fused heads (``ops/heads.py``) on the
+    map ``x`` lie apart, ``got`` and ``want`` each (pred, conf), in units of
+    what rounding alone allows them. Each version sums an output's 288
+    products and its bias in f32, at most 289 u sum|terms| from the exact
+    sum (u = 2^-24); a bf16 map's plain version rounds the sum to bf16, and
+    the sum with its bias again, and the kernel rounds once after the
+    activation, each within 2^-8 of the value rounded (f32: 2^-23); the
+    ReLU moves no error and the sigmoid quarters it, then rounds its own
+    result. ``bound_ratio`` at most 1: rounding alone. Computed in float64
+    on ``x``'s device, ``chunk`` maps at a time."""
+    import torch.nn.functional as F
+
+    u, r = 2.0**-24, (2.0**-8 if x.dtype == torch.bfloat16 else 2.0**-23)
+    w = torch.cat([pred_weight, conf_weight]).to(x.dtype).double()
+    b = torch.cat([pred_bias, conf_bias]).to(x.dtype).double()[:, None, None]
+    k = pred_weight.shape[0]
+    ratio, err = 0.0, 0.0
+    for i in range(0, x.shape[0], chunk):
+        rows = slice(i, i + chunk)
+        xi = x[rows].double()
+        conv = F.conv2d(xi, w, padding=1)
+        y = conv + b
+        e = 2 * 289 * u * (F.conv2d(xi.abs(), w.abs(), padding=1) + b.abs())
+        e = e + 2 * r * (conv.abs() + y.abs())
+        bound = torch.cat([e[:, :k], e[:, k:] / 4 + 4 * r * torch.sigmoid(y[:, k:]) + 1e-7], 1)
+        diff = (torch.cat([got[0][rows], got[1][rows]], 1).double()
+                - torch.cat([want[0][rows], want[1][rows]], 1).double()).abs()
+        ratio = max(ratio, float((diff / bound).max()))
+        err = max(err, float(diff.max()))
+    return {"bound_ratio": ratio, "max_abs_err": err}
+
+
+def heads_params(n_out: int, g: torch.Generator) -> tuple:
+    """Seeded f32 parameters of heads with ``n_out`` outputs on ``g``'s
+    device: (pred weight, pred bias, conf weight, conf bias), weights at
+    the scale of PyTorch's default init, so that both heads stay live."""
+    dev = g.device
+    return (torch.randn(n_out - 1, 32, 3, 3, device=dev, generator=g) * 0.06,
+            torch.randn(n_out - 1, device=dev, generator=g) * 0.5,
+            torch.randn(1, 32, 3, 3, device=dev, generator=g) * 0.06,
+            torch.randn(1, device=dev, generator=g) * 0.5)
 
 
 def tame_heads(state_dict, scale: float = HEAD_SCALE) -> dict:
@@ -227,6 +279,7 @@ def _row(rows: list, name: str, got, want, atol: float, rtol: float = 0.0) -> No
 
 
 def kernel_checks(device) -> list[dict]:
+    from omnifusion_torch.ops.heads import OUTPUTS, fused_heads, fused_heads_plain
     from omnifusion_torch.ops.probe import probe, probe_plain
     from omnifusion_torch.ops.quad_blend import (
         quad_blend, quad_blend_plain, quad_spread, quad_spread_plain,
@@ -267,6 +320,17 @@ def kernel_checks(device) -> list[dict]:
                  up2x_adjoint(gy_t), up2x_adjoint_plain(gy_t), 0.0)
     x = torch.randn(256, 128, device=device, generator=g) * 1e3
     _row(rows, "probe", probe(x), probe_plain(x), 0.0)
+    for n_out in OUTPUTS:  # the heads at the decoder's last stage, patch 32
+        params = heads_params(n_out, g)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(8 * p, 32, PATCH, PATCH, device=device, generator=g).to(dtype)
+            act = "relu" if n_out == 2 else "none"
+            got = fused_heads(x, *params, act)
+            with full_f32():  # cuDNN's TF32 would make the f32 plain version the coarser
+                want = fused_heads_plain(x, *params, act)
+            gap = heads_gap(got, want, x, *params)
+            rows.append({"check": f"fused_heads {n_out} outputs {str(dtype)[6:]}",
+                         "ok": gap["bound_ratio"] <= 1, **gap})
     return rows
 
 
@@ -321,7 +385,12 @@ def main(argv=None) -> int:
                   f"  grad norm rel {p['grad_norm_rel']:.2e}  grad rel max {p['grad_rel_max']:.2e}"
                   f" (nudge {p['ref_vs_ref_nudged']['grad_rel_max']:.2e})", flush=True)
         else:
-            tol = f"tol {r['atol']:g} + {r['rtol']:g} |want|" if r["atol"] or r["rtol"] else "bitwise"
+            if "bound_ratio" in r:
+                tol = f"{r['bound_ratio']:.3f} of rounding's bound"
+            elif r["atol"] or r["rtol"]:
+                tol = f"tol {r['atol']:g} + {r['rtol']:g} |want|"
+            else:
+                tol = "bitwise"
             print(f"{'PASS' if r['ok'] else 'FAIL'}  {r['check']:34s} max|delta| = "
                   f"{r['max_abs_err']:.3e}  ({tol})", flush=True)
     print("ALL PASS" if not out["failures"] else f"{out['failures']} FAILURES", flush=True)

@@ -22,6 +22,7 @@ from omnifusion_torch.ops.quad_blend import (
     quad_spread,
     quad_spread_plain,
 )
+from omnifusion_torch.ops.heads import fused_heads, fused_heads_plain
 from omnifusion_torch.ops.probe import probe, probe_plain
 from omnifusion_torch.ops.upsample import up2x, up2x_adjoint, up2x_adjoint_plain, up2x_plain
 from omnifusion_torch.projection import ProjectionSpec, equi2pers
@@ -29,6 +30,7 @@ from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
 from omnifusion_torch.projection.spec import (
     TransposedTables, build_equi2pers_grids, build_vjp_tables,
 )
+from omnifusion_torch.tools.verify_kernels import full_f32, heads_gap, heads_params
 
 pytestmark = pytest.mark.cuda
 
@@ -380,6 +382,57 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         probe(torch.zeros(4, dtype=torch.float16, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         probe(torch.zeros(4, 4, device=cuda).t())
+
+
+# ---- the fused heads (ops/heads.py, csrc/heads.cu) ----
+
+# (maps, h, w): one map and the flagship's batch 64 (1152 patch maps), at
+# sides no tile divides and at the flagship's 128 x 128; two tiles across
+# (the halo column read from the neighbouring tile), rows of whole 16-byte
+# pieces (256) and not (130)
+HEADS_SHAPES = [(1, 20, 36), (1, 128, 128), (1152, 20, 36), (1152, 128, 128), (2, 20, 256),
+                (3, 17, 130)]
+
+
+@pytest.mark.parametrize("shape", HEADS_SHAPES)
+@pytest.mark.parametrize("n_out", [2, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_heads_kernel_matches_plain(cuda, dtype, n_out, shape):
+    r, h, w = shape
+    g = torch.Generator(device=cuda).manual_seed(21)
+    params = heads_params(n_out, g)
+    x = torch.randn(r, 32, h, w, device=cuda, generator=g).to(dtype)
+    act = "relu" if n_out == 2 else "none"
+    with full_f32():
+        before = fused_heads.launches
+        got = fused_heads(x, *params, act)
+        torch.cuda.synchronize()
+        assert fused_heads.launches == before + 1
+        assert got[0].shape == (r, n_out - 1, h, w) and got[1].shape == (r, 1, h, w)
+        assert all(t.dtype == dtype and t.is_contiguous() for t in got)
+        # within what f32 sums and bf16 roundings allow two correct versions
+        gap = heads_gap(got, fused_heads_plain(x, *params, act), x, *params)
+    assert gap["bound_ratio"] <= 1, gap
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_heads_kernel_on_an_unaligned_map(cuda, dtype):
+    # a map one element past a 16-byte boundary is staged and stored element
+    # by element: the same arithmetic, so the same bits
+    g = torch.Generator(device=cuda).manual_seed(22)
+    params = heads_params(2, g)
+    x = torch.randn(6, 32, 24, 128, device=cuda, generator=g).to(dtype)
+    shifted = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)[1:].view(x.shape).copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    for a, b in zip(fused_heads(x, *params), fused_heads(shifted, *params)):
+        assert torch.equal(a, b)
+
+
+def test_fused_heads_kernel_refuses_other_output_counts(cuda):
+    g = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn(2, 32, 8, 8, device=cuda, generator=g)
+    with pytest.raises(ValueError, match="outputs"):
+        fused_heads(x, *heads_params(5, g))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])

@@ -262,6 +262,9 @@ def test_split_trace_attributes_launches_and_names_idle_gaps(tmp_path):
     assert split["by_span"] == pytest.approx(  # inclusive: each range open at the launch
         {"train_step": 0.033, "forward": 0.010, "model": 0.010, "encoder": 0.010,
          "backward": 0.010, "optimizer": 0.013})
+    assert split["by_span_kernel"]["train_step"] == pytest.approx(  # and by kernel in each
+        {"conv": 0.010, "conv_backward": 0.010, "adam": 0.013})
+    assert split["by_span_kernel"]["optimizer"] == pytest.approx({"adam": 0.013})
     # idle from 15 (the model open, its encoder closed), 60 (the backward),
     # 95 (the optimizer) and 105 (the step ended)
     assert split["idle_by_span"] == pytest.approx(
