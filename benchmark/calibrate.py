@@ -4,7 +4,7 @@
 
 For each seed, with that seed's weights and inputs, at the cell's own
 sizes: the program's numbers of the check, through the timed path's own
-call (serving: every pass's depth of one batch; training: the first three
+call (serving: every pass's output of one batch; training: the first three
 steps of a fresh train state); the control's (serving: the reference
 computed in the precision below the configuration's, ``check.CONTROL``,
 put in the program's place; training: the program's own bf16 path, the
@@ -31,39 +31,42 @@ from benchmark.reference import model as ref  # noqa: E402
 
 def serve_readings(cell, seeds, device):
     cfg, tr = cell.config, cell.traffic
+    kind = program.kind(cfg)
+    name = ref.kind(cfg).SERVE_CHECK
     geom = ref.Geometry(cfg, device)
     for seed in seeds:
         state = weights.make(cfg, generator.stream_seed(seed, generator.WEIGHTS), device)
-        model = program.build_model(cfg, tr["precision"], state, device).eval()
+        model = kind.build(cfg, tr["precision"], state, device).eval()
         state = {k: v.cpu() for k, v in state.items()}
         rgb = generator.erp_pool(cfg, dict(tr, pool=1), seed, device)[0]
         with torch.inference_mode():
-            pairs = [(rgb, program.depths(model(rgb)))]
+            pairs = [(rgb, kind.outputs(model(rgb)))]
         del model
         gaps = check.serve_gaps(cfg, state, pairs, device, tr["check_block"], [check.CONTROL], geom)
-        yield {"seed": seed, "depth_gap": max(gaps["program"]),
-               "control.depth_gap": max(gaps[repr(check.CONTROL)])}
+        yield {"seed": seed, name: max(gaps["program"]),
+               f"control.{name}": max(gaps[repr(check.CONTROL)])}
 
 
 def train_readings(cell, seeds, device):
     cfg, tr = cell.config, cell.traffic
+    kind = program.kind(cfg)
     geom = ref.Geometry(cfg, device)
     steps = train_mode.COMPARED_STEPS
     for seed in seeds:
         state = weights.make(cfg, generator.stream_seed(seed, generator.WEIGHTS), device)
-        model = program.build_model(cfg, tr["precision"], state, device)
+        model = kind.build(cfg, tr["precision"], state, device)
         state = {k: v.cpu() for k, v in state.items()}
         ts = program.train_state(model, tr)
         pool = generator.train_pool(cfg, dict(tr, pool=steps), seed, device)
-        prog = train_mode.first_steps(ts, pool, steps, state, device)
+        prog = train_mode.first_steps(kind, ts, pool, steps, state, device)
         del model, ts
         refr = check.reference_train(cfg, tr["recipe"], state, pool, device, geom=geom)
         unit = check.reference_unit(cfg, tr["recipe"], state, pool[:1], device, geom)
         row = {"seed": seed, **check.train_gaps(prog, refr, unit)}
         # the program's own bf16 path (cli/train.py --bf16) is the control
-        model = program.build_model(cfg, dict(tr["precision"], trunk="bf16"), state, device)
+        model = kind.build(cfg, dict(tr["precision"], trunk="bf16"), state, device)
         ts = program.train_state(model, tr)
-        ctrl = train_mode.first_steps(ts, pool, steps, state, device)
+        ctrl = train_mode.first_steps(kind, ts, pool, steps, state, device)
         del model, ts
         row.update({f"control.{k}": v for k, v in check.train_gaps(ctrl, refr, unit).items()})
         half = [{k: v[: len(v) // 2] for k, v in b.items()} for b in pool]

@@ -3,17 +3,18 @@ the plain reference (``benchmark/reference/``), run once the window has
 closed, the program freed, in blocks of panoramas.
 
 Serving: for each compared panorama and each pass of the forward (the
-last pass is the served depth), the relative L2 gap of the depth from the
+last pass is the one served), the relative L2 gap of the output from the
 f32 reference's, ||d - r|| / ||r|| over its pixels, in units of the gap
 that rounding the reference's operands to the configuration's precision
-makes (``RECIPE``: bf16 convolutions, an f16 merge): a random network's
-conditioning moves both gaps together from seed to seed, so their ratio
-is steady. The number compared, ``depth_gap``, is the worst ratio over
-the compared panoramas and passes.
+makes (the kind's ``RECIPE``; the depth models: bf16 convolutions, an f16
+merge): a random network's conditioning moves both gaps together from
+seed to seed, so their ratio is steady. The number compared, the kind's
+``SERVE_CHECK`` (the depth models: ``depth_gap``), is the worst ratio
+over the compared panoramas and passes.
 
 Training: the reference follows the program's first three steps from the
-same weights on the same batches (f32, TF32 off, its own BerHu, AdamW and
-schedule). Compared: ``loss_gap``, the worst step's relative loss gap;
+same weights on the same batches (f32, TF32 off, the kind's loss, its
+own AdamW and schedule). Compared: ``loss_gap``, the worst step's relative loss gap;
 by the worst leaf, the gap between the program's and the reference's norm
 of the first gradient (the program's read from AdamW's first moment after
 one step, exp_avg / (1 - beta1)), ``grad_gap``, and of each leaf's change
@@ -55,17 +56,17 @@ def no_tf32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
 
 
-RECIPE = ref.Precision(convs="bf16", merge="f16")
 UNIT_TRAIN = ref.Precision(convs="tf32")
 CONTROL = ref.Precision(convs="fp8", merge="fp8")
 
 
-def reference_depth(cfg, state, geom, rgb, prec=ref.Precision(), block=8):
-    """The reference's depth of each pass of rgb (B, H, W, 3)."""
+def reference_outputs(cfg, state, geom, rgb, prec=ref.Precision(), block=8):
+    """The reference's output of each pass of rgb (B, H, W, 3)."""
+    forward = ref.kind(cfg).forward
     outs = []
     with no_tf32(), torch.inference_mode():
         for i in range(0, rgb.shape[0], block):
-            outs.append(ref.forward(state, cfg, geom, rgb[i:i + block].float(), prec))
+            outs.append(forward(state, cfg, geom, rgb[i:i + block].float(), prec))
     return [torch.cat(p) for p in zip(*outs)]
 
 
@@ -76,19 +77,22 @@ def rel_l2(d: torch.Tensor, r: torch.Tensor) -> list[float]:
 
 
 def serve_gaps(cfg, state, pairs, device, block=8, controls=(), geom=None) -> dict:
-    """Per-panorama ``depth_gap`` of the outputs in ``pairs`` ((rgb, the
-    depth of each pass), on any device), under "program"; and of the
-    reference computed in each Precision of ``controls`` put in the
-    program's place, under its repr."""
+    """Per-panorama gap (the kind's ``SERVE_CHECK``) of the outputs in
+    ``pairs`` ((rgb, the output of each pass), on any device), under
+    "program"; and of the reference computed in each Precision of
+    ``controls`` put in the program's place, under its repr."""
     geom = geom or ref.Geometry(cfg, device)
+    recipe = ref.kind(cfg).RECIPE
     state = {k: v.to(device) for k, v in state.items()}
     gaps = {"program": [], **{repr(c): [] for c in controls}}
     for rgb, passes in pairs:
         rgb = rgb.to(device)
-        r = reference_depth(cfg, state, geom, rgb, ref.Precision(), block)
-        units = [rel_l2(a, b) for a, b in zip(reference_depth(cfg, state, geom, rgb, RECIPE, block), r)]
+        r = reference_outputs(cfg, state, geom, rgb, ref.Precision(), block)
+        rounded = reference_outputs(cfg, state, geom, rgb, recipe, block)
+        units = [rel_l2(a, b) for a, b in zip(rounded, r)]
         served = {"program": [d.to(device) for d in passes]}
-        served.update({repr(c): reference_depth(cfg, state, geom, rgb, c, block) for c in controls})
+        served.update({repr(c): reference_outputs(cfg, state, geom, rgb, c, block)
+                       for c in controls})
         for key, ds in served.items():
             if len(ds) != len(r):
                 raise ValueError(f"{key} gave {len(ds)} passes, the reference {len(r)}")
@@ -106,6 +110,7 @@ def reference_train(cfg, recipe, state, batches, device, prec=ref.Precision(), s
     {leaf: step 1's gradient}}. ``tf32``: PyTorch's default precision on
     the card (TF32 convolutions) instead of f32."""
     geom = geom or ref.Geometry(cfg, device)
+    kind = ref.kind(cfg)
     p0 = {k: v.to(device).float() for k, v in state.items() if v.is_floating_point()
           and not k.endswith(("running_mean", "running_var"))}
     p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
@@ -116,8 +121,7 @@ def reference_train(cfg, recipe, state, batches, device, prec=ref.Precision(), s
     with contextlib.nullcontext() if tf32 else no_tf32():
         for t in range(steps):
             batch = batches[t]
-            preds = ref.forward(p, cfg, geom, batch["rgb"], prec, train=True)
-            loss = torch.stack([ref.berhu(d, batch["depth"], batch["mask"]) for d in preds]).mean()
+            loss = kind.loss(kind.forward(p, cfg, geom, batch["rgb"], prec, train=True), batch)
             gs = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
             losses.append(loss.item())
             lr = ref.cosine_lr(recipe["lr"], recipe["t_0"], recipe["t_mult"],

@@ -8,10 +8,9 @@ same sizes and the same schedule.
 
 - ``erp_pool``: ``pool`` distinct batches of ``batch`` panoramas,
   (B, H, W, 3) f32 in [0, 1).
-- ``train_pool``: ``pool`` distinct batches of a panorama, its depth in
-  ``depth_range`` metres (a smooth field: seeded noise at 1/32 of the
-  panorama, upsampled bilinearly) and its mask (``mask_share`` of the
-  pixels valid, drawn per pixel).
+- ``train_pool``: ``pool`` distinct batches of a panorama and its training
+  targets, which the reference kind draws (``targets``; the depth models:
+  depth and mask, ``reference.model.depth_targets``).
 - ``sampled``: the indices of the window's answers that the check
   compares, drawn from the seed among the first ``check_among``.
 """
@@ -20,7 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from benchmark.reference import model as ref
 
 WEIGHTS, INPUTS, SAMPLE = 0, 1, 2
 
@@ -48,14 +48,9 @@ def train_pool(cfg, traffic, seed: int, device) -> list[dict]:
     h, w = cfg["erp_size"]
     n, b = traffic["pool"], traffic["batch"]
     g = _gen(seed, device)
-    lo, hi = traffic["depth_range"]
     rgb = torch.rand(n * b, h, w, 3, generator=g, device=device)
-    coarse = torch.rand(n * b, 1, h // 32, w // 32, generator=g, device=device)
-    depth = lo + (hi - lo) * F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
-    mask = (torch.rand(n * b, 1, h, w, generator=g, device=device) < traffic["mask_share"]).float()
-    depth, mask = depth.permute(0, 2, 3, 1), mask.permute(0, 2, 3, 1)
-    return [{"rgb": rgb[i * b:(i + 1) * b], "depth": depth[i * b:(i + 1) * b].contiguous(),
-             "mask": mask[i * b:(i + 1) * b].contiguous()} for i in range(n)]
+    data = {"rgb": rgb, **ref.kind(cfg).targets(cfg, traffic, g, n * b, device)}
+    return [{k: v[i * b:(i + 1) * b].contiguous() for k, v in data.items()} for i in range(n)]
 
 
 def sampled(traffic, seed: int) -> list[int]:

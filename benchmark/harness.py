@@ -1,18 +1,25 @@
 """What every run shares: finding a cell's files by name, the run's
-context, the device trace and its reduction, the check, the result line.
+context, the device trace and the program's spans and their reduction,
+the check, the result line.
 
 A cell (an entry of ``workloads`` in ``BENCHMARK.json``) names a
 configuration, whose file ``BENCHMARK.json`` gives, and a traffic mix,
 read from ``benchmark/traffic/<traffic>.json``; its limits, the numbers
 the check compares and the readings they were set from, are in
-``benchmark/workloads/<cell>.json``. The mix names its mode, the code
-of one kind of window, ``benchmark/modes/<mode>.py``. A per-layer metric
-``<stem>.<suffix>`` is read by ``benchmark/metrics/<stem>.<suffix>.py``
-where that file exists, else by ``benchmark/metrics/<stem>.py``.
+``benchmark/workloads/<cell>.json``. The configuration's ``model`` names
+its kind: the program side ``benchmark/models/<model>.py``
+(``program.kind``), the reference side ``benchmark/reference/<model>.py``
+(``reference.model.kind``). The mix names its mode, the code of one kind
+of window, ``benchmark/modes/<mode>.py``, which carries its CPU test sizes
+(``SMALL``). A per-layer metric ``<stem>.<suffix>`` is read by
+``benchmark/metrics/<stem>.<suffix>.py`` where that file exists, else by
+``benchmark/metrics/<stem>.py``.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -31,6 +38,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "omnifusion_tpu")
 DEVICE_OPS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_OPS = ("cpu_op", "cuda_runtime", "cuda_driver")
 WINDOW = "bench_window"
+LAUNCHES = "cuda_"  # CUDA runtime and driver calls; a launch carries its op's correlation id
+SPAN = "span:"  # the prefix of the program's spans in a profiler's trace
+OUTSIDE = "(none)"  # device time or idle time while no span was open
 
 
 def load_json(path: str):
@@ -110,6 +120,8 @@ class Context:
     device: str
     t_start: float  # host clock when the process began
     marks: list = dataclasses.field(default_factory=list)  # (set-up stage, host clock at its end)
+    setup_record: object = None  # the program's spans and counters of set-up (record_setup)
+    _recording: Optional[contextlib.ExitStack] = None
 
     def mark(self, stage: str):
         self.marks.append((stage, time.perf_counter()))
@@ -120,11 +132,22 @@ class Context:
 
             torch.cuda.synchronize()
 
+    def record_setup(self):
+        """Record the program's spans and counters from now until
+        ``settle`` (``program.recording``), into ``setup_record``."""
+        from benchmark import program
+
+        self._recording = contextlib.ExitStack()
+        self.setup_record = self._recording.enter_context(program.recording())
+
     def settle(self) -> float:
-        """End of set-up: wait for the device, collect the garbage of
-        set-up and freeze what is left, so that no collection in the window
-        walks it; returns ``setup_s``."""
+        """End of set-up: wait for the device, stop recording spans, collect
+        the garbage of set-up and freeze what is left, so that no collection
+        in the window walks it; returns ``setup_s``."""
         self.sync()
+        if self._recording is not None:
+            self._recording.close()
+            self._recording = None
         gc.collect()
         gc.freeze()
         self.mark("settle")
@@ -168,6 +191,21 @@ def _top(pairs, n):
 
 
 @dataclasses.dataclass
+class Spans:
+    """The program's spans in the windows of ``span_window``, a step each
+    (ms), and in set-up (s)."""
+
+    on_card: bool
+    step_ms: float  # window (a): host ms a step, spans recorded, no profiler
+    host_ms: dict  # window (a): span -> host ms a step, summed over its instances
+    device_ms: dict = dataclasses.field(default_factory=dict)  # (b): span -> device ms a step
+    idle_ms: dict = dataclasses.field(default_factory=dict)  # (b): innermost span -> idle ms a step
+    busy_ms: float = 0.0  # (b): device busy ms a step
+    setup_s: dict = dataclasses.field(default_factory=dict)  # set-up: span -> seconds
+    setup_counters: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
 class Outcome:
     """What a mode returns."""
 
@@ -178,6 +216,7 @@ class Outcome:
     memory_peak_bytes: int
     facts: dict  # what the per-layer readers need (batch, rates, counts)
     trace: Optional[Trace] = None
+    spans: Optional[Spans] = None
 
 
 def trace_window(step: Callable[[int], None], n_steps: int, device: str,
@@ -218,6 +257,100 @@ def trace_window(step: Callable[[int], None], n_steps: int, device: str,
         gaps = reduce_gaps(_events(prof))
     return Trace(window_s=t1 - t0, busy_s=busy / 1e6, steps=n_steps,
                  kernels=[(name, (e - s) / 1e6, cat) for s, e, name, cat in dev], gaps=gaps)
+
+
+def span_window(step: Callable[[int], None], n_steps: int, device: str, setup=None) -> Spans:
+    """Two more windows of ``n_steps`` steps with the program's spans
+    recorded (``program.recording``), each ended by a synchronize: (a) no
+    profiler: each span's host time, and the window's; (b) under a CPU and
+    CUDA ``torch.profiler``: each span's device time, a device op counting
+    in every span open on the stepping thread when its launch ran (the
+    launch's correlation id; autograd's thread launches the backward while
+    the stepping thread is in its ``backward`` span), and each idle gap
+    named by the innermost span open on the stepping thread when it began
+    (``reduce_spans``). On the CPU, (a) alone. ``setup``: the set-up's
+    recording (``Context.setup_record``)."""
+    import torch
+
+    from benchmark import program
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    with program.recording() as rec:
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            step(i)
+        sync()
+        t1 = time.perf_counter()
+    out = Spans(device == "cuda", 1e3 * (t1 - t0) / n_steps,
+                {k: 1e3 * s / n_steps for k, s in rec.seconds().items()})
+    if setup is not None:
+        out.setup_s, out.setup_counters = setup.seconds(), dict(setup.counters)
+    if device == "cuda":
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        with program.recording(), profile(activities=[ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA]) as prof:
+            with record_function(WINDOW):
+                for i in range(n_steps):
+                    step(n_steps + i)
+                torch.cuda.synchronize()
+        device_s, idle_s, busy_s = reduce_spans(_events(prof))
+        out.device_ms = {k: 1e3 * s / n_steps for k, s in device_s.items()}
+        out.idle_ms = {k: 1e3 * s / n_steps for k, s in idle_s.items()}
+        out.busy_ms = 1e3 * busy_s / n_steps
+    return out
+
+
+def reduce_spans(events: list) -> tuple[dict, dict, float]:
+    """(span -> device seconds, innermost span -> idle seconds, busy
+    seconds) of the window annotation of a trace of host and device ops
+    and the program's ``span:`` ranges (``span_window``). The stepping
+    thread is the annotation's; a device op whose launch ran while no span
+    was open there counts under ``OUTSIDE``, as does an idle gap."""
+    ws, we, tid = _window(events)
+    # (start, end, name), outermost first where two start together
+    ranges = sorted(((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+                      e["name"][len(SPAN):]) for e in events
+                     if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                     and e.get("tid") == tid and e.get("name", "").startswith(SPAN)),
+                    key=lambda r: (r[0], -r[1]))
+
+    def open_at(t):  # the spans open at t, outermost first
+        return [name for s, e, name in ranges if s <= t <= e]
+
+    launch = {e["args"]["correlation"]: float(e["ts"]) for e in events
+              if e.get("ph") == "X" and e.get("cat", "").startswith(LAUNCHES)
+              and "correlation" in e.get("args", {})}
+    device = collections.defaultdict(float)
+    dev = []
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_OPS:
+            continue
+        s, d = float(e["ts"]), float(e.get("dur", 0.0))
+        s0, s1 = max(s, ws), min(s + d, we)
+        if s1 <= s0:
+            continue
+        dev.append((s0, s1, e["name"], e["cat"]))
+        t = launch.get(e.get("args", {}).get("correlation"))
+        for name in (set(open_at(t)) if t is not None else set()) or {OUTSIDE}:
+            device[name] += (s1 - s0) / 1e6
+    busy, gaps = _busy_and_gaps(sorted(dev), ws, we)
+    idle = collections.defaultdict(float)
+    for start, length in gaps:
+        inner = open_at(start)
+        idle[inner[-1] if inner else OUTSIDE] += length / 1e6
+    return dict(device), dict(idle), busy / 1e6
+
+
+def _window(events: list) -> tuple[float, float, object]:
+    """(start, end, thread) of the window annotation."""
+    win = [e for e in events if e.get("name") == WINDOW and e.get("ph") == "X"
+           and e.get("cat") == "user_annotation"]
+    if not win:
+        raise RuntimeError("the trace holds no window annotation")
+    ws = float(win[0]["ts"])
+    return ws, ws + float(win[0]["dur"]), win[0].get("tid")
 
 
 def _events(prof) -> list:
@@ -267,12 +400,7 @@ def _busy_and_gaps(dev, ws, we):
 def reduce_gaps(events: list) -> list:
     """(host activity, seconds) of every idle gap of the device within the
     window annotation of a trace of host and device ops."""
-    win = [e for e in events if e.get("name") == WINDOW and e.get("ph") == "X"
-           and e.get("cat") == "user_annotation"]
-    if not win:
-        raise RuntimeError("the trace holds no window annotation")
-    ws = float(win[0]["ts"])
-    we = ws + float(win[0]["dur"])
+    ws, we, _ = _window(events)
     _, gaps = _busy_and_gaps(_device_ops(events, ws, we), ws, we)
     host = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e["name"])
                   for e in events if e.get("ph") == "X" and e.get("cat") in HOST_OPS)

@@ -1,5 +1,5 @@
-"""Training: ``training.train_step`` on one ``create_train_state``, back to
-back.
+"""Training: the kind's train step (``training.train_step`` for the depth
+models) on one ``create_train_state``, back to back.
 
 Set-up builds the train state once, with the benchmark's weights, and
 drives it through the window's own call and feed for ``first_steps``
@@ -21,22 +21,25 @@ from benchmark import check, generator, harness, program, weights
 from benchmark.reference import model as ref
 
 COMPARED_STEPS = 3
+# the CPU tests' sizes of the mix (benchmark/tests/small.py)
+SMALL = {"batch": 2, "pool": 3, "first_steps": 3, "trace_steps": 1}
 
 
 def run(ctx: harness.Context) -> harness.Outcome:
     cfg, tr = ctx.cell.config, ctx.cell.traffic
     dev = ctx.device
+    kind = program.kind(cfg)
     ctx.mark("import")
     state = weights.make(cfg, generator.stream_seed(ctx.seed, generator.WEIGHTS), dev)
     ctx.mark("weights")
-    model = program.build_model(cfg, tr["precision"], state, dev)
+    model = kind.build(cfg, tr["precision"], state, dev)
     state = {k: v.cpu() for k, v in state.items()}
     ctx.mark("model")
     ts = program.train_state(model, tr)
     pool = generator.train_pool(cfg, tr, ctx.seed, dev)
     n_pool, batch = len(pool), tr["batch"]
     ctx.mark("inputs")
-    prog = first_steps(ts, pool, tr["first_steps"], state, dev)
+    prog = first_steps(kind, ts, pool, tr["first_steps"], state, dev)
     ctx.sync()
     ctx.mark("first steps")
     setup_s = ctx.settle()
@@ -44,7 +47,7 @@ def run(ctx: harness.Context) -> harness.Outcome:
     n = tr["first_steps"]
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < ctx.seconds:
-        program.train_step(ts, pool[n % n_pool])
+        kind.train_step(ts, pool[n % n_pool])
         n += 1
     ctx.sync()
     window = time.perf_counter() - t0
@@ -52,10 +55,12 @@ def run(ctx: harness.Context) -> harness.Outcome:
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
 
     t_trace = time.perf_counter()
-    trace = None
+    trace = spans = None
     if ctx.trace:
-        trace = harness.trace_window(lambda i: program.train_step(ts, pool[i % n_pool]),
+        trace = harness.trace_window(lambda i: kind.train_step(ts, pool[i % n_pool]),
                                      tr["trace_steps"], dev)
+        spans = harness.span_window(lambda i: kind.train_step(ts, pool[i % n_pool]),
+                                    tr["trace_steps"], dev, ctx.setup_record)
     del model, ts
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -77,12 +82,14 @@ def run(ctx: harness.Context) -> harness.Outcome:
                "phase_s": {"window": window, "trace": t_check - t_trace,
                            "check": time.perf_counter() - t_check}},
         trace=trace,
+        spans=spans,
     )
 
 
-def first_steps(ts, pool, n_steps, state0, device) -> dict:
-    """Drive the train state ``ts`` through its first ``n_steps`` steps on
-    the pool's batches and read what the reference follows: the first
+def first_steps(kind, ts, pool, n_steps, state0, device) -> dict:
+    """Drive the train state ``ts`` through its first ``n_steps`` steps (the
+    train step of ``kind``, ``benchmark/models/<model>.py``) on the pool's
+    batches and read what the reference follows: the first
     three steps' losses, each leaf's first gradient as AdamW's first moment
     holds it after step one (its norm, and its values on the host), each
     leaf's change from ``state0`` (host tensors) after step three."""
@@ -91,7 +98,7 @@ def first_steps(ts, pool, n_steps, state0, device) -> dict:
     params = dict(model.named_parameters())
     losses, grad, change = [], {}, {}
     for i in range(n_steps):
-        out = program.train_step(ts, pool[i % len(pool)])
+        out = kind.train_step(ts, pool[i % len(pool)])
         if i < COMPARED_STEPS:
             losses.append(out["loss"])
         if i == 0:

@@ -1,41 +1,45 @@
 """The system under test: the port's models and train state, built as its
 entry points build them (``cli/common.py: build_model``, ``cli/train.py``),
-with the benchmark's weights loaded.
+with the benchmark's weights loaded; and the port's span recorder.
 
-The only module of the benchmark, with the modes, that imports the port
-(``omnifusion_torch``).
+What differs between model kinds is in ``benchmark/models/<model>.py``,
+found by the configuration's ``model`` (``kind``): ``build`` (the model,
+``build_model`` below with the kind's class), ``outputs`` (what a forward
+serves, one tensor a pass, the last the one served) and ``train_step``
+(the port's step on the generator's batch).
+
+The only modules of the benchmark, with the modes and the kinds, that
+import the port (``omnifusion_torch``), and only inside functions.
 """
 
 from __future__ import annotations
+
+import importlib
 
 import torch
 
 DTYPES = {"f32": None, "bf16": torch.bfloat16, "f16": torch.float16}
 
 
-def build_model(cfg, precision: dict, state: dict, device):
-    """The configuration's model with ``precision`` = {"trunk": ...,
-    "merge": ...} ("f32" is the parameters' own type; TF32 convolutions
-    are PyTorch's default on the card), ``state`` loaded strictly."""
-    from omnifusion_torch.models import SphericalFusion, SphericalFusionIterative
+def kind(cfg):
+    """The module of the configuration's model kind:
+    ``benchmark/models/<model>.py``."""
+    return importlib.import_module(f"benchmark.models.{cfg['model']}")
+
+
+def build_model(model_class, cfg, precision: dict, state: dict, device, **kw):
+    """``model_class`` (a port model) of the configuration with its trunk
+    in ``precision["trunk"]`` ("f32" is the parameters' own type; TF32
+    convolutions are PyTorch's default on the card), ``state`` loaded
+    strictly; ``kw`` the class's own arguments (a merge's type, passes)."""
     from omnifusion_torch.projection import ProjectionSpec
 
     spec = ProjectionSpec.create(cfg["erp_size"], cfg["patch_size"], cfg["fov"], cfg["nrows"])
-    kw = dict(dtype=DTYPES[precision["trunk"]], merge_dtype=DTYPES[precision["merge"]],
-              device=device, depth=cfg["transformer_depth"], num_heads=cfg["num_heads"],
-              encoder_stages=[tuple(s) for s in cfg["encoder_stages"]])
-    if cfg["model"] == "iterative":
-        model = SphericalFusionIterative(spec, num_iters=cfg["num_iters"], **kw)
-    else:
-        model = SphericalFusion(spec, **kw)
+    model = model_class(spec, dtype=DTYPES[precision["trunk"]], device=device,
+                        depth=cfg["transformer_depth"], num_heads=cfg["num_heads"],
+                        encoder_stages=[tuple(s) for s in cfg["encoder_stages"]], **kw)
     model.load_state_dict(state, strict=True)
     return model
-
-
-def depths(out) -> list[torch.Tensor]:
-    """Each pass's depth (B, H, W, 1) of a forward; the last is the one
-    served."""
-    return list(out) if isinstance(out, (list, tuple)) else [out]
 
 
 def train_state(model, traffic):
@@ -47,7 +51,10 @@ def train_state(model, traffic):
                               r["steps_per_epoch"])
 
 
-def train_step(state, batch):
-    from omnifusion_torch.training import train_step as step
+def recording():
+    """``utils.profiling.recording()``: the port's spans and counters
+    recorded for the duration (its ``Recording`` is the context's
+    value)."""
+    from omnifusion_torch.utils.profiling import recording as port_recording
 
-    return step(state, batch)
+    return port_recording()

@@ -1,19 +1,21 @@
-"""Plain PyTorch reference of OmniFusion's one-shot and iterative models.
+"""Plain PyTorch reference of OmniFusion's trunk, shared by the model
+kinds (``benchmark/reference/<model>.py``, found by a configuration's
+``model``).
 
 Functional: a model is a dict of named tensors (the upstream checkpoint's
 names, which the program's modules also carry) and ``forward`` runs it.
-Architecture (OmniFusion, Li et al., CVPR 2022; upstream
-``model/spherical_model.py`` and ``spherical_model_iterative.py``):
+The trunk (OmniFusion, Li et al., CVPR 2022; upstream
+``model/spherical_model.py``):
 
 ERP (B, H, W, 3) -> tangent patches (``tables.e2p``) -> ResNet-34 encoder
 over the B*P patches, geometric point features added to layer1 -> one
 token per patch from a 1x1 projection of layer4 -> pre-norm transformer
 over the P tokens -> tokens added to layer4 -> decoder of five 2x
-bilinear upsamples with encoder skips -> depth (ReLU) and confidence
-(sigmoid) heads -> confidence-weighted merge to ERP (``tables.p2e``).
-The iterative model runs the same trunk again on point features of the
-previous depth, projected to quarter-resolution patches; its merges are
-unweighted.
+bilinear upsamples with encoder skips -> the heads (``heads``) -> the
+merge to ERP (``tables.p2e``, ``merge_blend``). What differs between
+kinds (the parameters' names around the trunk, the geometry input, the
+heads' activation, the merge, the loss, the training targets) is the
+kind's.
 
 ``Precision`` says how the convolutions and the merge's source are
 computed (the transformer, as in the program's recipes, runs in f32): "f32" (the reference; TF32 is switched off by the
@@ -28,6 +30,7 @@ Imports nothing of the program.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import math
 
 import numpy as np
@@ -45,7 +48,7 @@ class Precision:
     merge: str = "f32"  # the merge's source: f32, f16 or fp8
 
 
-def _round(x: torch.Tensor, kind: str) -> torch.Tensor:
+def rounded(x: torch.Tensor, kind: str) -> torch.Tensor:
     """x rounded to ``kind`` and back to f32 (for "tf32", its 10-bit
     mantissa, round to nearest even, gradients passed straight through)."""
     if kind == "f32":
@@ -63,7 +66,7 @@ def _round(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def conv(x, w, b=None, stride=1, padding=0, kind="f32"):
-    return F.conv2d(_round(x, kind), _round(w, kind), b, stride, padding)
+    return F.conv2d(rounded(x, kind), rounded(w, kind), b, stride, padding)
 
 
 
@@ -93,16 +96,17 @@ def token_size(cfg) -> tuple[int, int, int]:
     return cfg["token_channels"] * hh * ww, hh, ww
 
 
-def points_names(cfg) -> list[str]:
-    return ["mlp_points"] if cfg["model"] == "oneshot" else ["mlp_points1", "mlp_points2"]
+def kind(cfg):
+    """The module of the configuration's model kind:
+    ``benchmark/reference/<model>.py``."""
+    return importlib.import_module(f"benchmark.reference.{cfg['model']}")
 
 
-def down_name(cfg) -> str:
-    return "down" if cfg["model"] == "oneshot" else "down1"
-
-
-def param_specs(cfg) -> list[tuple[str, tuple, str]]:
-    """(name, shape, kind) of every tensor of the model's state."""
+def trunk_specs(cfg, down: str, n_out: int) -> list[tuple[str, tuple, str]]:
+    """(name, shape, kind) of every tensor of the trunk, in the
+    checkpoint's order: the encoder, the token projection ``down``, the
+    transformer, the decoder, and the heads (``pred`` of ``n_out``
+    outputs, ``weight_pred`` the confidence)."""
     s = []
     stages = cfg["encoder_stages"]
     s += _conv("conv1", 3, 64, 7) + _bn("bn1", 64)
@@ -119,7 +123,7 @@ def param_specs(cfg) -> list[tuple[str, tuple, str]]:
     c1, c2, c3, c4 = (st[0] for st in stages)
     emb, _, _ = token_size(cfg)
     tc = cfg["token_channels"]
-    s += _conv(down_name(cfg), c4, tc, 1, bias=True)
+    s += _conv(down, c4, tc, 1, bias=True)
     s += [("transformer.pos_emb", (1, cfg["n_patches"], emb), "pos_emb")]
     hidden = int(emb * cfg["mlp_ratio"])
     for i in range(cfg["transformer_depth"]):
@@ -140,13 +144,15 @@ def param_specs(cfg) -> list[tuple[str, tuple, str]]:
              "de_conv2_1", "de_conv3_0", "de_conv3_1", "de_conv4_0"]
     for n, ci, co in zip(names, ins, d):
         s += _conv(f"{n}.conv", ci, co, 3) + _bn(f"{n}.bn", co)
-    s += _conv("pred", d[-1], 1, 3, bias=True) + _conv("weight_pred", d[-1], 1, 3, bias=True)
-    hid, out = cfg["points_channels"]
-    for n in points_names(cfg):
-        fin = 5 if cfg["model"] == "oneshot" else 3
-        s += _conv(f"{n}.0", fin, hid, 1) + _bn(f"{n}.1", hid)
-        s += _conv(f"{n}.3", hid, out, 1) + _bn(f"{n}.4", out)
+    s += _conv("pred", d[-1], n_out, 3, bias=True) + _conv("weight_pred", d[-1], 1, 3, bias=True)
     return s
+
+
+def points_specs(cfg, name: str, fin: int) -> list[tuple[str, tuple, str]]:
+    """The point embedding ``name`` of ``fin`` input channels."""
+    hid, out = cfg["points_channels"]
+    return (_conv(f"{name}.0", fin, hid, 1) + _bn(f"{name}.1", hid)
+            + _conv(f"{name}.3", hid, out, 1) + _bn(f"{name}.4", out))
 
 
 # --------------------------------------------------------------------------
@@ -155,23 +161,31 @@ def param_specs(cfg) -> list[tuple[str, tuple, str]]:
 
 class Geometry:
     """The reference's tables and patch geometry of a configuration, as
-    tensors on ``device``."""
+    tensors on ``device``; on the meta device, empty tensors of their
+    shapes (a merge of 4 quads a pixel). The kind adds what its forward
+    reads (``<kind>.geometry``)."""
 
     def __init__(self, cfg, device):
+        self.device = torch.device(device)
         erp, patch, fov, nrows = cfg["erp_size"], cfg["patch_size"], cfg["fov"], cfg["nrows"]
-        t = lambda a, dt=torch.float32: torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
-        i, w = tables.e2p(erp, patch, fov, nrows)
-        self.e2p = (t(i, torch.long), t(w))
-        i, w = tables.p2e(erp, patch, fov, nrows)
-        self.p2e = (t(i, torch.long), t(w))
-        quarter = (patch[0] // 4, patch[1] // 4)
-        c = tables.centers_normalized(nrows).astype(np.float32)
-        geo = np.concatenate([c, np.ones_like(c[:, :1]), c], -1)[:, :, None, None]
-        self.geo = t(np.broadcast_to(geo, (*geo.shape[:2], *quarter)))  # (P, 5, h/4, w/4)
-        if cfg["model"] == "iterative":
-            i, w = tables.e2p(erp, quarter, fov, nrows)
-            self.e2p_quarter = (t(i, torch.long), t(w))
-            self.xyz = t(tables.unit_sphere(quarter, fov, nrows))  # (P, 3, h/4, w/4)
+        n_in = cfg["n_patches"] * patch[0] * patch[1]
+        self.e2p = self.blend(tables.e2p, (erp, patch, fov, nrows), (n_in, 4))
+        self.p2e = self.blend(tables.p2e, (erp, patch, fov, nrows), (erp[0] * erp[1], 4, 4))
+        kind(cfg).geometry(self, cfg)
+
+    def tensor(self, make, shape, dtype=torch.float32) -> torch.Tensor:
+        """The numpy array ``make()`` as a tensor (of ``shape`` on the meta
+        device, where ``make`` is not called)."""
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        return torch.from_numpy(np.ascontiguousarray(make())).to(self.device, dtype)
+
+    def blend(self, table, args, shape) -> tuple[torch.Tensor, torch.Tensor]:
+        """(idx, w) of ``table(*args)`` (``tables.e2p`` or ``tables.p2e``)."""
+        if self.device.type == "meta":
+            return (self.tensor(None, shape, torch.long), self.tensor(None, shape))
+        i, w = table(*args)
+        return self.tensor(lambda: i, i.shape, torch.long), self.tensor(lambda: w, w.shape)
 
 
 def sample(src, idx, w):
@@ -264,8 +278,17 @@ def up2x(x, size=None):
                          align_corners=False)
 
 
-def trunk(p, cfg, x, pf, b, train, prec):
-    """x (B*P, 3, h, w), pf (B*P, 64, h/4, w/4) -> pred, conf (B*P, 1, h, w)."""
+def patches(geom, cfg, rgb):
+    """rgb (B, H, W, 3) -> the tangent patches (B*P, 3, h, w)."""
+    b = rgb.shape[0]
+    h, w = cfg["patch_size"]
+    x = sample(rgb.reshape(b, -1, 3), *geom.e2p)  # (B, P*h*w, 3)
+    return x.reshape(b, cfg["n_patches"], h, w, 3).permute(0, 1, 4, 2, 3).reshape(-1, 3, h, w)
+
+
+def trunk(p, cfg, x, pf, b, train, prec, down):
+    """x (B*P, 3, h, w), pf (B*P, 64, h/4, w/4) -> the decoder's output
+    (B*P, 32, h, w); ``down`` names the token projection."""
     k = prec.convs
     h, w = x.shape[-2:]
     c1 = conv_bn(p, "conv1", "bn1", x, train, k, 2, 3)
@@ -279,8 +302,7 @@ def trunk(p, cfg, x, pf, b, train, prec):
         feats.append(y)
     l1, l2, l3, l4 = feats
     emb, hh, ww = token_size(cfg)
-    dn = down_name(cfg)
-    tok = conv(l4, p[f"{dn}.weight"], p[f"{dn}.bias"], kind=k).reshape(-1, emb)
+    tok = conv(l4, p[f"{down}.weight"], p[f"{down}.bias"], kind=k).reshape(-1, emb)
     tok = transformer(p, cfg, tok.reshape(b, cfg["n_patches"], emb))
     tok = tok.reshape(-1, emb)
     if emb == l4.shape[1]:
@@ -297,46 +319,16 @@ def trunk(p, cfg, x, pf, b, train, prec):
     y = stage(y, l2, "de_conv1_0", "de_conv1_1")
     y = stage(y, l1, "de_conv2_0", "de_conv2_1")
     y = stage(y, c1, "de_conv3_0", "de_conv3_1")
-    y = conv_bn(p, "de_conv4_0.conv", "de_conv4_0.bn", up2x(y, (h, w)), train, k, 1, 1)
-    pred = F.relu(conv(y, p["pred.weight"], p["pred.bias"], 1, 1, k))
-    conf = torch.sigmoid(conv(y, p["weight_pred.weight"], p["weight_pred.bias"], 1, 1, k))
-    return pred, conf
+    return conv_bn(p, "de_conv4_0.conv", "de_conv4_0.bn", up2x(y, (h, w)), train, k, 1, 1)
 
 
-def merge(geom, cfg, pred, conf, b, prec, weighted):
-    """(B*P, 1, h, w) heads -> (B, H, W, 1) depth."""
-    H, W = cfg["erp_size"]
-    idx, w = geom.p2e
-    pred, conf = pred.reshape(b, -1), conf.reshape(b, -1)
-    if not weighted:
-        return merge_blend(_round(pred[:, None], prec.merge), idx, w).reshape(b, H, W, 1)
-    src = _round(torch.stack([pred * conf, conf], 1), prec.merge)
-    num, den = merge_blend(src, idx, w).unbind(1)
-    den = den + 1e-8 * (den <= 1e-8).to(den.dtype)
-    return (num / den).reshape(b, H, W, 1)
-
-
-def forward(p, cfg, geom, rgb, prec=Precision(), train=False):
-    """rgb (B, H, W, 3) -> the list of each pass's depth (B, H, W, 1)."""
-    b = rgb.shape[0]
-    P = cfg["n_patches"]
-    h, w = cfg["patch_size"]
-    hq, wq = h // 4, w // 4
-    x = sample(rgb.reshape(b, -1, 3), *geom.e2p)  # (B, P*h*w, 3)
-    x = x.reshape(b, P, h, w, 3).permute(0, 1, 4, 2, 3).reshape(b * P, 3, h, w)
-    if cfg["model"] == "oneshot":
-        pf = points(p, "mlp_points", geom.geo, train, prec.convs)
-        pf = pf.expand(b, *pf.shape).reshape(b * P, *pf.shape[1:])
-        return [merge(geom, cfg, *trunk(p, cfg, x, pf, b, train, prec), b, prec, True)]
-    pf = points(p, "mlp_points1", geom.xyz, train, prec.convs)
-    pf = pf.expand(b, *pf.shape).reshape(b * P, *pf.shape[1:])
-    preds = [merge(geom, cfg, *trunk(p, cfg, x, pf, b, train, prec), b, prec, False)]
-    for _ in range(cfg["num_iters"] - 1):
-        d = sample(preds[-1].reshape(b, -1, 1), *geom.e2p_quarter)  # (B, P*hq*wq, 1)
-        pts = geom.xyz[None] * d.reshape(b, P, 1, hq, wq)
-        pf = points(p, "mlp_points2", pts.reshape(b * P, 3, hq, wq), train, prec.convs)
-        preds.append(merge(geom, cfg, *trunk(p, cfg, x, pf, b, train, prec), b, prec, False))
-    return preds
+def heads(p, y, prec, relu: bool):
+    """The decoder's output -> pred (ReLU'd where ``relu``) and the
+    confidence (sigmoid), (B*P, n, h, w) and (B*P, 1, h, w)."""
+    k = prec.convs
+    pred = conv(y, p["pred.weight"], p["pred.bias"], 1, 1, k)
+    pred = F.relu(pred) if relu else pred
+    return pred, torch.sigmoid(conv(y, p["weight_pred.weight"], p["weight_pred.bias"], 1, 1, k))
 
 
 def berhu(pred, gt, mask):
@@ -349,6 +341,25 @@ def berhu(pred, gt, mask):
     loss = torch.where(a <= c, a, (diff * diff + c * c) / torch.clamp(2.0 * c, min=1e-12))
     m = mask.reshape(b, -1).float()
     return ((loss * m).sum(1) / torch.clamp(m.sum(1), min=1.0)).mean()
+
+
+def depth_loss(preds, batch):
+    """The mean over the passes of each pass's BerHu against the batch's
+    depth and mask."""
+    return torch.stack([berhu(d, batch["depth"], batch["mask"]) for d in preds]).mean()
+
+
+def depth_targets(cfg, traffic, gen, n, device) -> dict:
+    """n depth maps in ``depth_range`` metres (a smooth field: seeded noise
+    at 1/32 of the panorama, upsampled bilinearly) and their masks
+    (``mask_share`` of the pixels valid, drawn per pixel), (n, H, W, 1)
+    each, drawn from ``gen`` after the panoramas."""
+    h, w = cfg["erp_size"]
+    lo, hi = traffic["depth_range"]
+    coarse = torch.rand(n, 1, h // 32, w // 32, generator=gen, device=device)
+    depth = lo + (hi - lo) * F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+    mask = (torch.rand(n, 1, h, w, generator=gen, device=device) < traffic["mask_share"]).float()
+    return {"depth": depth.permute(0, 2, 3, 1), "mask": mask.permute(0, 2, 3, 1)}
 
 
 def cosine_lr(base, t_0, t_mult, steps_per_epoch, step):

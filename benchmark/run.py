@@ -7,8 +7,11 @@ from the root of a checkout. The run makes its weights and inputs from
 for ``--seconds`` seconds, checks the window's answers against the plain
 reference, and prints one JSON object as the last line of standard output
 (``--trace 0``: the cell's end-to-end metrics; ``--trace 1``: its
-per-layer metrics, read from a traced window after the measured one) and
-each compared number beside its limit as the last lines of standard error.
+per-layer metrics, read from traced windows after the measured one and
+from the program's spans, recorded in set-up and in windows of their own)
+and each compared number beside its limit as the last lines of standard
+error, after the ``seconds`` lines (and with ``--trace 1`` the ``spans``,
+``idle by span`` and ``set-up spans`` lines).
 It exits non-zero and prints no result without the CUDA cards the cell
 asks for, or when JAX or the JAX package is loaded once the window has
 closed.
@@ -29,6 +32,20 @@ import os  # noqa: E402
 import sys  # noqa: E402
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+def print_spans(s: harness.Spans) -> None:
+    """The program's spans on standard error: a step's host ms (window
+    (a)) and device ms (window (b)) by span, idle ms by span, set-up
+    seconds by span and its counters."""
+    def pairs(d, fmt):
+        return " ".join(f"{k} {fmt.format(v)}" for k, v in d.items())
+
+    print(f"spans step_ms {s.step_ms:.3f} busy_ms {s.busy_ms:.3f} host_ms "
+          f"{pairs(s.host_ms, '{:.3f}')} device_ms {pairs(s.device_ms, '{:.3f}')}", file=sys.stderr)
+    print(f"idle by span {pairs(s.idle_ms, '{:.3f}')}", file=sys.stderr)
+    print(f"set-up spans {pairs(s.setup_s, '{:.3f}')} counters {pairs(s.setup_counters, '{}')}",
+          file=sys.stderr)
+
+
 if __name__ == "__main__":
     sys.path[0] = _ROOT  # the checkout's root, not benchmark/
 elif _ROOT not in sys.path:
@@ -64,6 +81,8 @@ def main(argv=None, t_start: float = T_START) -> int:
         torch.cuda.set_device(0)
     mode = harness.mode_module(cell.traffic["mode"])
     ctx = harness.Context(cell, args.seed, args.seconds, bool(args.trace), args.device, t_start)
+    if ctx.trace:
+        ctx.record_setup()
     out = mode.run(ctx)
     found = harness.forbidden_modules()
     if found:
@@ -77,12 +96,28 @@ def main(argv=None, t_start: float = T_START) -> int:
         stages.append(f"{stage} {t - last:.3f}")
         last = t
     print("set-up seconds " + " ".join(stages), file=sys.stderr)
+    if out.spans is not None:
+        print_spans(out.spans)
     for c in out.checks:
         print(f"check {c.name} {c.value!r} limit {c.limit!r} {'ok' if c.ok else 'FAILED'}",
               file=sys.stderr)
     sys.stderr.flush()
     print(json.dumps(line), flush=True)
     return 0
+
+
+def print_spans(s: harness.Spans) -> None:
+    """The program's spans on standard error: a step's host ms (window
+    (a)) and device ms (window (b)) by span, idle ms by span, set-up
+    seconds by span and its counters."""
+    def pairs(d, fmt):
+        return " ".join(f"{k} {fmt.format(v)}" for k, v in d.items())
+
+    print(f"spans step_ms {s.step_ms:.3f} busy_ms {s.busy_ms:.3f} host_ms "
+          f"{pairs(s.host_ms, '{:.3f}')} device_ms {pairs(s.device_ms, '{:.3f}')}", file=sys.stderr)
+    print(f"idle by span {pairs(s.idle_ms, '{:.3f}')}", file=sys.stderr)
+    print(f"set-up spans {pairs(s.setup_s, '{:.3f}')} counters {pairs(s.setup_counters, '{}')}",
+          file=sys.stderr)
 
 
 if __name__ == "__main__":

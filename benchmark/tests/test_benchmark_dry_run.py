@@ -1,5 +1,6 @@
 """A ``--device cpu`` run of each cell prints the result line last, with
-no device metric filled in, and the compared numbers beside their limits."""
+no device metric filled in, and the compared numbers beside their limits;
+with ``--trace 1`` the program's spans before them."""
 
 from __future__ import annotations
 
@@ -27,8 +28,14 @@ def test_cpu_dry_run_prints_the_last_line(cell, trace):
     assert line["correct"] is True and line["attempted"] > 0
     assert line["metrics"] == {} and line["device"]["platform"] == "cpu"
     assert "breakdown" not in line
-    last = proc.stderr.strip().splitlines()[-len(line["checks"]):]
+    err = proc.stderr.strip().splitlines()
+    last = err[-len(line["checks"]):]
     assert [s.split()[1] for s in last] == list(line["checks"])
+    spans = [s for s in err if s.startswith(("spans ", "idle by span", "set-up spans "))]
+    assert len(spans) == 3 * trace
+    if trace:
+        step = "train_step" if "train" in cell else "model"
+        assert f" {step} " in spans[0] and " tables " in spans[2]
 
 
 def test_a_run_without_a_card_exits_without_a_result():

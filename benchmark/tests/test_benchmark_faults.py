@@ -9,7 +9,7 @@ import json
 
 import pytest
 
-from benchmark import program, run
+from benchmark import harness, program, run
 from benchmark.tests.small import cli_args
 
 
@@ -18,17 +18,23 @@ def _line(capsys, cell):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
+def _kind(cell):
+    """The program side of the cell's model kind (benchmark/models/)."""
+    return program.kind(harness.load_cell(cell).config)
+
+
 @pytest.mark.parametrize("cell", ["oneshot_s2d3d.batched_b64", "iterative_s2d3d.batched_b64"])
 def test_an_answer_altered_where_it_is_produced(cell, capsys, monkeypatch):
-    depths = program.depths
+    kind = _kind(cell)
+    outputs = kind.outputs
 
     def altered(out):
-        ds = depths(out)
+        ds = outputs(out)
         d = ds[-1].clone()
         d[0] = d[0].flip(0)  # the first panorama's served depth upside down
         return ds[:-1] + [d]
 
-    monkeypatch.setattr(program, "depths", altered)
+    monkeypatch.setattr(kind, "outputs", altered)
     line = _line(capsys, cell)
     assert line["correct"] is False and line["failed"] >= 1
 
@@ -40,18 +46,21 @@ def test_a_step_that_returns_its_state_unchanged(capsys, monkeypatch):
         loss, pred = forward_loss(state.model, batch)
         return {"loss": loss.detach(), "pred_mean": pred.detach().mean()}
 
-    monkeypatch.setattr(program, "train_step", unchanged)
-    line = _line(capsys, "oneshot_s2d3d.train_b8")
+    cell = "oneshot_s2d3d.train_b8"
+    monkeypatch.setattr(_kind(cell), "train_step", unchanged)
+    line = _line(capsys, cell)
     assert line["correct"] is False
     assert line["checks"]["change_gap"]["value"] == pytest.approx(1.0)
 
 
 def test_half_of_the_batch_left_out(capsys, monkeypatch):
-    step = program.train_step
+    cell = "oneshot_s2d3d.train_b8"
+    kind = _kind(cell)
+    step = kind.train_step
 
     def half(state, batch):
         return step(state, {k: v[: len(v) // 2] for k, v in batch.items()})
 
-    monkeypatch.setattr(program, "train_step", half)
-    line = _line(capsys, "oneshot_s2d3d.train_b8")
+    monkeypatch.setattr(kind, "train_step", half)
+    line = _line(capsys, cell)
     assert line["correct"] is False

@@ -7,7 +7,8 @@ import re
 
 import pytest
 
-from benchmark import harness
+from benchmark import harness, program
+from benchmark.reference import model as ref
 from benchmark.tests.small import CELLS
 
 BENCH = harness.load_json(os.path.join(harness.ROOT, "BENCHMARK.json"))
@@ -43,7 +44,8 @@ def test_cell_resolves_to_its_files(cell):
     c = harness.load_cell(cell)
     assert c.chips == 1
     mode = harness.mode_module(c.traffic["mode"])
-    assert callable(mode.run)
+    assert callable(mode.run) and mode.SMALL
+    assert callable(program.kind(c.config).build) and callable(ref.kind(c.config).forward)
     assert c.limits["limits"]
     assert {m["name"] for m in c.end_to_end} >= {"setup_s"} and len(c.end_to_end) >= 2
     assert c.per_layer

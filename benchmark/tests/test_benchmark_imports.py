@@ -1,5 +1,7 @@
 """What the benchmark may load: no JAX, no JAX package, no JAX-era bench
-files; the reference nothing of the program."""
+files; the port only in ``program.py``, the modes and the program side of
+the model kinds (``models/``), inside functions; the reference nothing of
+the program."""
 
 from __future__ import annotations
 
@@ -37,6 +39,19 @@ def test_no_file_of_the_benchmark_names_the_jax_era_records():
     for path in _sources():
         src = open(path).read()
         assert "BENCH" + "_" not in src and "MULTICHIP" + "_" not in src, path
+
+
+def test_only_the_program_modes_and_kinds_import_the_port_inside_functions():
+    allowed = ("program.py", "modes" + os.sep, "models" + os.sep, "tests" + os.sep)
+    for path in _sources():
+        rel = os.path.relpath(path, harness.HERE)
+        if any(n.split(".")[0] == "omnifusion_torch" for n in _imports(path)):
+            assert rel.startswith(allowed), rel
+        top = ast.Module(body=ast.parse(open(path).read(), path).body, type_ignores=[])
+        for node in top.body:
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+            assert all(n.split(".")[0] != "omnifusion_torch" for n in names), (rel, names)
 
 
 def test_the_reference_imports_nothing_of_the_program():

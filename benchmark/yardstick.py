@@ -99,9 +99,8 @@ def kernel_bounds(cfg, precision: dict, batch: int, train: bool) -> dict:
     P = cfg["n_patches"]
     trunk, merge = precision["trunk"], precision["merge"]
     counts = table_counts(cfg)
-    passes = cfg["num_iters"]
-    weighted = cfg["model"] == "oneshot"
-    mc = 2 if weighted else 1
+    kind = ref.kind(cfg)
+    passes, mc = kind.passes(cfg), kind.merge_rows(cfg)
     out = {k: 0.0 for k in KERNELS}
     src, quads = counts["e2p"]
     out["quad_blend"] += bound_s(*blend_work(batch * 3, src, quads, SIZE[trunk], P * h * w,
@@ -136,35 +135,17 @@ def flops_per_panorama(cfg, batch: int, train: bool) -> float:
     from torch.utils.flop_counter import FlopCounterMode
 
     meta = torch.device("meta")
+    kind = ref.kind(cfg)
     p = {}
-    for name, shape, kind in ref.param_specs(cfg):
-        dt = torch.long if kind == "bn_n" else torch.float32
+    for name, shape, k in kind.param_specs(cfg):
+        dt = torch.long if k == "bn_n" else torch.float32
         p[name] = torch.empty(shape, device=meta, dtype=dt).requires_grad_(train and dt != torch.long)
-    geom = _MetaGeometry(cfg)
+    geom = ref.Geometry(cfg, meta)
     H, W = cfg["erp_size"]
     rgb = torch.empty(batch, H, W, 3, device=meta)
     counter = FlopCounterMode(display=False)
     with counter:
-        preds = ref.forward(p, cfg, geom, rgb, train=train)
+        preds = kind.forward(p, cfg, geom, rgb, train=train)
         if train:
             sum(d.sum() for d in preds).backward()
     return counter.get_total_flops() / batch
-
-
-class _MetaGeometry:
-    """The reference's geometry as meta tensors of the right shapes."""
-
-    def __init__(self, cfg):
-        meta = torch.device("meta")
-        H, W = cfg["erp_size"]
-        h, w = cfg["patch_size"]
-        P = cfg["n_patches"]
-        k = 4
-        self.e2p = (torch.zeros(P * h * w, 4, dtype=torch.long, device=meta),
-                    torch.empty(P * h * w, 4, device=meta))
-        self.p2e = (torch.zeros(H * W, k, 4, dtype=torch.long, device=meta),
-                    torch.empty(H * W, k, 4, device=meta))
-        self.geo = torch.empty(P, 5, h // 4, w // 4, device=meta)
-        self.e2p_quarter = (torch.zeros(P * (h // 4) * (w // 4), 4, dtype=torch.long, device=meta),
-                            torch.empty(P * (h // 4) * (w // 4), 4, device=meta))
-        self.xyz = torch.empty(P, 3, h // 4, w // 4, device=meta)
