@@ -94,9 +94,13 @@ class SphericalFusionSeg(DepthTrunk):
                 lg = logits.to(mdt).reshape(b, p, nc, h * w).transpose(1, 2).reshape(b, nc, -1)
                 p2e = build_pers2equi_grids(spec)
                 if not confidence:
-                    return pers2equi_cf(lg, p2e).permute(0, 2, 3, 1)
+                    with span("merge_blend"):
+                        return pers2equi_cf(lg, p2e).permute(0, 2, 3, 1)
                 conf = conf.to(mdt).reshape(b, 1, -1)
-                merged = pers2equi_cf(torch.cat([lg * conf, conf], dim=1), p2e)  # (B, C+1, H, W)
+                src = torch.cat([lg * conf, conf], dim=1)
+                with span("merge_blend"):
+                    merged = pers2equi_cf(src, p2e)  # (B, C+1, H, W)
+                del src  # not held through the divide, where the merge's memory peaks
                 num, den = merged[:, :nc], merged[:, nc:]
                 zero = (den <= 1e-8).to(den.dtype)
                 return (num / (den + 1e-8 * zero)).permute(0, 2, 3, 1)

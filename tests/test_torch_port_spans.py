@@ -4,8 +4,10 @@
 - Off, the default: a forward and a train step open no profiler range,
   check no profiler and touch no CUDA API, and ``span`` hands back one
   shared context.
-- Under ``recording()``: the one-shot and iterative forwards and a train
-  step record the layer spans, each with its parent, nested in time.
+- Under ``recording()``: the one-shot, iterative and segmentation
+  forwards and a train step record the layer spans, each with its parent,
+  nested in time (the segmentation merge's blend in ``merge_blend``,
+  inside ``merge``).
 - The set-up counters: a spec's tables counted once as computed or read
   from disk and as uploaded, in two ``tables`` spans that do not nest, a
   second call counting nothing; the kernel library counted as built only
@@ -24,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from omnifusion_torch.models import SphericalFusion, SphericalFusionIterative, init_weights
+from omnifusion_torch.models import (SphericalFusion, SphericalFusionIterative,
+                                     SphericalFusionSeg, init_weights)
 from omnifusion_torch.ops import _build
 from omnifusion_torch.projection import ProjectionSpec
 from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
@@ -52,7 +55,8 @@ def models():
     spec = ProjectionSpec.create(ERP, (PATCH, PATCH), (80.0, 80.0), 4)
     kw = dict(depth=1, encoder_stages=ONE_BLOCK, device="cpu")
     return {"oneshot": init_weights(SphericalFusion(spec, **kw), 0),
-            "iterative": init_weights(SphericalFusionIterative(spec, **kw), 0)}
+            "iterative": init_weights(SphericalFusionIterative(spec, **kw), 0),
+            "seg": init_weights(SphericalFusionSeg(spec, **kw), 0)}
 
 
 def _batch(b: int = 1) -> dict:
@@ -96,6 +100,8 @@ def test_spans_off_by_default_touch_no_profiler_and_no_cuda(models, what, monkey
 EXPECTED = {
     "oneshot": [(s, "model") for s in STAGES] + [("model", None)],
     "iterative": [(s, "model") for s in STAGES + ["points"] + TRUNK] + [("model", None)],
+    "seg": [(s, "model") for s in STAGES[:-1]] + [
+        ("merge_blend", "merge"), ("merge", "model"), ("model", None)],
     "train_step": [(s, "model") for s in STAGES] + [
         ("model", "forward"), ("forward", "train_step"), ("loss", "train_step"),
         ("backward", "train_step"), ("optimizer", "train_step"), ("train_step", None)],
