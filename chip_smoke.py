@@ -84,6 +84,11 @@ bound that f32 sums and bf16 roundings allow between two correct versions
 (verify_kernels.heads_gap), and timed beside its bytes' bound and its plain
 version (cuDNN's convolution and the activations); the models run it once a
 pass in every forward that records no gradients, never in a train step.
+Where autograd records nothing the decoder runs channels-last, so the
+channel-last forms (up2x's NHWC form: the NCHW form's bits; the heads on an
+NHWC map: within heads_gap) are checked and timed at the batch-64 shapes
+beside their NCHW forms, and each model's forward is asserted to launch only
+them (channels_last_phase).
 
 Then it times each kernel beside its bound, its plain version and one
 library call that computes the same function (the up2x adjoint also with
@@ -1600,6 +1605,124 @@ def heads_phase(gpu: str, timer) -> dict:
     return {"bound_ratio": worst, "rows": rows}
 
 
+# the decoder's five resizes of a pass at the batched serving cells' batch
+# (HEADS_BATCH panoramas, 18 patch maps each): channels and input side; the
+# bf16 recipe's first resize reads the f32 sum of layer4 and the tokens
+DECODER_RESIZES = ((512, 4), (128, 8), (64, 16), (64, 32), (32, 64))
+
+
+def channels_last_phase(gpu: str, timer) -> dict:
+    """The channel-last forms of the up2x and heads kernels, the decoder's
+    layout where autograd records nothing, at the HEADS_BATCH shapes (f32
+    and bf16; 2 and 14 outputs): up2x's NHWC form gives its NCHW form's bits
+    and the plain version's within UP2X_TOL / UP2X_BF16_RTOL, the heads on
+    a channels-last map lie within rounding's bound of the plain version
+    (heads_gap), each timed beside its bytes' bound, its NCHW form and the
+    library call on the channels-last map (F.interpolate; cuDNN's
+    convolution and the activations). Then a BATCH forward of each model
+    without autograd (one-shot f32 and bf16, iterative and segmentation
+    bf16) launches only the channel-last forms: the counters
+    up2x.channels_last and fused_heads.channels_last read 5 and 1 a pass,
+    as up2x.launches and fused_heads.launches do."""
+    import torch.nn.functional as F
+
+    from omnifusion_torch.models import (
+        SphericalFusion, SphericalFusionIterative, SphericalFusionSeg, init_weights,
+    )
+    from omnifusion_torch.ops import _build
+    from omnifusion_torch.ops.heads import fused_heads, fused_heads_plain
+    from omnifusion_torch.ops.upsample import up2x, up2x_plain
+    from omnifusion_torch.projection import ProjectionSpec
+    from omnifusion_torch.utils.profiling import bound_ms as bound, nbytes, recording, up2x_bound
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(41)
+    spec = ProjectionSpec.create(ERP, PATCH, (FOV, FOV), NROWS)
+    maps = HEADS_BATCH * spec.n_patches
+    rows = {"up2x": [], "fused_heads": []}
+    for c, side in DECODER_RESIZES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.rand(maps, c, side, side, device=dev, generator=g).to(dtype)
+            x_cl = x.contiguous(memory_format=torch.channels_last)
+            case = f"{maps}x{c}x{side}x{side}_{str(dtype)[6:]}"
+            got = up2x(x_cl)
+            if not _build.channels_last(got):
+                raise AssertionError(f"up2x {case}: the NHWC form returned {got.stride()}")
+            same = torch.equal(got, up2x(x))
+            check("up2x_nhwc", case, got, up2x_plain(x), *(
+                (UP2X_TOL, 0.0) if dtype == torch.float32 else (1e-6, UP2X_BF16_RTOL)),
+                nchw_bits=same)
+            if not same:
+                raise AssertionError(f"up2x {case}: the NHWC form differs from the NCHW form")
+            b_ms, b_by = up2x_bound(x)
+            rows["up2x"].append({
+                "case": case, "layout": "channels_last",
+                "on_path": dtype == (torch.float32 if c == 512 else torch.bfloat16),
+                "ms": timer(lambda: up2x(x_cl)), "nchw_ms": timer(lambda: up2x(x)),
+                "plain_ms": timer(lambda: up2x_plain(x_cl), iters=5),
+                "library_ms": timer(lambda: F.interpolate(
+                    x_cl, scale_factor=2, mode="bilinear", align_corners=False)),
+                "bound_ms": b_ms, "bound_by": b_by})
+            emit({"phase": "time", "kernel": "up2x_nhwc", "gpu": gpu, **rows["up2x"][-1]})
+            del x, x_cl, got
+    worst = 0.0
+    for n_out, dtype in ((2, torch.float32), (2, torch.bfloat16), (14, torch.float32),
+                         (14, torch.bfloat16)):
+        params = heads_params(n_out, g)
+        act = "relu" if n_out == 2 else "none"
+        x = torch.randn(maps, 32, PATCH, PATCH, device=dev, generator=g).to(dtype)
+        x_cl = x.contiguous(memory_format=torch.channels_last)
+        case = f"{n_out}_outputs_{str(dtype)[6:]}_b{HEADS_BATCH}_channels_last"
+        got = fused_heads(x_cl, *params, act)
+        torch.cuda.synchronize()
+        gap = heads_gap(got, fused_heads_plain(x, *params, act), x, *params)
+        emit({"phase": "check", "kernel": "fused_heads", "case": case, "shape": list(x.shape),
+              "dtype": str(dtype), **gap, "bound_ratio_tol": 1.0})
+        if gap["bound_ratio"] > 1 or not all(t.is_contiguous() for t in got):
+            raise AssertionError(f"fused_heads {case}: {gap}")
+        worst = max(worst, gap["bound_ratio"])
+        b_ms, b_by = bound(nbytes(x, *got), 0)
+        rows["fused_heads"].append({
+            "case": case, "shape": list(x.shape), "layout": "channels_last",
+            "on_path": dtype == torch.bfloat16,
+            "ms": timer(lambda: fused_heads(x_cl, *params, act)),
+            "nchw_ms": timer(lambda: fused_heads(x, *params, act)),
+            "library_ms": timer(lambda: fused_heads_plain(x_cl, *params, act), iters=5),
+            "bound_ms": b_ms, "bound_by": b_by})
+        emit({"phase": "time", "kernel": "fused_heads", "gpu": gpu, **rows["fused_heads"][-1]})
+        del x, x_cl, got
+        torch.cuda.empty_cache()
+
+    # a forward without autograd launches only the channel-last forms
+    served = {}
+    rgb = torch.rand(BATCH, *ERP, 3, device=dev, generator=g)
+    for name, cls, kw, passes in (
+            ("oneshot_f32", SphericalFusion, {}, 1),
+            ("oneshot_bf16", SphericalFusion, {"dtype": torch.bfloat16}, 1),
+            ("iterative_bf16", SphericalFusionIterative,
+             {"dtype": torch.bfloat16, "num_iters": ITERS}, ITERS),
+            ("seg_bf16", SphericalFusionSeg,
+             {"dtype": torch.bfloat16, "num_classes": SEG_CLASSES}, 1)):
+        model = init_weights(cls(spec, device=dev, **kw), 0).eval()
+        zero_counts()
+        with torch.inference_mode(), recording() as rec:
+            model(rgb)
+        torch.cuda.synchronize()
+        launched = counts()
+        got = {k: rec.counters.get(k, 0) for k in ("up2x.channels_last",
+                                                   "fused_heads.channels_last")}
+        served[name] = {**got, "up2x": launched["up2x"], "fused_heads": launched["fused_heads"]}
+        want = {"up2x.channels_last": 5 * passes, "fused_heads.channels_last": passes,
+                "up2x": 5 * passes, "fused_heads": passes}
+        emit({"phase": "channels_last_forward", "model": name, "batch": BATCH,
+              "launches": served[name], "expected": want})
+        if served[name] != want:
+            raise AssertionError(f"{name}: {served[name]}, expected {want}")
+        del model
+        torch.cuda.empty_cache()
+    return {"bound_ratio": worst, "rows": rows, "served": served}
+
+
 def multi_device_phases(gpu: str, f64_witness: dict) -> dict:
     """ddp_gloo2, mesh_model and mesh1 (see the comment above DDP_RANKS);
     ``f64_witness``: the float64 steps of the train parity phases, by
@@ -2422,6 +2545,10 @@ def main() -> int:
     # ---- the fused heads at the flagship's patch, and at the batched
     # serving cells' batch ----
     heads = heads_phase(gpu, timer)
+
+    # ---- the channel-last forms of up2x and the heads at the batched
+    # serving cells' shapes, and the forwards that launch them ----
+    channels_last = channels_last_phase(gpu, timer)
 
     # ---- the extras: pano_stretch on the blend and spread kernels, and the
     # DIBR chain against float64 ----
@@ -3607,6 +3734,14 @@ def main() -> int:
         **{k: head_row[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by")},
         "ms_per": f"call on the batch-{HEADS_BATCH} bf16 map, 2 outputs",
         "library": "the plain version: F.conv2d (cuDNN) and the activations",
+    })
+    kernels.append({
+        "name": "channel-last forms", "route": "cuda",
+        "source": "omnifusion_torch/csrc/up2x.cu (NHWC), omnifusion_torch/csrc/heads.cu (kCL)",
+        "replaces": "no Pallas kernel: the layout of the forms above where autograd records "
+                    "nothing",
+        "bound_ratio": channels_last["bound_ratio"], "launches_serve": channels_last["served"],
+        "rows": channels_last["rows"],
     })
     emit({"kernels": kernels})
     print(gpu, flush=True)

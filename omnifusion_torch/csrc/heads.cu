@@ -1,10 +1,11 @@
 // The fused depth and confidence heads: one 3x3 convolution (zero padding 1)
-// from the decoder's 32 channels to NOUT outputs, over a contiguous NCHW map,
-// with the bias, a ReLU on the first NOUT - 1 outputs (or none) and a sigmoid
-// on the last in its epilogue. pred (R, NOUT - 1, H, W) and conf (R, 1, H, W)
-// are stored in the map's dtype: bf16 under the bf16 trunk (the serving
-// recipe), or f32. NOUT is 2 (depth and confidence) or 14 (the 13-class
-// segmentation model's logits and confidence).
+// from the decoder's 32 channels to NOUT outputs, over an NCHW map or a
+// channels-last one (NHWC in memory), with the bias, a ReLU on the first
+// NOUT - 1 outputs (or none) and a sigmoid on the last in its epilogue. pred
+// (R, NOUT - 1, H, W) and conf (R, 1, H, W), contiguous, are stored in the
+// map's dtype: bf16 under the bf16 trunk (the serving recipe), or f32. NOUT
+// is 2 (depth and confidence) or 14 (the 13-class segmentation model's
+// logits and confidence).
 //
 // Replaces no Pallas kernel: the JAX package leaves the heads to XLA's
 // convolution (omnifusion_tpu/models/spherical_fusion.py:174-175). On the
@@ -61,6 +62,36 @@
 // thread from the parameters. TH = 4: 6 staged rows of 130 pixels, 50 KB;
 // warp w makes output row w, two groups at a time. The CUDA cores' kernel
 // took 2.7x as long at NOUT = 14 on an H100 (700 W).
+//
+// Channel-last forms (the map NHWC in memory, as the decoder leaves it where
+// autograd records nothing, so that no transpose runs before the heads): a
+// pixel's 32 channels are 64 (bf16) or 128 (f32) contiguous bytes. Staging
+// a chunk of channels of every pixel, as the NCHW kernels do, reads 16 bytes
+// of each pixel's run at a time, half of each 32-byte sector, and took 1.4x
+// (bf16) and 2.8x (f32) the NCHW kernel's time at NOUT = 2 on an H100 (700
+// W). So the memory-bound forms copy whole rows of the map, which are
+// contiguous, and walk down it: a block makes kMmaBlockRows (or
+// kNhwcBlockRows) rows of 128 columns, a few rows at a time, from a ring of
+// staged rows that cp.async fills a step ahead; each input row is copied
+// once, with 2 halo rows a block.
+// - bf16, NOUT = 2 and 14: fused_heads3x3_mma_kernel<NOUT, true>, its tile
+//   staged as the NCHW form stages it (the map's 16-byte pieces copied as
+//   they are), so the sums and their bits are the NCHW form's. At NOUT = 2
+//   the tensor cores' 8-output tile is 3/4 padding but their instructions
+//   few: on the CUDA cores the bf16 unpacking set the pace (0.83 ms at b64
+//   against 0.61 here). Steps of 1 row (4 warps a row, NOUT = 2) or 2 rows
+//   (NOUT = 14) with one step in flight timed best (kMmaStepRows).
+// - f32, NOUT = 2: fused_heads3x3_nhwc_kernel, on the CUDA cores (the
+//   plain f32 version is not TF32). Lane = strip * 8 + group: 8 lanes share
+//   a strip of kP = 8 pixels, each summing 4 of the 32 channels (one 16-byte
+//   load a pixel) for both outputs of 2 rows, with its 72 weights in
+//   registers; a butterfly of shuffles gives lane ``group`` the strip's
+//   sums at pixel ``group``. Its sums run in another order than the NCHW
+//   kernel's, so they round differently.
+// - f32, NOUT = 14: fused_heads3x3_kernel<float, 14, true>, the NCHW kernel
+//   with its chunks staged from the channel-last map (a pixel's 4 channels
+//   loaded together, stored to their 4 planes): bound by its f32 FMAs, it
+//   keeps the NCHW form's sums and bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,12 +116,39 @@ __device__ __forceinline__ bool inside(int y, int x, int h, int w) {
          static_cast<unsigned>(x) < static_cast<unsigned>(w);
 }
 
+// 16 bytes from global to shared memory, asynchronously; src_bytes = 0 fills
+// the 16 bytes with zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // ---- the sums on the tensor cores (bf16) ----
 
-constexpr int kMmaRows = 4;                 // output rows a block makes
+constexpr int kMmaRows = 4;                 // output rows of a step, a warp each
 constexpr int kMmaCols = kTileW + 2;        // staged pixels of a row
 constexpr int kPixelBytes = 2 * kChannels;  // a staged pixel: 32 bf16 channels
 constexpr size_t kMmaSmem = size_t{kMmaRows + 2} * kMmaCols * kPixelBytes;
+// channel-last: a block walks down kMmaBlockRows rows of the map in steps
+// of kMmaStepRows rows (kMmaRows / kMmaStepRows warps a row), with a ring of
+// staged rows: a step's kMmaStepRows + 2 and the next step's kMmaStepRows in
+// flight. Timed on an H100 (700 W), b64: 1-row steps over 32 rows at 2
+// outputs (0.611 ms; 2-row steps 0.649, a second step in flight 0.662),
+// 2-row steps over 64 rows at 14 (0.885 ms; over 32 rows 0.926)
+template <int NOUT>
+constexpr int kMmaStepRows = NOUT <= 8 ? 1 : 2;
+template <int NOUT>
+constexpr int kMmaBlockRows = NOUT <= 8 ? 32 : 64;
+template <int NOUT>
+constexpr int kMmaRing = 2 * kMmaStepRows<NOUT> + 2;
+template <int NOUT>
+constexpr size_t kMmaRingSmem = size_t{kMmaRing<NOUT>} * kMmaCols * kPixelBytes;
 
 // The byte offset of 16-byte piece ``piece`` (channels 8 piece .. 8 piece +
 // 7) of staged pixel ``px`` of staged row ``row``
@@ -119,7 +177,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int NOUT>
+template <int NOUT, bool kCL>
 __global__ void __launch_bounds__(kThreads)
 fused_heads3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ pred_w,
                           const float* __restrict__ pred_b, const float* __restrict__ conf_w,
@@ -128,6 +186,11 @@ fused_heads3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
                           bool do_relu, bool vec) {
   constexpr int NT = (NOUT + 7) / 8;  // tiles of 8 outputs
   constexpr int kStripes = kTileW / 8;  // 8-pixel stripes of a staged row
+  constexpr int kStepRows = kCL ? kMmaStepRows<NOUT> : kMmaRows;  // output rows of a step
+  constexpr int kSteps = kCL ? kMmaBlockRows<NOUT> / kStepRows : 1;
+  constexpr int kSlots = kCL ? kMmaRing<NOUT> : kMmaRows + 2;      // staged rows held
+  constexpr int kStaged = kStepRows * kSteps + 2;            // staged rows of the block
+  constexpr int kRowWarps = kMmaRows / kStepRows;            // warps a row
   extern __shared__ float4 smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem_raw);
   const uint32_t smem = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -136,7 +199,7 @@ fused_heads3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
   const int64_t blk = blockIdx.x;
   const int64_t r = blk / tiles;
   const int t = static_cast<int>(blk - r * tiles);
-  const int y0 = (t / tiles_x) * kMmaRows;
+  const int y0 = (t / tiles_x) * kStepRows * kSteps;
   const int x0 = (t % tiles_x) * kTileW;
   const unsigned short* xr =
       reinterpret_cast<const unsigned short*>(x) + r * kChannels * h * w;
@@ -173,23 +236,58 @@ fused_heads3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
     }
   };
   static_assert(kThreads == 8 * 16 && kStripes == 16, "two stripes of a row per thread");
+  if constexpr (!kCL) {
 #pragma unroll
-  for (int row = 0; row < kMmaRows + 2; ++row) {
-    stage_task(row, tid >> 4);
-    stage_task(row, (tid >> 4) + 8);
-  }
-  // the halo columns, x0 - 1 and x0 + 128
-  for (int i = tid; i < (kMmaRows + 2) * 2 * 16; i += kThreads) {
-    const int side = (i >> 4) & 1, row = i >> 5;
-    const int y = y0 - 1 + row, xx = side ? x0 + kTileW : x0 - 1;
-    uint32_t word = 0;
-    if (inside(y, xx, h, w)) {
-      word = static_cast<uint32_t>(*at(2 * cp, y, xx)) |
-             (static_cast<uint32_t>(*at(2 * cp + 1, y, xx)) << 16);
+    for (int row = 0; row < kMmaRows + 2; ++row) {
+      stage_task(row, tid >> 4);
+      stage_task(row, (tid >> 4) + 8);
     }
-    *reinterpret_cast<uint32_t*>(sm + staged(row, side ? kMmaCols - 1 : 0, cp >> 2) +
-                                 (cp & 3) * 4) = word;
+    // the halo columns, x0 - 1 and x0 + 128
+    for (int i = tid; i < (kMmaRows + 2) * 2 * 16; i += kThreads) {
+      const int side = (i >> 4) & 1, row = i >> 5;
+      const int y = y0 - 1 + row, xx = side ? x0 + kTileW : x0 - 1;
+      uint32_t word = 0;
+      if (inside(y, xx, h, w)) {
+        word = static_cast<uint32_t>(*at(2 * cp, y, xx)) |
+               (static_cast<uint32_t>(*at(2 * cp + 1, y, xx)) << 16);
+      }
+      *reinterpret_cast<uint32_t*>(sm + staged(row, side ? kMmaCols - 1 : 0, cp >> 2) +
+                                   (cp & 3) * 4) = word;
+    }
   }
+
+  // channel-last map: a pixel's 32 channels are 4 contiguous 16-byte pieces,
+  // staged as they are (piece k holds channels 8 k .. 8 k + 7, the layout the
+  // NCHW staging builds), with cp.async; consecutive threads take consecutive
+  // pieces of a staged row, contiguous in the map. Staged rows i .. i + n - 1
+  // (input rows y0 - 1 + i ..; none past the block's) go to ring slots
+  // i % kSlots, as one group
+  auto issue_rows = [&](int i, int n) {
+    n = min(n, kStaged - i);
+    for (int k = tid; k < n * kMmaCols * 4; k += kThreads) {
+      const int piece = k & 3, px = (k >> 2) % kMmaCols, row = i + (k >> 2) / kMmaCols;
+      const int y = y0 - 1 + row, xx = x0 - 1 + px;
+      const bool in = inside(y, xx, h, w);
+      const unsigned short* src =
+          in ? xr + (static_cast<int64_t>(y) * w + xx) * kChannels + 8 * piece : xr;
+      unsigned char* dst = sm + staged(row % kSlots, px, piece);
+      if (vec) {
+        cp_async16(dst, src, in ? 16 : 0);
+      } else {
+        uint32_t u[4] = {0, 0, 0, 0};
+        if (in) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            u[e] = static_cast<uint32_t>(src[2 * e]) |
+                   (static_cast<uint32_t>(src[2 * e + 1]) << 16);
+          }
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(u[0], u[1], u[2], u[3]);
+      }
+    }
+    cp_async_commit();
+  };
+  if constexpr (kCL) issue_rows(0, kStepRows + 2);
 
   // the B fragments: b[tap][half][tile] = (B[2 q][g], B[2 q + 1][g]) and
   // (B[2 q + 8][g], B[2 q + 9][g]) of k = channel - 16 half, n = 8 tile + g
@@ -216,69 +314,97 @@ fused_heads3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
       }
     }
   }
-  // the lane's outputs 8 nt + 2 q + e: bias, and where its row y0 + warp
-  // goes (null: no output, or a row past the map)
-  const int y = y0 + warp;
+  // the lane's outputs 8 nt + 2 q + e: their bias
   float bias[NT][2];
-  __nv_bfloat16* dst[NT][2];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int n = nt * 8 + 2 * q + e;
       bias[nt][e] = n < NOUT ? bf16_round(n < NOUT - 1 ? pred_b[n] : conf_b[0]) : 0.f;
-      dst[nt][e] = n >= NOUT || y >= h ? nullptr
-                   : (n == NOUT - 1 ? conf + r * h * w : pred + (r * (NOUT - 1) + n) * h * w) +
-                         static_cast<int64_t>(y) * w + x0;
     }
   }
-  __syncthreads();
 
-  // warp w makes output row w of the tile, two 16-pixel groups at a time.
-  // The lane's ldmatrix row is pixel m of a group and channel piece
-  // 2 half + lane / 16; a group's pixels start at a multiple of 16, so the
-  // swizzle of pixel gx + m + dx is that of m + dx
-  static_assert(kThreads / 32 == kMmaRows, "a warp per output row");
+  // warp w makes columns [kTileW / kRowWarps) of output row w / kRowWarps of
+  // a step, two 16-pixel groups at a time. The lane's ldmatrix row is pixel
+  // m of a group and channel piece 2 half + lane / 16; a group's pixels
+  // start at a multiple of 16, so the swizzle of pixel gx + m + dx is that of
+  // m + dx
+  static_assert(kThreads / 32 == kMmaRows, "4 warps");
+  const int wrow = warp / kRowWarps, gx0 = (warp % kRowWarps) * (kTileW / kRowWarps);
   const int m = (lane & 7) + ((lane >> 3) & 1) * 8;
   uint32_t off[3][2];
 #pragma unroll
   for (int dx = 0; dx < 3; ++dx) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) off[dx][half] = smem + staged(warp, m + dx, 2 * half + (lane >> 4));
+    for (int half = 0; half < 2; ++half) {
+      off[dx][half] = smem + staged(0, m + dx, 2 * half + (lane >> 4));
+    }
   }
 #pragma unroll 1
-  for (int gx = 0; gx < kTileW; gx += 32) {
-    float acc[2][NT][4];
+  for (int step = 0; step < kSteps; ++step) {
+    if constexpr (kCL) {
+      // the step's staged rows have landed; the barrier also frees the
+      // slots of the step before's first kStepRows rows, for the next step's
+      cp_async_wait<0>();
+      __syncthreads();
+      issue_rows(kStepRows * (step + 1) + 2, kStepRows);
+    } else {
+      __syncthreads();
+    }
+    // where the lane's outputs of row y go (null: no output, or a row past
+    // the map)
+    const int y = y0 + kStepRows * step + wrow;
+    __nv_bfloat16* dst[NT][2];
 #pragma unroll
-    for (int k = 0; k < 2 * NT * 4; ++k) (&acc[0][0][0])[k] = 0.f;
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
+      for (int e = 0; e < 2; ++e) {
+        const int n = nt * 8 + 2 * q + e;
+        dst[nt][e] = n >= NOUT || y >= h ? nullptr
+                     : (n == NOUT - 1 ? conf + r * h * w : pred + (r * (NOUT - 1) + n) * h * w) +
+                           static_cast<int64_t>(y) * w + x0;
+      }
+    }
+    uint32_t row_at[3];  // the staged rows y - 1 .. y + 1
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
+    for (int dy = 0; dy < 3; ++dy) {
+      row_at[dy] = ((kStepRows * step + wrow + dy) % kSlots) * kMmaCols * kPixelBytes;
+    }
+#pragma unroll 1
+    for (int gx = gx0; gx < gx0 + kTileW / kRowWarps; gx += 32) {
+      float acc[2][NT][4];
 #pragma unroll
-        for (int gi = 0; gi < 2; ++gi) {
-          uint32_t a[4];
-          ldmatrix_x4(off[dx][half] + (dy * kMmaCols + gx + 16 * gi) * kPixelBytes, a);
+      for (int k = 0; k < 2 * NT * 4; ++k) (&acc[0][0][0])[k] = 0.f;
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            mma_bf16(acc[gi][nt], a, b[tap][half][nt][0], b[tap][half][nt][1]);
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+#pragma unroll
+          for (int gi = 0; gi < 2; ++gi) {
+            uint32_t a[4];
+            ldmatrix_x4(off[dx][half] + row_at[dy] + (gx + 16 * gi) * kPixelBytes, a);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              mma_bf16(acc[gi][nt], a, b[tap][half][nt][0], b[tap][half][nt][1]);
+            }
           }
         }
       }
-    }
-    // acc[gi][nt] = D[g][2 q], D[g][2 q + 1], D[g + 8][2 q], D[g + 8][2 q + 1]
+      // acc[gi][nt] = D[g][2 q], D[g][2 q + 1], D[g + 8][2 q], D[g + 8][2 q + 1]
 #pragma unroll
-    for (int gi = 0; gi < 2; ++gi) {
+      for (int gi = 0; gi < 2; ++gi) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
+        for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int n = nt * 8 + 2 * q + (e & 1), xl = gx + 16 * gi + g + (e >> 1) * 8;
-          if (dst[nt][e & 1] == nullptr || x0 + xl >= w) continue;
-          const float s = acc[gi][nt][e] + bias[nt][e & 1];
-          const float v = n == NOUT - 1 ? sigmoid(s) : (do_relu ? relu(s) : s);
-          dst[nt][e & 1][xl] = __float2bfloat16_rn(v);
+          for (int e = 0; e < 4; ++e) {
+            const int n = nt * 8 + 2 * q + (e & 1), xl = gx + 16 * gi + g + (e >> 1) * 8;
+            if (dst[nt][e & 1] == nullptr || x0 + xl >= w) continue;
+            const float s = acc[gi][nt][e] + bias[nt][e & 1];
+            const float v = n == NOUT - 1 ? sigmoid(s) : (do_relu ? relu(s) : s);
+            dst[nt][e & 1][xl] = __float2bfloat16_rn(v);
+          }
         }
       }
     }
@@ -348,6 +474,17 @@ __device__ __forceinline__ void unpack2(uint32_t u, float* v) {
   v[0] = __uint_as_float(u << 16);
   v[1] = __uint_as_float(u & 0xffff0000u);
 }
+// kChunk channels of a channel-last pixel at p (aligned to their size)
+__device__ __forceinline__ void load_chunk(const float* p, float (&v)[kChunk]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float (&v)[kChunk]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  unpack2(q.x, v);
+  unpack2(q.y, v + 2);
+}
+
 template <int N>
 __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
   static_assert(N == 8, "8 bf16 values");
@@ -372,20 +509,7 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
                                             pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
 }
 
-// 16 bytes from global to shared memory, asynchronously; src_bytes = 0 fills
-// the 16 bytes with zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <typename T, int NOUT>
+template <typename T, int NOUT, bool kCL>
 __global__ void __launch_bounds__(kThreads)
 fused_heads3x3_kernel(const T* __restrict__ x, const float* __restrict__ pred_w,
                       const float* __restrict__ pred_b, const float* __restrict__ conf_w,
@@ -416,7 +540,28 @@ fused_heads3x3_kernel(const T* __restrict__ x, const float* __restrict__ pred_w,
   // buffer ``buf``, zero outside the map
   auto issue = [&](int chunk, T* buf) {
     const int c0 = chunk * kChunk;
-    if (vec) {
+    if constexpr (kCL) {
+      // from a channel-last map: the chunk's kChunk channels of a pixel are
+      // contiguous, loaded together and stored to their kChunk planes
+      for (int i = tid; i < (TH + 2) * (kTileW + 2); i += kThreads) {
+        const int row = i / (kTileW + 2), col = i - row * (kTileW + 2);
+        const int y = y0 - 1 + row, xx = x0 - 1 + col;
+        float v[kChunk] = {};
+        if (inside(y, xx, h, w)) {
+          const T* src = xr + (static_cast<int64_t>(y) * w + xx) * kChannels + c0;
+          if (vec) {
+            load_chunk(src, v);
+          } else {
+#pragma unroll
+            for (int c = 0; c < kChunk; ++c) v[c] = to_f32(src[c]);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          buf[(c * (TH + 2) + row) * kStride + kOffT - 1 + col] = from_f32<T>(v[c]);
+        }
+      }
+    } else if (vec) {
       for (int i = tid; i < kRows * kVecPerRow; i += kThreads) {
         const int row = i / kVecPerRow, piece = i - row * kVecPerRow;
         const int c = c0 + row / (TH + 2), y = y0 - 1 + row % (TH + 2);
@@ -530,6 +675,8 @@ fused_heads3x3_kernel(const T* __restrict__ x, const float* __restrict__ pred_w,
 
   const int xo = x0 + xl;
   if (xo >= w) return;
+  // rows of whole 16-byte pieces: vector stores (an NCHW map's vec says so)
+  const bool vec_out = kCL ? w % kOffT == 0 : vec;
   float bias[OPT];
 #pragma unroll
   for (int o = 0; o < OPT; ++o) {
@@ -551,7 +698,7 @@ fused_heads3x3_kernel(const T* __restrict__ x, const float* __restrict__ pred_w,
       }
       T* dst = (oo == NOUT - 1 ? conf + r * h * w : pred + (r * (NOUT - 1) + oo) * h * w) +
                static_cast<int64_t>(y) * w + xo;
-      if (vec && xo + P <= w) {
+      if (vec_out && xo + P <= w) {
         store_vec<P>(dst, out);
       } else {
 #pragma unroll
@@ -563,22 +710,191 @@ fused_heads3x3_kernel(const T* __restrict__ x, const float* __restrict__ pred_w,
   }
 }
 
+// ---- the sums on the CUDA cores, from a channel-last f32 map, 2 outputs ----
+
+constexpr int kNhwcBlockRows = 32;  // output rows a block makes, two at a time
+constexpr int kNhwcRing = 6;        // staged input rows: 4 read by a step, 2 in flight
+constexpr int kLaneChannels = 4;    // channels a lane sums: 8 lanes share a strip
+constexpr int kNhwcRowBytes = (kTileW + 2) * kChannels * 4;  // a staged row of f32 pixels
+constexpr size_t kNhwcSmem = size_t{kNhwcRing} * kNhwcRowBytes;
+
+// In a strip's 8 lanes, ``v`` (8 pixels of one output, the lane's share of
+// the channels) -> the strip's sum at pixel ``lane & 7``: three butterfly
+// steps, each keeping half of the pixels and adding the partner lane's share
+__device__ __forceinline__ float strip_sum(const float (&v)[kP], int lane) {
+  float a[4], b[2];
+  const bool hi4 = lane & 4, hi2 = lane & 2, hi1 = lane & 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float keep = hi4 ? v[i + 4] : v[i], give = hi4 ? v[i] : v[i + 4];
+    a[i] = keep + __shfl_xor_sync(0xffffffffu, give, 4);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float keep = hi2 ? a[i + 2] : a[i], give = hi2 ? a[i] : a[i + 2];
+    b[i] = keep + __shfl_xor_sync(0xffffffffu, give, 2);
+  }
+  const float keep = hi1 ? b[1] : b[0], give = hi1 ? b[0] : b[1];
+  return keep + __shfl_xor_sync(0xffffffffu, give, 1);
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_heads3x3_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ pred_w,
+                           const float* __restrict__ pred_b, const float* __restrict__ conf_w,
+                           const float* __restrict__ conf_b, float* __restrict__ pred,
+                           float* __restrict__ conf, int h, int w, int tiles_x, int tiles,
+                           bool do_relu, bool vec) {
+  constexpr int P = kP, kE = 4;                 // channels in a 16-byte piece
+  constexpr int kPieces = kChannels / kE;       // 16-byte pieces a pixel
+  constexpr int kStaged = kNhwcBlockRows + 2;   // input rows the block reads
+  constexpr int kCopies = ((kTileW + 2) * kPieces + kThreads - 1) / kThreads;  // a thread's, a row
+  extern __shared__ float4 smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem_raw);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t blk = blockIdx.x;
+  const int64_t r = blk / tiles;
+  const int t = static_cast<int>(blk - r * tiles);
+  const int y_first = (t / tiles_x) * kNhwcBlockRows;
+  const int x0 = (t % tiles_x) * kTileW;
+  const float* xr = x + r * kChannels * h * w;
+
+  // the thread's copies of a staged row: pieces tid, tid + kThreads, ... of
+  // its kTileW + 2 pixels from x0 - 1; their offsets in a staged row, and in
+  // a map row (-1: outside the map, or past the row's pieces)
+  int dst_off[kCopies], src_off[kCopies];
+#pragma unroll
+  for (int m = 0; m < kCopies; ++m) {
+    const int k = tid + m * kThreads, px = k / kPieces, piece = k % kPieces, xx = x0 - 1 + px;
+    dst_off[m] = 16 * k;
+    src_off[m] = k < (kTileW + 2) * kPieces && xx >= 0 && xx < w ? xx * kChannels + piece * kE
+                                                                   : -1;
+  }
+  // staged row i (input row y_first - 1 + i) into ring slot i % kNhwcRing,
+  // zero outside the map; consecutive threads copy consecutive 16-byte
+  // pieces, contiguous in the map. Every call commits a group, empty past
+  // the block's rows
+  auto issue = [&](int i) {
+    const int y = y_first - 1 + i;
+    if (i < kStaged) {
+      const bool row_in = y >= 0 && y < h;
+      const float* src_row = xr + static_cast<int64_t>(row_in ? y : 0) * w * kChannels;
+      unsigned char* dst_row = ring + (i % kNhwcRing) * kNhwcRowBytes;
+#pragma unroll
+      for (int m = 0; m < kCopies; ++m) {
+        if (m < kCopies - 1 || tid + m * kThreads < (kTileW + 2) * kPieces) {
+          const bool in = row_in && src_off[m] >= 0;
+          const float* src = in ? src_row + src_off[m] : x;
+          if (vec) {
+            cp_async16(dst_row + dst_off[m], src, in ? 16 : 0);
+          } else {
+            float* d = reinterpret_cast<float*>(dst_row + dst_off[m]);
+#pragma unroll
+            for (int e = 0; e < kE; ++e) d[e] = in ? src[e] : 0.f;
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kNhwcRing - 2; ++i) issue(i);
+
+  // lane = strip * 8 + group: the warp's 32 columns are 4 strips of kP
+  // pixels; the lane sums channels 4 group .. 4 group + 3 of its strip, with
+  // their weights in registers
+  const int group = lane & 7, xl = warp * 32 + (lane >> 3) * P;
+  float wt[kLaneChannels][3][3][2];
+#pragma unroll
+  for (int c = 0; c < kLaneChannels; ++c) {
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int k = (group * kLaneChannels + c) * 9 + tap;
+      wt[c][tap / 3][tap % 3][0] = pred_w[k];
+      wt[c][tap / 3][tap % 3][1] = conf_w[k];
+    }
+  }
+  const float bias[2] = {pred_b[0], conf_b[0]};
+  const int xo = x0 + xl + group;
+
+#pragma unroll 1
+  for (int j = 0; j < kNhwcBlockRows; j += 2) {
+    // staged rows j .. j + 3 have landed; the barrier also frees the slots
+    // of rows j - 2 and j - 1, read by the step before, for rows j + 4 and
+    // j + 5
+    static_assert(kNhwcRing == 6, "4 rows read, 2 in flight");
+    cp_async_wait<0>();
+    __syncthreads();
+    issue(j + 4);
+    issue(j + 5);
+    float acc[2][2][P];  // [output row][output][pixel]
+#pragma unroll
+    for (int k = 0; k < 2 * 2 * P; ++k) (&acc[0][0][0])[k] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // staged row j + i: input row y - 1 + i
+      const unsigned char* row = ring + ((j + i) % kNhwcRing) * kNhwcRowBytes;
+      float v[P + 2][kLaneChannels];
+#pragma unroll
+      for (int p = 0; p < P + 2; ++p) {
+        const float4 q =
+            *reinterpret_cast<const float4*>(row + (xl + p) * kChannels * 4 + 16 * group);
+        v[p][0] = q.x, v[p][1] = q.y, v[p][2] = q.z, v[p][3] = q.w;
+      }
+#pragma unroll
+      for (int c = 0; c < kLaneChannels; ++c) {
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const int oy = i - dy;  // the output row this filter row reaches
+          if (oy < 0 || oy > 1) continue;
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+#pragma unroll
+            for (int o = 0; o < 2; ++o) {
+#pragma unroll
+              for (int p = 0; p < P; ++p) {
+                acc[oy][o][p] = fmaf(v[p + dx][c], wt[c][dy][dx][o], acc[oy][o][p]);
+              }
+            }
+          }
+        }
+      }
+    }
+    // the strip's 8 lanes hold 8 shares of each sum: lane ``group`` gets
+    // pixel ``group``'s, and stores both outputs there
+#pragma unroll
+    for (int oy = 0; oy < 2; ++oy) {
+      const int y = y_first + j + oy;
+      const float s0 = strip_sum(acc[oy][0], lane) + bias[0];
+      const float s1 = strip_sum(acc[oy][1], lane) + bias[1];
+      if (y < h && xo < w) {
+        const int64_t at = r * h * w + static_cast<int64_t>(y) * w + xo;
+        pred[at] = do_relu ? relu(s0) : s0;
+        conf[at] = sigmoid(s1);
+      }
+    }
+  }
+}
+
 // One launch of ``kernel`` over rows x (tiles of th rows x kTileW columns)
-// blocks with ``smem`` bytes of dynamic shared memory
+// blocks with ``smem`` bytes of dynamic shared memory, on an NCHW map or
+// (channels_last) an NHWC one
 template <typename T, typename Kernel>
 int launch(Kernel kernel, int th, size_t smem, const void* x, const float* pred_w,
            const float* pred_b, const float* conf_w, const float* conf_b, void* pred, void* conf,
-           int64_t rows, int64_t h, int64_t w, bool do_relu, cudaStream_t stream) {
+           int64_t rows, int64_t h, int64_t w, bool do_relu, bool channels_last,
+           cudaStream_t stream) {
   if (rows == 0 || h == 0 || w == 0) return static_cast<int>(cudaGetLastError());
   const int64_t tiles_x = (w + kTileW - 1) / kTileW;
   const int64_t tiles = (h + th - 1) / th * tiles_x;
   if (h >= (int64_t{1} << 30) || w >= (int64_t{1} << 30) || rows * tiles >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // rows of whole 16-byte pieces from a 16-byte aligned map: vector loads
-  // and stores; otherwise element by element
-  const bool vec = (w * static_cast<int64_t>(sizeof(T))) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  // from a 16-byte aligned map, rows of whole 16-byte pieces (NCHW) or any
+  // NHWC map (a pixel is 32 channels): vector loads, and in NCHW vector
+  // stores; otherwise element by element
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec =
+      aligned && (channels_last || (w * static_cast<int64_t>(sizeof(T))) % 16 == 0);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -589,50 +905,70 @@ int launch(Kernel kernel, int th, size_t smem, const void* x, const float* pred_
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NOUT>
-int launch_dtype(const void* x, int dtype, const float* pred_w, const float* pred_b,
-                 const float* conf_w, const float* conf_b, void* pred, void* conf, int64_t rows,
-                 int64_t h, int64_t w, bool do_relu, cudaStream_t stream) {
+template <int NOUT, bool kCL>
+int launch_layout(const void* x, int dtype, const float* pred_w, const float* pred_b,
+                  const float* conf_w, const float* conf_b, void* pred, void* conf, int64_t rows,
+                  int64_t h, int64_t w, bool do_relu, cudaStream_t stream) {
   switch (dtype) {
-    case 0:
-      return launch<float>(fused_heads3x3_kernel<float, NOUT>, Tile<NOUT>::TH,
-                           kSmem<float, NOUT>, x, pred_w, pred_b, conf_w, conf_b, pred, conf,
-                           rows, h, w, do_relu, stream);
-    case 2:  // bf16: 2 outputs on the CUDA cores, more on the tensor cores
-      if constexpr (NOUT <= 2) {
-        return launch<__nv_bfloat16>(fused_heads3x3_kernel<__nv_bfloat16, NOUT>, Tile<NOUT>::TH,
-                                     kSmem<__nv_bfloat16, NOUT>, x, pred_w, pred_b, conf_w,
-                                     conf_b, pred, conf, rows, h, w, do_relu, stream);
+    case 0:  // f32: on the CUDA cores
+      if constexpr (kCL && NOUT <= 2) {
+        return launch<float>(fused_heads3x3_nhwc_kernel, kNhwcBlockRows, kNhwcSmem, x, pred_w,
+                             pred_b, conf_w, conf_b, pred, conf, rows, h, w, do_relu, kCL, stream);
       } else {
-        return launch<__nv_bfloat16>(fused_heads3x3_mma_kernel<NOUT>, kMmaRows, kMmaSmem, x,
-                                     pred_w, pred_b, conf_w, conf_b, pred, conf, rows, h, w,
-                                     do_relu, stream);
+        return launch<float>(fused_heads3x3_kernel<float, NOUT, kCL>, Tile<NOUT>::TH,
+                             kSmem<float, NOUT>, x, pred_w, pred_b, conf_w, conf_b, pred, conf,
+                             rows, h, w, do_relu, kCL, stream);
+      }
+    case 2:  // bf16: a channel-last map on the tensor cores; NCHW, 2 outputs on the CUDA cores
+      if constexpr (kCL) {
+        return launch<__nv_bfloat16>(fused_heads3x3_mma_kernel<NOUT, true>, kMmaBlockRows<NOUT>,
+                                     kMmaRingSmem<NOUT>, x, pred_w, pred_b, conf_w, conf_b, pred,
+                                     conf, rows, h, w, do_relu, kCL, stream);
+      } else if constexpr (NOUT <= 2) {
+        return launch<__nv_bfloat16>(fused_heads3x3_kernel<__nv_bfloat16, NOUT, false>,
+                                     Tile<NOUT>::TH, kSmem<__nv_bfloat16, NOUT>, x, pred_w, pred_b,
+                                     conf_w, conf_b, pred, conf, rows, h, w, do_relu, kCL, stream);
+      } else {
+        return launch<__nv_bfloat16>(fused_heads3x3_mma_kernel<NOUT, false>, kMmaRows, kMmaSmem,
+                                     x, pred_w, pred_b, conf_w, conf_b, pred, conf, rows, h, w,
+                                     do_relu, kCL, stream);
       }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <int NOUT>
+int launch_dtype(const void* x, int dtype, const float* pred_w, const float* pred_b,
+                 const float* conf_w, const float* conf_b, void* pred, void* conf, int64_t rows,
+                 int64_t h, int64_t w, bool do_relu, bool channels_last, cudaStream_t stream) {
+  return channels_last
+             ? launch_layout<NOUT, true>(x, dtype, pred_w, pred_b, conf_w, conf_b, pred, conf,
+                                         rows, h, w, do_relu, stream)
+             : launch_layout<NOUT, false>(x, dtype, pred_w, pred_b, conf_w, conf_b, pred, conf,
+                                          rows, h, w, do_relu, stream);
+}
+
 }  // namespace
 
-// x: (rows, 32, h, w) contiguous, dtype 0 (f32) or 2 (bf16); pred_w
-// (nout - 1, 32, 3, 3), pred_b (nout - 1), conf_w (1, 32, 3, 3), conf_b (1):
-// contiguous f32; pred (rows, nout - 1, h, w) and conf (rows, 1, h, w):
-// contiguous, x's dtype. nout: 2 or 14. Returns the cudaError_t of the launch
-// (0 on success).
+// x: (rows, 32, h, w), contiguous (channels_last 0) or channels-last, NHWC in
+// memory (channels_last 1), dtype 0 (f32) or 2 (bf16); pred_w (nout - 1, 32,
+// 3, 3), pred_b (nout - 1), conf_w (1, 32, 3, 3), conf_b (1): contiguous f32;
+// pred (rows, nout - 1, h, w) and conf (rows, 1, h, w): contiguous, x's
+// dtype. nout: 2 or 14. Returns the cudaError_t of the launch (0 on success).
 extern "C" int omnifusion_fused_heads(const void* x, int dtype, const float* pred_w,
                                       const float* pred_b, const float* conf_w,
                                       const float* conf_b, void* pred, void* conf, int nout,
                                       int64_t rows, int64_t h, int64_t w, int do_relu,
-                                      void* stream) {
+                                      int channels_last, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   switch (nout) {
     case 2:
       return launch_dtype<2>(x, dtype, pred_w, pred_b, conf_w, conf_b, pred, conf, rows, h, w,
-                             do_relu != 0, s);
+                             do_relu != 0, channels_last != 0, s);
     case 14:
       return launch_dtype<14>(x, dtype, pred_w, pred_b, conf_w, conf_b, pred, conf, rows, h, w,
-                              do_relu != 0, s);
+                              do_relu != 0, channels_last != 0, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

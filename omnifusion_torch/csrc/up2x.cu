@@ -43,6 +43,20 @@
 // kernel gives its bits. The TPU kernel's row blocks, halo inputs and VMEM
 // budget have no counterpart here.
 //
+// Forward, NHWC form (x (N, H, W, C) -> y (N, 2H, 2W, C), the channels-last
+// maps of a decoder that runs where autograd records nothing): a channel is
+// no longer a plane of its own, so a thread owns one 16-byte vector of
+// channels (4 in f32, 8 in 16-bit) of one input pixel and makes the 2x2
+// output pixels around it, from the vectors of its 3x3 clamped
+// neighbourhood: 9 loads for 4 stores, each 16 bytes. Threads run channel
+// vector first, then pixel, so a warp reads and writes whole pixels' runs
+// of channels, contiguous in memory. Where C is not a whole number of
+// vectors or a tensor is not 16-byte aligned, a thread owns one channel and
+// loads and stores element by element. The stencil, its order (along W,
+// then along H) and its rounding are the NCHW form's, so both give the
+// plain version's bits. The thread index splits into (pixel, vector) and
+// the pixel into (map, row, column) with FastDiv; offsets are 64-bit.
+//
 // Adjoint design: one thread per output (four runtime divisions and 16
 // scalar loads each) is bound by its instructions, not its bytes: bf16
 // cotangents, half the bytes, take as long as f32 ones. So a thread makes a
@@ -365,6 +379,100 @@ int launch_adjoint(const void* g, void* gx, int64_t planes, int64_t h, int64_t w
   return static_cast<int>(cudaGetLastError());
 }
 
+// V values of channel-last vector p as f32, and back: one 16-byte load or
+// store (V * sizeof(T) == 16, p 16-byte aligned), or one element (V == 1)
+template <int V, typename T>
+__device__ __forceinline__ void load_channels(const T* p, float* v) {
+  if constexpr (V == 1) {
+    v[0] = to_f32(*p);
+  } else {
+    load_vec<V>(p, v);
+  }
+}
+template <int V, typename T>
+__device__ __forceinline__ void store_channels(T* p, const float* v) {
+  if constexpr (V == 1) {
+    *p = from_f32<T>(v[0]);
+  } else {
+    store_vec<V>(p, v);
+  }
+}
+
+// One thread per vector of V channels of one input pixel, channel vector
+// first: x (maps, h, w, c) -> y (maps, 2h, 2w, c); vecs = c / V vectors a
+// pixel, maps * h * w * vecs threads in all.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+up2x_kernel_nhwc(const T* __restrict__ x, T* __restrict__ y, uint32_t n_threads, FastDiv vecs,
+                 FastDiv cols, FastDiv rows, uint32_t c) {
+  const uint32_t g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= n_threads) return;
+  const uint32_t px = divide(g, vecs);  // input pixel over all maps
+  const uint32_t ch = (g - px * vecs.d) * V;
+  const uint32_t r = divide(px, cols);  // input row over all maps
+  const uint32_t ix = px - r * cols.d;
+  const uint32_t iy = r - divide(r, rows) * rows.d;
+  const uint32_t h = rows.d, w = cols.d;
+  const int64_t top_row = static_cast<int64_t>(r) - iy;  // the map's first input row
+  const uint32_t ys[3] = {iy > 0 ? iy - 1 : 0, iy, iy + 1 < h ? iy + 1 : h - 1};
+  const uint32_t xs[3] = {ix > 0 ? ix - 1 : 0, ix, ix + 1 < w ? ix + 1 : w - 1};
+  // along W: output columns 2 ix and 2 ix + 1 of each of the three input rows
+  float hz[3][2][V];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float a[3][V];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      load_channels<V>(x + ((top_row + ys[k]) * w + xs[j]) * c + ch, a[j]);
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      hz[k][0][e] = lo_tap(a[0][e], a[1][e]);
+      hz[k][1][e] = hi_tap(a[1][e], a[2][e]);
+    }
+  }
+  // along H: output rows 2 iy and 2 iy + 1; output row 2 r is row 2 iy of
+  // the map's 2h
+  T* o = y + (2 * static_cast<int64_t>(r) * (2 * w) + 2 * ix) * c + ch;
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    float top[V], bot[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      top[e] = lo_tap(hz[0][b][e], hz[1][b][e]);
+      bot[e] = hi_tap(hz[1][b][e], hz[2][b][e]);
+    }
+    store_channels<V>(o + b * c, top);
+    store_channels<V>(o + (2 * w + b) * static_cast<int64_t>(c), bot);
+  }
+}
+
+// The host checks the sizes: the thread count fits 31 bits.
+template <typename T>
+int launch_nhwc(const void* x, void* y, int64_t maps, int64_t h, int64_t w, int64_t c,
+                cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec = c % kVec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const int64_t vecs = vec ? c / kVec : c;
+  const int64_t n_threads = maps * h * w * vecs;
+  if (n_threads >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((n_threads + kThreads - 1) / kThreads);
+  const T* src = static_cast<const T*>(x);
+  T* dst = static_cast<T*>(y);
+  const FastDiv v = fast_div(static_cast<uint32_t>(vecs));
+  const FastDiv cols = fast_div(static_cast<uint32_t>(w));
+  const FastDiv rows = fast_div(static_cast<uint32_t>(h));
+  if (vec) {
+    up2x_kernel_nhwc<T, kVec><<<blocks, kThreads, 0, stream>>>(
+        src, dst, static_cast<uint32_t>(n_threads), v, cols, rows, static_cast<uint32_t>(c));
+  } else {
+    up2x_kernel_nhwc<T, 1><<<blocks, kThreads, 0, stream>>>(
+        src, dst, static_cast<uint32_t>(n_threads), v, cols, rows, static_cast<uint32_t>(c));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x: contiguous (planes, h, w); y: contiguous (planes, 2h, 2w), same dtype,
@@ -382,6 +490,28 @@ extern "C" int omnifusion_up2x(const void* x, void* y, int dtype, int64_t planes
       return launch<__half>(x, y, planes, h, w, s);
     case 2:
       return launch<__nv_bfloat16>(x, y, planes, h, w, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// x: channels-last (maps, h, w, c); y: channels-last (maps, 2h, 2w, c), same
+// dtype; maps * h * w * ceil(c / vector) < 2^31 (the vector is 16 bytes of
+// channels, or one channel where c is not a whole number of them or a
+// tensor is not 16-byte aligned).
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int omnifusion_up2x_nhwc(const void* x, void* y, int dtype, int64_t maps, int64_t h,
+                                    int64_t w, int64_t c, void* stream) {
+  if (maps * h * w * c == 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_nhwc<float>(x, y, maps, h, w, c, s);
+    case 1:
+      return launch_nhwc<__half>(x, y, maps, h, w, c, s);
+    case 2:
+      return launch_nhwc<__nv_bfloat16>(x, y, maps, h, w, c, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -14,6 +14,14 @@ The port's counterpart of ``omnifusion_tpu/models/layers.py``:
 - ``resize_bilinear`` sends an exact 2x upsample to the up2x kernel
   (ops/upsample.py) and any other size to ``F.interpolate``, as the JAX
   function sends it to ``jax.image.resize``.
+
+The tensors are NCHW in shape; in memory the encoder runs channels-last (the
+e2p patches are a permuted view). On the card, where autograd records
+nothing, the decoder keeps that layout through ``resize_bilinear`` to the
+heads, so that cuDNN's bf16 convolutions, which are NHWC, need no transpose
+and ``cat`` copies one layout. Elsewhere the decoder runs contiguous NCHW
+from the first resize on: in training, the layout ``up2x``'s adjoint reads,
+and on the CPU, whose plain versions the tests hold to the JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from omnifusion_torch.ops import _build
 from omnifusion_torch.ops.upsample import up2x
 
 
@@ -87,8 +96,13 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     """F.interpolate(mode='bilinear', align_corners=False) of NCHW ``x`` to
     ``size`` = (H', W'); an exact 2x upsample goes to the up2x kernel, in
-    ``x``'s dtype (f32, or bf16 under a bf16 trunk)."""
+    ``x``'s dtype (f32, or bf16 under a bf16 trunk): a channels-last ``x``
+    on the card stays channels-last where autograd records nothing (the
+    kernel's NHWC form); otherwise it goes contiguous. A one-pixel map is
+    contiguous, so a decoder from a 1x1 layer4 (patch 32) runs NCHW."""
     h, w = x.shape[-2:]
     if tuple(size) == (2 * h, 2 * w):
-        return up2x(x.contiguous())
+        keep = (not torch.is_grad_enabled() and _build.channels_last(x)
+                and _build.on_cuda(x, "resize_bilinear"))
+        return up2x(x if keep else x.contiguous())
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False)

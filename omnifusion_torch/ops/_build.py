@@ -61,11 +61,12 @@ _SIGNATURES = {
     ),
     "omnifusion_up2x": (_P, _P, _I, _L, _L, _L, _P),
     "omnifusion_up2x_adjoint": (_P, _P, _I, _L, _L, _L, _P),
+    "omnifusion_up2x_nhwc": (_P, _P, _I, _L, _L, _L, _L, _P),  # x, y, dtype, n, h, w, c, stream
     "omnifusion_probe": (_P, _P, _L, _P),  # x, out, n, stream
     "omnifusion_fused_heads": (
         _P, _I, _P, _P, _P, _P,  # x, dtype, pred weight, bias, conf weight, bias
         _P, _P, _I, _L, _L, _L, _I,  # pred, conf, outputs, rows, h, w, relu
-        _P,  # stream
+        _I, _P,  # channels last, stream
     ),
 }
 
@@ -143,6 +144,14 @@ def on_cuda(x: torch.Tensor, what: str) -> bool:
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"{what} runs on cuda or cpu tensors, got {x.device}")
     return x.device.type == "cuda"
+
+
+def channels_last(x: torch.Tensor) -> bool:
+    """True where ``x`` is a 4-d tensor with channels-last strides and not
+    contiguous ones: the input of the kernels' channel-last forms. A map
+    that is both (one pixel, or one channel) counts as contiguous."""
+    return (x.dim() == 4 and not x.is_contiguous()
+            and x.is_contiguous(memory_format=torch.channels_last))
 
 
 def check(err: int, what: str) -> None:

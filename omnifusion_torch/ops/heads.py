@@ -11,9 +11,12 @@ the bytes' bound, so the serving path has a kernel of its own.
 - ``fused_heads``: on a CUDA tensor it launches
   ``omnifusion_torch/csrc/heads.cu`` and adds one to
   ``fused_heads.launches`` and to the counter ``fused_heads.launches``
-  (``utils/profiling.count``); on a CPU tensor it runs ``fused_heads_plain``;
-  on any other device it raises. It records nothing for autograd: the
-  models call it only where autograd records nothing.
+  (``utils/profiling.count``): its channel-last form on a channels-last map
+  (``_build.channels_last``, the decoder's map where autograd records
+  nothing), which also adds one to the counter ``fused_heads.channels_last``,
+  and its NCHW form on a contiguous one. On a CPU tensor it runs
+  ``fused_heads_plain``; on any other device it raises. It records nothing
+  for autograd: the models call it only where autograd records nothing.
 - ``fused_heads_plain``: the heads as the models compute them where
   gradients are recorded (``F.conv2d`` with both heads' parameters cast to
   the map's dtype, then the activations).
@@ -36,7 +39,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def fused_heads_plain(x, pred_weight, pred_bias, conf_weight, conf_bias,
                       activation: str = "relu"):
-    """(pred, conf) of the NCHW map ``x``: the 3x3 convolution (zero
+    """(pred, conf) of the map ``x`` (R, 32, H, W): the 3x3 convolution (zero
     padding 1) with both heads' parameters cast to ``x``'s dtype,
     ``activation`` ("relu" or "none") on pred, a sigmoid on conf."""
     y = F.conv2d(
@@ -57,9 +60,10 @@ def _heads_kernel(x, pred_weight, pred_bias, conf_weight, conf_bias, activation:
         raise ValueError(f"fused_heads: {n_out} outputs; the kernel is built for {OUTPUTS}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_heads: unsupported dtype {x.dtype}")
-    if x.dim() != 4 or x.shape[1] != CHANNELS or not x.is_contiguous():
-        raise ValueError(f"fused_heads: need a contiguous (R, {CHANNELS}, H, W) map, got "
-                         f"{tuple(x.shape)} with strides {x.stride()}")
+    channels_last = _build.channels_last(x)
+    if x.dim() != 4 or x.shape[1] != CHANNELS or not (x.is_contiguous() or channels_last):
+        raise ValueError(f"fused_heads: need a contiguous or channels-last (R, {CHANNELS}, H, W) "
+                         f"map, got {tuple(x.shape)} with strides {x.stride()}")
     for p, shape in ((pred_weight, (n_out - 1, CHANNELS, 3, 3)), (pred_bias, (n_out - 1,)),
                      (conf_weight, (1, CHANNELS, 3, 3)), (conf_bias, (1,))):
         if (p.dtype != torch.float32 or tuple(p.shape) != shape or not p.is_contiguous()
@@ -75,11 +79,13 @@ def _heads_kernel(x, pred_weight, pred_bias, conf_weight, conf_bias, activation:
         x.data_ptr(), _build.DTYPE_CODES[x.dtype],
         pred_weight.data_ptr(), pred_bias.data_ptr(), conf_weight.data_ptr(), conf_bias.data_ptr(),
         pred.data_ptr(), conf.data_ptr(), n_out, r, h, w, int(activation == "relu"),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        int(channels_last), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "fused_heads")
     fused_heads.launches += 1
     count("fused_heads.launches")
+    if channels_last:
+        count("fused_heads.channels_last")
     return pred, conf
 
 
@@ -87,8 +93,9 @@ def fused_heads(x, pred_weight, pred_bias, conf_weight, conf_bias, activation: s
     """(pred (R, k, H, W), conf (R, 1, H, W)) in ``x``'s dtype of the NCHW
     map ``x`` (R, 32, H, W) and the heads' f32 parameters: pred_weight (k,
     32, 3, 3), pred_bias (k,), conf_weight (1, 32, 3, 3), conf_bias (1,).
-    On the card ``x`` is contiguous, f32 or bf16, k + 1 is in ``OUTPUTS``,
-    and both outputs are contiguous."""
+    On the card ``x`` is contiguous or channels-last, f32 or bf16, k + 1 is
+    in ``OUTPUTS``, and both outputs are contiguous whatever ``x``'s
+    layout."""
     if _build.on_cuda(x, "fused_heads"):
         return _heads_kernel(x, pred_weight, pred_bias, conf_weight, conf_bias, activation)
     return fused_heads_plain(x, pred_weight, pred_bias, conf_weight, conf_bias, activation)

@@ -11,8 +11,9 @@ stencil with edge clamps::
     out[2i]   = 0.25 * in[i-1] + 0.75 * in[i]
     out[2i+1] = 0.75 * in[i]   + 0.25 * in[i+1]
 
-applied along W, then along H, on contiguous NCHW tensors. Per axis, its
-adjoint on a side of n inputs is::
+applied along W, then along H, on contiguous NCHW tensors or on
+channels-last ones (NHWC in memory, the decoder's maps where autograd
+records nothing). Per axis, its adjoint on a side of n inputs is::
 
     gx[i] = 0.75 * (g[2i] + g[2i+1]) + 0.25 * (g[2i-1] + g[2i+2])
 
@@ -23,13 +24,17 @@ gx[0] = g[0] + g[1]).
 - ``up2x``: the differentiable wrapper, an ``autograd.Function`` whose
   backward is ``up2x_adjoint``. Its forward launches the CUDA kernel
   (``omnifusion_torch/csrc/up2x.cu``) on a CUDA tensor and adds one to
-  ``up2x.launches``; on a CPU tensor it runs ``up2x_plain``; on any other
-  device it raises.
+  ``up2x.launches``: its NHWC form on a channels-last input
+  (``_build.channels_last``), which also adds one to the counter
+  ``up2x.channels_last`` (``utils/profiling.count``), and its NCHW form on
+  a contiguous one. On a CPU tensor it runs ``up2x_plain``; on any other
+  device it raises. The result has the input's layout.
 - ``up2x_adjoint``: the adjoint. On a CUDA tensor it launches its kernel
   (same source) and adds one to ``up2x_adjoint.launches``; on a CPU tensor
   it runs ``up2x_adjoint_plain``.
 - ``up2x_plain``, ``up2x_adjoint_plain``: the same stencils in plain
-  PyTorch, which autograd never differentiates.
+  PyTorch, which autograd never differentiates; ``up2x_plain`` returns the
+  input's layout too.
 
 Bound on the card, both directions: bytes (input + output over 3.35 TB/s).
 """
@@ -40,6 +45,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from omnifusion_torch.ops import _build
+from omnifusion_torch.utils.profiling import count
 
 # csrc/up2x.cu's adjoint block per thread: kAdjRows x kAdjCols outputs
 ADJOINT_BLOCK = (1, 4)
@@ -72,9 +78,9 @@ def _acc(x: torch.Tensor) -> torch.Tensor:
 
 def up2x_plain(x: torch.Tensor) -> torch.Tensor:
     """(N, C, H, W) -> (N, C, 2H, 2W) in plain PyTorch, computed in f32
-    (f64 for an f64 input)."""
-    y = _up2x_axis(_up2x_axis(_acc(x), 3), 2)
-    return y.to(x.dtype)
+    (f64 for an f64 input), channels-last where ``x`` is."""
+    y = _up2x_axis(_up2x_axis(_acc(x), 3), 2).to(x.dtype)
+    return y.contiguous(memory_format=torch.channels_last) if _build.channels_last(x) else y
 
 
 def up2x_adjoint_plain(g: torch.Tensor) -> torch.Tensor:
@@ -84,19 +90,37 @@ def up2x_adjoint_plain(g: torch.Tensor) -> torch.Tensor:
     return x.to(g.dtype)
 
 
-def _check_cuda(x: torch.Tensor, what: str) -> None:
+def _check_cuda(x: torch.Tensor, what: str, channels_last: bool = False) -> None:
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{what}: unsupported dtype {x.dtype}")
-    if x.dim() != 4 or not x.is_contiguous():
+    if x.dim() != 4 or not (x.is_contiguous() or channels_last and _build.channels_last(x)):
+        layouts = "contiguous or channels-last" if channels_last else "contiguous"
         raise ValueError(
-            f"{what}: need a contiguous NCHW tensor, got {tuple(x.shape)} "
+            f"{what}: need a {layouts} NCHW tensor, got {tuple(x.shape)} "
             f"with strides {x.stride()}"
         )
 
 
-def _up2x_kernel(x: torch.Tensor) -> torch.Tensor:
-    """Launch the forward of csrc/up2x.cu."""
-    _check_cuda(x, "up2x")
+def _up2x_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """The NHWC form of csrc/up2x.cu's forward, on a channels-last ``x``."""
+    n, c, h, w = x.shape
+    # the kernel's thread index is 32-bit (a thread a vector of channels, at
+    # least one channel)
+    if n * h * w * c >= 2**31:
+        raise ValueError(f"up2x: {tuple(x.shape)} is past the kernel's 32-bit thread index")
+    y = torch.empty(n, c, 2 * h, 2 * w, dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    err = _build.library().omnifusion_up2x_nhwc(
+        x.data_ptr(), y.data_ptr(), _build.DTYPE_CODES[x.dtype], n, h, w, c,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "up2x")
+    count("up2x.channels_last")
+    return y
+
+
+def _up2x_nchw(x: torch.Tensor) -> torch.Tensor:
+    """The NCHW form of csrc/up2x.cu's forward, on a contiguous ``x``."""
     n, c, h, w = x.shape
     # the kernel's in-plane offsets and thread index are 32-bit
     if 4 * h * w >= 2**31 or n * c * h * -(-w // 2) >= 2**31:
@@ -112,6 +136,14 @@ def _up2x_kernel(x: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "up2x")
+    return y
+
+
+def _up2x_kernel(x: torch.Tensor) -> torch.Tensor:
+    """Launch the forward of csrc/up2x.cu: the NHWC form on a channels-last
+    ``x``, the NCHW form on a contiguous one."""
+    _check_cuda(x, "up2x", channels_last=True)
+    y = _up2x_nhwc(x) if _build.channels_last(x) else _up2x_nchw(x)
     up2x.launches += 1
     return y
 
@@ -163,7 +195,8 @@ class _Up2x(torch.autograd.Function):
 
 
 def up2x(x: torch.Tensor) -> torch.Tensor:
-    """(N, C, H, W) contiguous -> (N, C, 2H, 2W), same dtype; differentiable."""
+    """(N, C, H, W) contiguous or channels-last -> (N, C, 2H, 2W), same
+    dtype and layout; differentiable."""
     return _Up2x.apply(x)
 
 

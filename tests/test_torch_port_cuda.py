@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from omnifusion_torch.ops import _build
 from omnifusion_torch.ops import quad_blend as qb
 from omnifusion_torch.ops.quad_blend import (
     HEAVY_THRESHOLD,
@@ -356,6 +357,38 @@ def test_up2x_kernel_matches_plain_past_32_bit_indices(cuda):
         torch.testing.assert_close(got[i : i + 512].float(), want, rtol=2**-7, atol=1e-6)
 
 
+# the decoder's five resizes (channels 512 in f32, then 128, 64, 64, 32),
+# channels no 16-byte vector divides (element by element), one pixel
+UP2X_NHWC_SHAPES = [(2, 512, 4, 4), (2, 128, 8, 8), (3, 64, 16, 16), (2, 32, 64, 64),
+                    (1, 3, 7, 5), (5, 12, 7, 33), (2, 6, 1, 9), (2, 40, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape", UP2X_NHWC_SHAPES)
+def test_up2x_kernel_nhwc_gives_the_nchw_bits(cuda, shape, dtype):
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(4)).to(cuda, dtype)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    before = up2x.launches
+    got = up2x(x_cl)
+    torch.cuda.synchronize()
+    assert up2x.launches == before + 1
+    # a one-pixel map is either layout: the NCHW form takes it
+    assert _build.channels_last(got) == (shape[2] * shape[3] > 1)
+    assert torch.equal(got, up2x(x))
+    torch.testing.assert_close(got.float(), up2x_plain(x).float(), rtol=2**-7, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_up2x_kernel_nhwc_on_an_unaligned_map(cuda, dtype):
+    # a channels-last map one element past a 16-byte boundary goes element
+    # by element: the same arithmetic, so the same bits
+    x = torch.rand(3, 16, 10, 64, generator=torch.Generator().manual_seed(5)).to(cuda, dtype)
+    shifted = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)[1:].view(3, 10, 64, 16)
+    shifted = shifted.permute(0, 3, 1, 2).copy_(x)
+    assert _build.channels_last(shifted) and shifted.data_ptr() % 16 != 0
+    assert torch.equal(up2x(shifted), up2x(x))
+
+
 @pytest.mark.parametrize("shape", [(256, 128), (7,), (3, 1000, 5)])
 def test_probe_kernel_equals_plain(cuda, shape):
     x = torch.randn(shape, generator=torch.Generator().manual_seed(8)).to(cuda) * 1e3
@@ -368,7 +401,7 @@ def test_probe_kernel_equals_plain(cuda, shape):
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
-        up2x(torch.rand(2, 4, 4, 3, device=cuda).permute(0, 3, 1, 2))
+        up2x(torch.rand(2, 3, 4, 8, device=cuda)[..., ::2])
     with pytest.raises(TypeError, match="dtype"):
         up2x(torch.zeros(1, 1, 2, 2, dtype=torch.float64, device=cuda))
     tables = pers2equi_tables(SPEC, cuda)
@@ -424,6 +457,44 @@ def test_fused_heads_kernel_on_an_unaligned_map(cuda, dtype):
     x = torch.randn(6, 32, 24, 128, device=cuda, generator=g).to(dtype)
     shifted = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)[1:].view(x.shape).copy_(x)
     assert shifted.data_ptr() % 16 != 0
+    for a, b in zip(fused_heads(x, *params), fused_heads(shifted, *params)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", HEADS_SHAPES)
+@pytest.mark.parametrize("n_out", [2, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_heads_kernel_channels_last_matches_plain(cuda, dtype, n_out, shape):
+    r, h, w = shape
+    g = torch.Generator(device=cuda).manual_seed(24)
+    params = heads_params(n_out, g)
+    x = torch.randn(r, 32, h, w, device=cuda, generator=g).to(dtype)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    act = "relu" if n_out == 2 else "none"
+    with full_f32():
+        before = fused_heads.launches
+        got = fused_heads(x_cl, *params, act)
+        torch.cuda.synchronize()
+        assert fused_heads.launches == before + 1
+        assert got[0].shape == (r, n_out - 1, h, w) and got[1].shape == (r, 1, h, w)
+        assert all(t.dtype == dtype and t.is_contiguous() for t in got)
+        gap = heads_gap(got, fused_heads_plain(x, *params, act), x, *params)
+        if dtype == torch.bfloat16 and n_out == 14:
+            # the tensor cores' tile is the same whatever the map's layout
+            assert all(torch.equal(a, b) for a, b in zip(got, fused_heads(x, *params, act)))
+    assert gap["bound_ratio"] <= 1, gap
+
+
+@pytest.mark.parametrize("n_out", [2, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_heads_kernel_on_an_unaligned_channels_last_map(cuda, dtype, n_out):
+    g = torch.Generator(device=cuda).manual_seed(25)
+    params = heads_params(n_out, g)
+    x = torch.randn(6, 32, 24, 130, device=cuda, generator=g).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    shifted = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)[1:].view(6, 24, 130, 32)
+    shifted = shifted.permute(0, 3, 1, 2).copy_(x)
+    assert _build.channels_last(shifted) and shifted.data_ptr() % 16 != 0
     for a, b in zip(fused_heads(x, *params), fused_heads(shifted, *params)):
         assert torch.equal(a, b)
 

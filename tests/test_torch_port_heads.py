@@ -9,7 +9,15 @@ one-block encoders and a one-layer transformer.
   records nothing, once a pass, and only for an output count the kernel is
   built for; a train step never calls it.
 - The kernel's wrapper refuses what the kernel does not take (checked with
-  ``_build.on_cuda`` patched, before any launch).
+  ``_build.on_cuda`` patched, before any launch), and launches the form of
+  the map's layout (against a library that records its calls).
+- Channels-last maps: the plain path gives the NCHW values within
+  rounding's bound. On the card's dispatch (``_build.on_cuda`` patched, the
+  kernels' arithmetic by their plain versions) the models' decoder runs
+  channels-last from the first resize to the heads where autograd records
+  nothing (at patch 64: layer4 is 2x2; a 1x1 layer4 is either layout and
+  stays NCHW), with the NCHW path's outputs; where it records, in a train
+  step, and on the CPU's own dispatch it runs contiguous NCHW, as before.
 - ``tools/verify_kernels.py: heads_gap``, the bound the card's checks hold
   the kernel to, admits the kernel's arithmetic (operands as the map's
   dtype rounds them, an f32 sum with its bias, one rounding at the end)
@@ -18,6 +26,8 @@ one-block encoders and a one-layer transformer.
 The kernel itself is held to the plain version on the card
 (``tests/test_torch_port_cuda.py``, ``chip_smoke.py``).
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -31,8 +41,9 @@ from omnifusion_torch.models import (
 from omnifusion_torch.ops import _build
 from omnifusion_torch.ops import heads as hd
 from omnifusion_torch.projection import ProjectionSpec
-from omnifusion_torch.tools.verify_kernels import heads_gap
+from omnifusion_torch.tools.verify_kernels import heads_gap, plain_versions
 from omnifusion_torch.training import create_train_state, train_step
+from omnifusion_torch.utils.profiling import recording
 
 ERP, PATCH = (64, 128), 32
 ONE_BLOCK = ((64, 1, 1), (128, 1, 2), (256, 1, 2), (512, 1, 2))
@@ -82,13 +93,13 @@ def test_plain_path_is_the_conv_formulation(dtype, n_out, activation):
         assert (pred < 0).any()
 
 
-def _model(kind: str):
+def _model(kind: str, spec: ProjectionSpec = SPEC):
     kw = dict(depth=1, encoder_stages=ONE_BLOCK, device="cpu")
     if kind == "iterative":
-        return init_weights(SphericalFusionIterative(SPEC, **kw), 0)
+        return init_weights(SphericalFusionIterative(spec, **kw), 0)
     if kind.startswith("seg"):
-        return init_weights(SphericalFusionSeg(SPEC, num_classes=int(kind[3:]), **kw), 0)
-    return init_weights(SphericalFusion(SPEC, dtype=torch.bfloat16 if kind == "bf16" else None,
+        return init_weights(SphericalFusionSeg(spec, num_classes=int(kind[3:]), **kw), 0)
+    return init_weights(SphericalFusion(spec, dtype=torch.bfloat16 if kind == "bf16" else None,
                                         **kw), 0)
 
 
@@ -178,7 +189,7 @@ REFUSALS = [
     ("outputs", ValueError, dict(n_out=15)),
     ("dtype", TypeError, dict(dtype=torch.float16)),
     ("dtype", TypeError, dict(dtype=torch.float64)),
-    ("contiguous", ValueError, dict(shape=(2, 8, 8, 32), view=lambda t: t.permute(0, 3, 1, 2))),
+    ("contiguous", ValueError, dict(shape=(2, 32, 8, 16), view=lambda t: t[..., ::2])),
     ("contiguous", ValueError, dict(shape=(2, 16, 8, 8))),
     ("parameters", ValueError, dict(param=(0, lambda p: p.double()))),
     ("parameters", ValueError, dict(param=(2, lambda p: p[:, :16]))),
@@ -221,3 +232,126 @@ def test_heads_gap_bounds_the_kernel_arithmetic(dtype, n_out, activation):
     assert heads_gap(ours, plain, x, *params)["bound_ratio"] <= 1
     no_bias = _kernel_arithmetic(x, *params, activation, bias=False)
     assert heads_gap(no_bias, plain, x, *params)["bound_ratio"] > 1
+
+
+@pytest.mark.parametrize("shape", [(3, 32, 9, 11), (4, 32, 12, 20)], ids=["9x11", "12x20"])
+@pytest.mark.parametrize("n_out,activation", [(2, "relu"), (14, "none")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_path_on_channels_last_maps_gives_the_nchw_values(dtype, n_out, activation, shape):
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(6)).to(dtype)
+    params = _params(n_out, seed=7)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    got, want = hd.fused_heads(x_cl, *params, activation), hd.fused_heads(x, *params, activation)
+    assert [t.shape for t in got] == [t.shape for t in want]
+    assert got[0].dtype == got[1].dtype == dtype
+    assert heads_gap(got, want, x, *params)["bound_ratio"] <= 1
+
+
+class _FakeLibrary:
+    """The kernel library's heads entry, recording each call's layout."""
+
+    def __init__(self):
+        self.calls = []
+
+    def omnifusion_fused_heads(self, x, dtype, pw, pb, cw, cb, pred, conf, n_out, rows, h, w,
+                               relu, channels_last, stream):
+        self.calls.append((n_out, rows, h, w, channels_last))
+        return 0
+
+
+@pytest.mark.parametrize("n_out", [2, 14])
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+def test_kernel_wrapper_launches_the_form_of_the_map_layout(monkeypatch, layout, n_out):
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_build, "on_cuda", lambda x, what: True)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    x = torch.zeros(2, 32, 6, 10, dtype=torch.bfloat16)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    before = hd.fused_heads.launches
+    with recording() as rec:
+        pred, conf = hd.fused_heads(x, *_params(n_out))
+    cl = layout == "channels_last"
+    assert lib.calls == [(n_out, 2, 6, 10, int(cl))] and hd.fused_heads.launches == before + 1
+    assert rec.counters["fused_heads.launches"] == 1
+    assert rec.counters.get("fused_heads.channels_last", 0) == cl
+    # the outputs are contiguous NCHW whatever the map's layout: the merge reads them so
+    assert pred.shape == (2, n_out - 1, 6, 10) and conf.shape == (2, 1, 6, 10)
+    assert pred.is_contiguous() and conf.is_contiguous()
+
+
+SPEC64 = ProjectionSpec.create(ERP, (64, 64), (80.0, 80.0), 4)
+
+
+def _layout(t: torch.Tensor) -> str:
+    if _build.channels_last(t):
+        return "channels_last"
+    return "contiguous" if t.is_contiguous() else "other"
+
+
+def _watched(kind: str, monkeypatch, where: str):
+    """The model of ``kind`` at patch 64, and the list its decoder's
+    convolutions (input and output) and the heads wrapper (input) append
+    their layouts to. ``where`` "card": the card's dispatch
+    (``_build.on_cuda`` patched), each kernel's arithmetic by its plain
+    version (``verify_kernels.plain_versions``, entered by the caller)."""
+    model = _model(kind, SPEC64).eval()
+    seen = []
+    for name, m in model.named_children():
+        if name.startswith("de_conv"):
+            m.register_forward_hook(
+                lambda mod, args, out, name=name: seen.append((name, _layout(args[0]), _layout(out))))
+
+    def spy(x, *args):
+        seen.append(("heads", _layout(x), None))
+        return hd.fused_heads(x, *args)
+
+    monkeypatch.setattr(sf, "fused_heads", spy)
+    if where == "card":
+        monkeypatch.setattr(_build, "on_cuda", lambda x, what: True)
+    return model, seen
+
+
+@pytest.mark.parametrize("where", ["cpu", "card"])
+@pytest.mark.parametrize("kind", ["oneshot", "bf16", "iterative", "seg13"])
+def test_decoder_runs_channels_last_only_on_the_card_without_autograd(monkeypatch, kind, where):
+    model, seen = _watched(kind, monkeypatch, where)
+    passes = 2 if kind == "iterative" else 1
+    with plain_versions():
+        with torch.inference_mode():
+            out = model(_rgb())
+        layouts = {(a, b) for _, a, b in seen}
+        assert len(seen) == passes * 10  # 9 convolutions and the heads a pass
+        if where == "card":
+            assert layouts <= {("channels_last", "channels_last"), ("channels_last", None)}
+        else:  # the CPU's forward as before: NCHW from the first resize on
+            assert layouts <= {("contiguous", "contiguous"), ("contiguous", None)}
+        seen.clear()
+        ref = model(_rgb())  # autograd records: the decoder as before, NCHW
+    assert len(seen) == passes * 9 and {(a, b) for _, a, b in seen} == {("contiguous", "contiguous")}
+    outs = out if isinstance(out, list) else [out]
+    refs = ref if isinstance(ref, list) else [ref]
+    for o, r in zip(outs, refs):
+        r = r.detach()
+        if kind == "bf16" or where == "cpu":
+            assert torch.equal(o, r)
+        else:  # f32: the CPU's channels-last convolutions sum in another order
+            gap = float((o - r).norm() / r.norm())
+            assert gap < 1e-5, gap
+
+
+@pytest.mark.parametrize("where", ["cpu", "card"])
+@pytest.mark.parametrize("kind", ["oneshot", "iterative"])
+def test_train_step_decoder_stays_nchw(monkeypatch, kind, where):
+    model, seen = _watched(kind, monkeypatch, where)
+    rng = np.random.default_rng(8)
+    batch = {"rgb": _rgb(2),
+             "depth": torch.from_numpy(rng.random((2, *ERP, 1), dtype=np.float32) * 7 + 0.3),
+             "mask": torch.ones(2, *ERP, 1)}
+    with plain_versions():
+        out = train_step(create_train_state(model), batch, kind == "oneshot")
+    assert np.isfinite(float(out["loss"]))
+    passes = 2 if kind == "iterative" else 1
+    assert len(seen) == passes * 9 and {(a, b) for _, a, b in seen} == {("contiguous", "contiguous")}
