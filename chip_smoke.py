@@ -79,16 +79,16 @@ patch 128, fov 80, nrows 4, seeded random weights):
 The up2x adjoint is held to its plain version bit for bit (f32 and bf16,
 every decoder stage at batch 8, odd sides, an unaligned view, and past 2^31
 cotangents at batch 256). The fused heads kernel (2 and 14 outputs, f32 and
-bf16, at batch 2 and at the batched cells' batch 64) is held within the
+bf16, at batch 2 and at the batched cells' batch 64, on channels-last maps,
+and on a contiguous map through the wrapper's copy) is held within the
 bound that f32 sums and bf16 roundings allow between two correct versions
 (verify_kernels.heads_gap), and timed beside its bytes' bound and its plain
-version (cuDNN's convolution and the activations); the models run it once a
-pass in every forward that records no gradients, never in a train step.
-Where autograd records nothing the decoder runs channels-last, so the
-channel-last forms (up2x's NHWC form: the NCHW form's bits; the heads on an
-NHWC map: within heads_gap) are checked and timed at the batch-64 shapes
-beside their NCHW forms, and each model's forward is asserted to launch only
-them (channels_last_phase).
+version (cuDNN's convolution and the activations) on the same map
+(heads_phase); the models run it once a pass in every forward that records
+no gradients, never in a train step. Where autograd records nothing the
+decoder runs channels-last, so up2x's NHWC form (the NCHW form's bits) is
+checked and timed at the batch-64 shapes beside its NCHW form, and each
+model's forward is asserted to launch only it (channels_last_phase).
 
 Then it times each kernel beside its bound, its plain version and one
 library call that computes the same function (the up2x adjoint also with
@@ -1566,10 +1566,14 @@ HEADS_BATCH = 64  # the batched serving cells' batch: 1152 maps of 32 x 128 x 12
 def heads_phase(gpu: str, timer) -> dict:
     """The fused heads kernel (omnifusion_torch/ops/heads.py) at the
     flagship's patch, 2 and 14 outputs (depth; the segmentation model), f32
-    and bf16, at BATCH and at HEADS_BATCH: each call within rounding's bound
-    of its plain version (heads_gap, at most 1), then timed beside its
-    bytes' bound and the plain version (cuDNN's convolution and the
-    activations). Returns the worst bound ratio and the time rows."""
+    and bf16, at BATCH and at HEADS_BATCH, on channels-last maps (the
+    decoder's layout where autograd records nothing), and on one contiguous
+    map, which the wrapper copies to channels-last: each call within
+    rounding's bound of its plain version (heads_gap, at most 1), its outputs
+    contiguous, the contiguous map's equal to its channels-last copy's; then
+    each timed beside its bytes' bound and the library call on the same map
+    (cuDNN's convolution and the activations). Returns the worst bound ratio
+    and the time rows."""
     from omnifusion_torch.ops.heads import fused_heads, fused_heads_plain
     from omnifusion_torch.projection import ProjectionSpec
     from omnifusion_torch.utils.profiling import bound_ms as bound, nbytes
@@ -1577,30 +1581,36 @@ def heads_phase(gpu: str, timer) -> dict:
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(31)
     n_patches = ProjectionSpec.create(ERP, PATCH, (FOV, FOV), NROWS).n_patches
+    cases = [(b, n_out, dtype, "channels_last") for b in (BATCH, HEADS_BATCH) for n_out in (2, 14)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases.append((BATCH, 2, torch.bfloat16, "contiguous"))
     worst, rows = 0.0, []
-    for b, n_out, dtype in ((BATCH, 2, torch.float32), (BATCH, 2, torch.bfloat16),
-                            (BATCH, 14, torch.float32), (BATCH, 14, torch.bfloat16),
-                            (HEADS_BATCH, 2, torch.bfloat16), (HEADS_BATCH, 14, torch.bfloat16)):
+    for b, n_out, dtype, layout in cases:
         params = heads_params(n_out, g)
         act = "relu" if n_out == 2 else "none"
         x = torch.randn(b * n_patches, 32, PATCH, PATCH, device=dev, generator=g).to(dtype)
-        case = f"{n_out}_outputs_{str(dtype)[6:]}_b{b}"
-        got = fused_heads(x, *params, act)
+        x_cl = x.contiguous(memory_format=torch.channels_last)
+        x_in = x_cl if layout == "channels_last" else x
+        case = f"{n_out}_outputs_{str(dtype)[6:]}_b{b}_{layout}"
+        got = fused_heads(x_in, *params, act)
         torch.cuda.synchronize()
         gap = heads_gap(got, fused_heads_plain(x, *params, act), x, *params)
+        same = x_in is x_cl or all(torch.equal(a, c) for a, c in zip(got, fused_heads(
+            x_cl, *params, act)))
         emit({"phase": "check", "kernel": "fused_heads", "case": case, "shape": list(x.shape),
-              "dtype": str(dtype), **gap, "bound_ratio_tol": 1.0})
-        if gap["bound_ratio"] > 1:
-            raise AssertionError(f"fused_heads {case}: {gap}")
+              "dtype": str(dtype), **gap, "bound_ratio_tol": 1.0, "channels_last_bits": same})
+        if gap["bound_ratio"] > 1 or not same or not all(t.is_contiguous() for t in got):
+            raise AssertionError(f"fused_heads {case}: {gap}, channels-last bits {same}")
         worst = max(worst, gap["bound_ratio"])
         b_ms, b_by = bound(nbytes(x, *got), 0)
-        rows.append({"case": case, "shape": list(x.shape),
-                     "on_path": (b, n_out, dtype) == (HEADS_BATCH, 2, torch.bfloat16),
-                     "ms": timer(lambda: fused_heads(x, *params, act)),
-                     "plain_ms": timer(lambda: fused_heads_plain(x, *params, act), iters=5),
+        rows.append({"case": case, "shape": list(x.shape), "layout": layout,
+                     "on_path": (b, dtype, layout) == (HEADS_BATCH, torch.bfloat16,
+                                                       "channels_last"),
+                     "ms": timer(lambda: fused_heads(x_in, *params, act)),
+                     "library_ms": timer(lambda: fused_heads_plain(x_in, *params, act), iters=5),
                      "bound_ms": b_ms, "bound_by": b_by})
         emit({"phase": "time", "kernel": "fused_heads", "gpu": gpu, **rows[-1]})
-        del x, got
+        del x, x_cl, x_in, got
         torch.cuda.empty_cache()
     return {"bound_ratio": worst, "rows": rows}
 
@@ -1612,34 +1622,30 @@ DECODER_RESIZES = ((512, 4), (128, 8), (64, 16), (64, 32), (32, 64))
 
 
 def channels_last_phase(gpu: str, timer) -> dict:
-    """The channel-last forms of the up2x and heads kernels, the decoder's
-    layout where autograd records nothing, at the HEADS_BATCH shapes (f32
-    and bf16; 2 and 14 outputs): up2x's NHWC form gives its NCHW form's bits
-    and the plain version's within UP2X_TOL / UP2X_BF16_RTOL, the heads on
-    a channels-last map lie within rounding's bound of the plain version
-    (heads_gap), each timed beside its bytes' bound, its NCHW form and the
-    library call on the channels-last map (F.interpolate; cuDNN's
-    convolution and the activations). Then a BATCH forward of each model
-    without autograd (one-shot f32 and bf16, iterative and segmentation
-    bf16) launches only the channel-last forms: the counters
-    up2x.channels_last and fused_heads.channels_last read 5 and 1 a pass,
-    as up2x.launches and fused_heads.launches do."""
+    """The NHWC form of the up2x kernel, the decoder's layout where
+    autograd records nothing, at the HEADS_BATCH shapes (f32 and bf16): it
+    gives its NCHW form's bits and the plain version's within UP2X_TOL /
+    UP2X_BF16_RTOL, and is timed beside its bytes' bound, its NCHW form and
+    the library call on the channels-last map (F.interpolate). Then a BATCH
+    forward of each model without autograd (one-shot f32 and bf16,
+    iterative and segmentation bf16) launches only the NHWC form, and the
+    heads once a pass: the counter up2x.channels_last reads 5 a pass, as
+    up2x.launches does, and fused_heads.launches 1."""
     import torch.nn.functional as F
 
     from omnifusion_torch.models import (
         SphericalFusion, SphericalFusionIterative, SphericalFusionSeg, init_weights,
     )
     from omnifusion_torch.ops import _build
-    from omnifusion_torch.ops.heads import fused_heads, fused_heads_plain
     from omnifusion_torch.ops.upsample import up2x, up2x_plain
     from omnifusion_torch.projection import ProjectionSpec
-    from omnifusion_torch.utils.profiling import bound_ms as bound, nbytes, recording, up2x_bound
+    from omnifusion_torch.utils.profiling import recording, up2x_bound
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(41)
     spec = ProjectionSpec.create(ERP, PATCH, (FOV, FOV), NROWS)
     maps = HEADS_BATCH * spec.n_patches
-    rows = {"up2x": [], "fused_heads": []}
+    rows = []
     for c, side in DECODER_RESIZES:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.rand(maps, c, side, side, device=dev, generator=g).to(dtype)
@@ -1655,7 +1661,7 @@ def channels_last_phase(gpu: str, timer) -> dict:
             if not same:
                 raise AssertionError(f"up2x {case}: the NHWC form differs from the NCHW form")
             b_ms, b_by = up2x_bound(x)
-            rows["up2x"].append({
+            rows.append({
                 "case": case, "layout": "channels_last",
                 "on_path": dtype == (torch.float32 if c == 512 else torch.bfloat16),
                 "ms": timer(lambda: up2x(x_cl)), "nchw_ms": timer(lambda: up2x(x)),
@@ -1663,37 +1669,10 @@ def channels_last_phase(gpu: str, timer) -> dict:
                 "library_ms": timer(lambda: F.interpolate(
                     x_cl, scale_factor=2, mode="bilinear", align_corners=False)),
                 "bound_ms": b_ms, "bound_by": b_by})
-            emit({"phase": "time", "kernel": "up2x_nhwc", "gpu": gpu, **rows["up2x"][-1]})
+            emit({"phase": "time", "kernel": "up2x_nhwc", "gpu": gpu, **rows[-1]})
             del x, x_cl, got
-    worst = 0.0
-    for n_out, dtype in ((2, torch.float32), (2, torch.bfloat16), (14, torch.float32),
-                         (14, torch.bfloat16)):
-        params = heads_params(n_out, g)
-        act = "relu" if n_out == 2 else "none"
-        x = torch.randn(maps, 32, PATCH, PATCH, device=dev, generator=g).to(dtype)
-        x_cl = x.contiguous(memory_format=torch.channels_last)
-        case = f"{n_out}_outputs_{str(dtype)[6:]}_b{HEADS_BATCH}_channels_last"
-        got = fused_heads(x_cl, *params, act)
-        torch.cuda.synchronize()
-        gap = heads_gap(got, fused_heads_plain(x, *params, act), x, *params)
-        emit({"phase": "check", "kernel": "fused_heads", "case": case, "shape": list(x.shape),
-              "dtype": str(dtype), **gap, "bound_ratio_tol": 1.0})
-        if gap["bound_ratio"] > 1 or not all(t.is_contiguous() for t in got):
-            raise AssertionError(f"fused_heads {case}: {gap}")
-        worst = max(worst, gap["bound_ratio"])
-        b_ms, b_by = bound(nbytes(x, *got), 0)
-        rows["fused_heads"].append({
-            "case": case, "shape": list(x.shape), "layout": "channels_last",
-            "on_path": dtype == torch.bfloat16,
-            "ms": timer(lambda: fused_heads(x_cl, *params, act)),
-            "nchw_ms": timer(lambda: fused_heads(x, *params, act)),
-            "library_ms": timer(lambda: fused_heads_plain(x_cl, *params, act), iters=5),
-            "bound_ms": b_ms, "bound_by": b_by})
-        emit({"phase": "time", "kernel": "fused_heads", "gpu": gpu, **rows["fused_heads"][-1]})
-        del x, x_cl, got
-        torch.cuda.empty_cache()
-
-    # a forward without autograd launches only the channel-last forms
+    torch.cuda.empty_cache()
+    # a forward without autograd launches only up2x's NHWC form
     served = {}
     rgb = torch.rand(BATCH, *ERP, 3, device=dev, generator=g)
     for name, cls, kw, passes in (
@@ -1709,18 +1688,16 @@ def channels_last_phase(gpu: str, timer) -> dict:
             model(rgb)
         torch.cuda.synchronize()
         launched = counts()
-        got = {k: rec.counters.get(k, 0) for k in ("up2x.channels_last",
-                                                   "fused_heads.channels_last")}
-        served[name] = {**got, "up2x": launched["up2x"], "fused_heads": launched["fused_heads"]}
-        want = {"up2x.channels_last": 5 * passes, "fused_heads.channels_last": passes,
-                "up2x": 5 * passes, "fused_heads": passes}
+        served[name] = {"up2x.channels_last": rec.counters.get("up2x.channels_last", 0),
+                        "up2x": launched["up2x"], "fused_heads": launched["fused_heads"]}
+        want = {"up2x.channels_last": 5 * passes, "up2x": 5 * passes, "fused_heads": passes}
         emit({"phase": "channels_last_forward", "model": name, "batch": BATCH,
               "launches": served[name], "expected": want})
         if served[name] != want:
             raise AssertionError(f"{name}: {served[name]}, expected {want}")
         del model
         torch.cuda.empty_cache()
-    return {"bound_ratio": worst, "rows": rows, "served": served}
+    return {"rows": rows, "served": served}
 
 
 def multi_device_phases(gpu: str, f64_witness: dict) -> dict:
@@ -2546,8 +2523,8 @@ def main() -> int:
     # serving cells' batch ----
     heads = heads_phase(gpu, timer)
 
-    # ---- the channel-last forms of up2x and the heads at the batched
-    # serving cells' shapes, and the forwards that launch them ----
+    # ---- up2x's NHWC form at the batched serving cells' shapes, and the
+    # forwards that launch it ----
     channels_last = channels_last_phase(gpu, timer)
 
     # ---- the extras: pano_stretch on the blend and spread kernels, and the
@@ -3731,17 +3708,16 @@ def main() -> int:
         "launches_serve_iterative": serve_it_launches["fused_heads"],
         "launches_serve_seg": serve_seg_launches["fused_heads"],
         "bound_ratio": heads["bound_ratio"],
-        **{k: head_row[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by")},
-        "ms_per": f"call on the batch-{HEADS_BATCH} bf16 map, 2 outputs",
-        "library": "the plain version: F.conv2d (cuDNN) and the activations",
+        **{k: head_row[k] for k in ("case", "ms", "library_ms", "bound_ms", "bound_by")},
+        "ms_per": f"call on the batch-{HEADS_BATCH} bf16 channels-last map, 2 outputs",
+        "library": "the plain version on the same map: F.conv2d (cuDNN) and the activations",
+        "rows": heads["rows"],
     })
     kernels.append({
-        "name": "channel-last forms", "route": "cuda",
-        "source": "omnifusion_torch/csrc/up2x.cu (NHWC), omnifusion_torch/csrc/heads.cu (kCL)",
-        "replaces": "no Pallas kernel: the layout of the forms above where autograd records "
-                    "nothing",
-        "bound_ratio": channels_last["bound_ratio"], "launches_serve": channels_last["served"],
-        "rows": channels_last["rows"],
+        "name": "up2x NHWC form", "route": "cuda",
+        "source": "omnifusion_torch/csrc/up2x.cu (up2x_kernel_nhwc)",
+        "replaces": "no Pallas kernel: up2x's layout where autograd records nothing",
+        "launches_serve": channels_last["served"], "rows": channels_last["rows"],
     })
     emit({"kernels": kernels})
     print(gpu, flush=True)

@@ -1,11 +1,12 @@
 // The fused depth and confidence heads: one 3x3 convolution (zero padding 1)
-// from the decoder's 32 channels to NOUT outputs, over an NCHW map or a
-// channels-last one (NHWC in memory), with the bias, a ReLU on the first
-// NOUT - 1 outputs (or none) and a sigmoid on the last in its epilogue. pred
-// (R, NOUT - 1, H, W) and conf (R, 1, H, W), contiguous, are stored in the
-// map's dtype: bf16 under the bf16 trunk (the serving recipe), or f32. NOUT
-// is 2 (depth and confidence) or 14 (the 13-class segmentation model's
-// logits and confidence).
+// from the decoder's 32 channels to NOUT outputs, over a channels-last map
+// (NHWC in memory, as the decoder leaves it where autograd records nothing,
+// so that no transpose runs before the heads), with the bias, a ReLU on the
+// first NOUT - 1 outputs (or none) and a sigmoid on the last in its
+// epilogue. pred (R, NOUT - 1, H, W) and conf (R, 1, H, W), contiguous NCHW,
+// are stored in the map's dtype: bf16 under the bf16 trunk (the serving
+// recipe), or f32. NOUT is 2 (depth and confidence) or 14 (the 13-class
+// segmentation model's logits and confidence).
 //
 // Replaces no Pallas kernel: the JAX package leaves the heads to XLA's
 // convolution (omnifusion_tpu/models/spherical_fusion.py:174-175). On the
@@ -20,78 +21,60 @@
 // there, 0.33 ms of the CUDA cores' f32 FMAs at their peak; at NOUT = 14 it
 // is 76 G, past what the CUDA cores do in the bytes' time.
 //
-// Both kernels: a block makes a tile of TH rows x 128 columns of one map
-// (neighbouring tiles of a map are neighbouring blocks, so the halo rows
-// come from L2), from the tile's input, TH + 2 rows x 130 columns (the halo
-// zero outside the map), staged in shared memory. The weights are the
-// heads' own f32 parameters, two pointers each for the weights and the
-// biases, so nothing is concatenated per call; under a bf16 map they are
-// rounded to bf16 first, as the plain version casts them. The sums are f32
-// and rounded once, after the bias and the activation; the plain version
-// (cuDNN) rounds the convolution's output to the map's dtype before the bias
-// and again after it, so in bf16 the two differ by about a bf16 ulp of the
-// sum. Where a map row is not a whole number of 16-byte pieces, or the map
-// is not 16-byte aligned, the staging and the stores go element by element.
+// Every kernel: a block makes tiles of 128 columns of one map (neighbouring
+// tiles of a map are neighbouring blocks, so the halo rows come from L2),
+// from the tile's input staged in shared memory, with one halo row and
+// column on each side, zero outside the map. The weights are the heads' own
+// f32 parameters, two pointers each for the weights and the biases, so
+// nothing is concatenated per call; under a bf16 map they are rounded to
+// bf16 first, as the plain version casts them. The sums are f32 and rounded
+// once, after the bias and the activation; the plain version (cuDNN) rounds
+// the convolution's output to the map's dtype before the bias and again
+// after it, so in bf16 the two differ by about a bf16 ulp of the sum. Where
+// the map is not 16-byte aligned the staging goes element by element.
 //
-// fused_heads3x3_kernel (f32 maps, and bf16 maps at NOUT = 2): f32 FMAs on
-// the CUDA cores (the tensor cores' f32 path is TF32, which the f32 plain
-// version does not round to). The input is staged kChunk channels at a time
-// with cp.async, two buffers, the next chunk's copy running while the
-// current one is summed. A thread keeps kP = 8 adjacent pixels of PH rows
-// for OPT of the outputs in registers (NOUT = 2: 2 rows, both outputs, TH =
-// 16; NOUT = 14: 1 row, 7 outputs, two threads sharing each strip of pixels,
-// TH = 4); per channel and staged row it reads its 10 inputs (one 16-byte
-// load and two scalars) and the filter rows' weights from shared memory (a
-// broadcast), for 3 x 8 x OPT FMAs into each output row the staged row
-// reaches. At NOUT = 2 in bf16 this runs at about half the bytes' bound on
-// an H100 (700 W); the tensor-core kernel below, whose 8-output tile is 3/4
-// padding there and whose staging does not overlap its sums, took 1.7x as
-// long.
+// A pixel's 32 channels are 64 (bf16) or 128 (f32) contiguous bytes.
+// Staging a chunk of channels of every pixel reads 16 bytes of each pixel's
+// run at a time, half of each 32-byte sector, and took 1.4x (bf16) and 2.8x
+// (f32) as long at NOUT = 2 as the same kernel on an NCHW map, on an H100
+// (700 W). So the memory-bound kernels copy whole rows of the map, which are
+// contiguous, and walk down it: a block makes kMmaBlockRows (or
+// kNhwcBlockRows) rows, a few rows at a time, from a ring of staged rows
+// that cp.async fills a step ahead; each input row is copied once, with 2
+// halo rows a block.
 //
-// fused_heads3x3_mma_kernel (bf16 maps at NOUT = 14): an implicit GEMM per
-// 16-pixel group of a row, D[16 pixels][8 outputs] += A[16 pixels][16
+// fused_heads3x3_mma_kernel<NOUT> (bf16, NOUT = 2 and 14): an implicit GEMM
+// per 16-pixel group of a row, D[16 pixels][8 outputs] += A[16 pixels][16
 // channels] x B[16 channels][8 outputs] for each of the 9 taps and both
 // halves of the 32 channels, by mma.sync m16n8k16 (bf16 operands, f32
-// accumulators), two 8-output tiles. The tile is staged channel-last,
-// [row][pixel][32 channels] (64 bytes a pixel), so a tap's A fragment is one
-// ldmatrix.x4 of 16 pixel rows at any column offset; the 16-byte pieces of a
-// pixel are XOR-swizzled by (pixel / 2) mod 4, so the 8 rows of an 8x8
-// matrix fall in distinct banks. The staging reads two channels x 8 pixels
-// (two 16-byte loads) and interleaves them into 8 words of channel pairs.
-// The B fragments (9 x 2 x 2 registers an output tile) are built once per
-// thread from the parameters. TH = 4: 6 staged rows of 130 pixels, 50 KB;
-// warp w makes output row w, two groups at a time. The CUDA cores' kernel
-// took 2.7x as long at NOUT = 14 on an H100 (700 W).
+// accumulators), one or two 8-output tiles. A staged row is [pixel][32
+// channels] (64 bytes a pixel, the map's 16-byte pieces copied as they
+// are), so a tap's A fragment is one ldmatrix.x4 of 16 pixel rows at any
+// column offset; the 16-byte pieces of a pixel are XOR-swizzled by (pixel /
+// 2) mod 4, so the 8 rows of an 8x8 matrix fall in distinct banks. The B
+// fragments (9 x 2 x 2 registers an output tile) are built once per thread
+// from the parameters. At NOUT = 2 the 8-output tile is 3/4 padding but the
+// instructions few: on the CUDA cores the bf16 unpacking set the pace (0.83
+// ms at b64 against 0.61 here); at NOUT = 14 the CUDA cores took 2.7x as
+// long, on an H100 (700 W). Steps of 1 row (4 warps a row, NOUT = 2) or 2
+// rows (NOUT = 14) with one step in flight timed best (kMmaStepRows).
 //
-// Channel-last forms (the map NHWC in memory, as the decoder leaves it where
-// autograd records nothing, so that no transpose runs before the heads): a
-// pixel's 32 channels are 64 (bf16) or 128 (f32) contiguous bytes. Staging
-// a chunk of channels of every pixel, as the NCHW kernels do, reads 16 bytes
-// of each pixel's run at a time, half of each 32-byte sector, and took 1.4x
-// (bf16) and 2.8x (f32) the NCHW kernel's time at NOUT = 2 on an H100 (700
-// W). So the memory-bound forms copy whole rows of the map, which are
-// contiguous, and walk down it: a block makes kMmaBlockRows (or
-// kNhwcBlockRows) rows of 128 columns, a few rows at a time, from a ring of
-// staged rows that cp.async fills a step ahead; each input row is copied
-// once, with 2 halo rows a block.
-// - bf16, NOUT = 2 and 14: fused_heads3x3_mma_kernel<NOUT, true>, its tile
-//   staged as the NCHW form stages it (the map's 16-byte pieces copied as
-//   they are), so the sums and their bits are the NCHW form's. At NOUT = 2
-//   the tensor cores' 8-output tile is 3/4 padding but their instructions
-//   few: on the CUDA cores the bf16 unpacking set the pace (0.83 ms at b64
-//   against 0.61 here). Steps of 1 row (4 warps a row, NOUT = 2) or 2 rows
-//   (NOUT = 14) with one step in flight timed best (kMmaStepRows).
-// - f32, NOUT = 2: fused_heads3x3_nhwc_kernel, on the CUDA cores (the
-//   plain f32 version is not TF32). Lane = strip * 8 + group: 8 lanes share
-//   a strip of kP = 8 pixels, each summing 4 of the 32 channels (one 16-byte
-//   load a pixel) for both outputs of 2 rows, with its 72 weights in
-//   registers; a butterfly of shuffles gives lane ``group`` the strip's
-//   sums at pixel ``group``. Its sums run in another order than the NCHW
-//   kernel's, so they round differently.
-// - f32, NOUT = 14: fused_heads3x3_kernel<float, 14, true>, the NCHW kernel
-//   with its chunks staged from the channel-last map (a pixel's 4 channels
-//   loaded together, stored to their 4 planes): bound by its f32 FMAs, it
-//   keeps the NCHW form's sums and bits.
+// fused_heads3x3_nhwc_kernel (f32, NOUT = 2): on the CUDA cores (the tensor
+// cores' f32 path is TF32, which the f32 plain version does not round to).
+// Lane = strip * 8 + group: 8 lanes share a strip of kP = 8 pixels, each
+// summing 4 of the 32 channels (one 16-byte load a pixel) for both outputs
+// of 2 rows, with its 72 weights in registers; a butterfly of shuffles
+// gives lane ``group`` the strip's sums at pixel ``group``.
+//
+// fused_heads3x3_kernel (f32, NOUT = 14): on the CUDA cores, bound by its
+// f32 FMAs, not by its bytes. The input is staged kChunk channels at a
+// time, as kChunk planes of TH + 2 rows x 130 columns, in two buffers (a
+// pixel's kChunk channels loaded together and stored to their planes). Two
+// threads share a strip of kP = 8 adjacent pixels of one row, each with 7
+// of the outputs in registers (TH = 4 rows a block); per channel and filter
+// row a thread reads its 10 inputs (one pair of 16-byte loads and two
+// scalars) and the filter row's weights from shared memory (a broadcast),
+// for 3 x 8 x 7 FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,16 +114,15 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ---- the sums on the tensor cores (bf16) ----
 
-constexpr int kMmaRows = 4;                 // output rows of a step, a warp each
+constexpr int kMmaRows = 4;                 // output rows of a step's warps
 constexpr int kMmaCols = kTileW + 2;        // staged pixels of a row
 constexpr int kPixelBytes = 2 * kChannels;  // a staged pixel: 32 bf16 channels
-constexpr size_t kMmaSmem = size_t{kMmaRows + 2} * kMmaCols * kPixelBytes;
-// channel-last: a block walks down kMmaBlockRows rows of the map in steps
-// of kMmaStepRows rows (kMmaRows / kMmaStepRows warps a row), with a ring of
-// staged rows: a step's kMmaStepRows + 2 and the next step's kMmaStepRows in
-// flight. Timed on an H100 (700 W), b64: 1-row steps over 32 rows at 2
-// outputs (0.611 ms; 2-row steps 0.649, a second step in flight 0.662),
-// 2-row steps over 64 rows at 14 (0.885 ms; over 32 rows 0.926)
+// a block walks down kMmaBlockRows rows of the map in steps of kMmaStepRows
+// rows (kMmaRows / kMmaStepRows warps a row), with a ring of staged rows: a
+// step's kMmaStepRows + 2 and the next step's kMmaStepRows in flight. Timed
+// on an H100 (700 W), b64: 1-row steps over 32 rows at 2 outputs (0.611 ms;
+// 2-row steps 0.649, a second step in flight 0.662), 2-row steps over 64
+// rows at 14 (0.885 ms; over 32 rows 0.926)
 template <int NOUT>
 constexpr int kMmaStepRows = NOUT <= 8 ? 1 : 2;
 template <int NOUT>
@@ -177,7 +159,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int NOUT, bool kCL>
+template <int NOUT>
 __global__ void __launch_bounds__(kThreads)
 fused_heads3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ pred_w,
                           const float* __restrict__ pred_b, const float* __restrict__ conf_w,
@@ -185,10 +167,9 @@ fused_heads3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
                           __nv_bfloat16* __restrict__ conf, int h, int w, int tiles_x, int tiles,
                           bool do_relu, bool vec) {
   constexpr int NT = (NOUT + 7) / 8;  // tiles of 8 outputs
-  constexpr int kStripes = kTileW / 8;  // 8-pixel stripes of a staged row
-  constexpr int kStepRows = kCL ? kMmaStepRows<NOUT> : kMmaRows;  // output rows of a step
-  constexpr int kSteps = kCL ? kMmaBlockRows<NOUT> / kStepRows : 1;
-  constexpr int kSlots = kCL ? kMmaRing<NOUT> : kMmaRows + 2;      // staged rows held
+  constexpr int kStepRows = kMmaStepRows<NOUT>;              // output rows of a step
+  constexpr int kSteps = kMmaBlockRows<NOUT> / kStepRows;
+  constexpr int kSlots = kMmaRing<NOUT>;                     // staged rows held
   constexpr int kStaged = kStepRows * kSteps + 2;            // staged rows of the block
   constexpr int kRowWarps = kMmaRows / kStepRows;            // warps a row
   extern __shared__ float4 smem_raw[];
@@ -203,65 +184,12 @@ fused_heads3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
   const int x0 = (t % tiles_x) * kTileW;
   const unsigned short* xr =
       reinterpret_cast<const unsigned short*>(x) + r * kChannels * h * w;
-  auto at = [&](int c, int y, int xx) { return xr + (static_cast<int64_t>(c) * h + y) * w + xx; };
 
-  // staging: a task is channels (2 cp, 2 cp + 1) x the 8 pixels of a stripe
-  // of a staged row, stored as 8 words of channel pairs; the 16 lanes of a
-  // half-warp take the 16 channel pairs of one stripe, and a thread's tasks
-  // are its channel pair in stripes tid / 16 and tid / 16 + 8 of each row
-  const int cp = tid & 15;
-  auto stage_task = [&](int row, int stripe) {
-    const int y = y0 - 1 + row, xx = x0 + stripe * 8;
-    uint32_t lo[4] = {0, 0, 0, 0}, hi[4] = {0, 0, 0, 0};  // channel 2 cp, 2 cp + 1
-    if (vec) {
-      if (inside(y, xx, h, w)) {  // the stripe lies wholly in or out of the map
-        const uint4 a = *reinterpret_cast<const uint4*>(at(2 * cp, y, xx));
-        const uint4 b = *reinterpret_cast<const uint4*>(at(2 * cp + 1, y, xx));
-        lo[0] = a.x, lo[1] = a.y, lo[2] = a.z, lo[3] = a.w;
-        hi[0] = b.x, hi[1] = b.y, hi[2] = b.z, hi[3] = b.w;
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        if (inside(y, xx + k, h, w)) {
-          lo[k >> 1] |= static_cast<uint32_t>(*at(2 * cp, y, xx + k)) << (16 * (k & 1));
-          hi[k >> 1] |= static_cast<uint32_t>(*at(2 * cp + 1, y, xx + k)) << (16 * (k & 1));
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      *reinterpret_cast<uint32_t*>(sm + staged(row, stripe * 8 + 1 + k, cp >> 2) + (cp & 3) * 4) =
-          __byte_perm(lo[k >> 1], hi[k >> 1], (k & 1) ? 0x7632 : 0x5410);
-    }
-  };
-  static_assert(kThreads == 8 * 16 && kStripes == 16, "two stripes of a row per thread");
-  if constexpr (!kCL) {
-#pragma unroll
-    for (int row = 0; row < kMmaRows + 2; ++row) {
-      stage_task(row, tid >> 4);
-      stage_task(row, (tid >> 4) + 8);
-    }
-    // the halo columns, x0 - 1 and x0 + 128
-    for (int i = tid; i < (kMmaRows + 2) * 2 * 16; i += kThreads) {
-      const int side = (i >> 4) & 1, row = i >> 5;
-      const int y = y0 - 1 + row, xx = side ? x0 + kTileW : x0 - 1;
-      uint32_t word = 0;
-      if (inside(y, xx, h, w)) {
-        word = static_cast<uint32_t>(*at(2 * cp, y, xx)) |
-               (static_cast<uint32_t>(*at(2 * cp + 1, y, xx)) << 16);
-      }
-      *reinterpret_cast<uint32_t*>(sm + staged(row, side ? kMmaCols - 1 : 0, cp >> 2) +
-                                   (cp & 3) * 4) = word;
-    }
-  }
-
-  // channel-last map: a pixel's 32 channels are 4 contiguous 16-byte pieces,
-  // staged as they are (piece k holds channels 8 k .. 8 k + 7, the layout the
-  // NCHW staging builds), with cp.async; consecutive threads take consecutive
-  // pieces of a staged row, contiguous in the map. Staged rows i .. i + n - 1
-  // (input rows y0 - 1 + i ..; none past the block's) go to ring slots
-  // i % kSlots, as one group
+  // a pixel's 32 channels are 4 contiguous 16-byte pieces, staged as they
+  // are (piece k holds channels 8 k .. 8 k + 7), with cp.async; consecutive
+  // threads take consecutive pieces of a staged row, contiguous in the map.
+  // Staged rows i .. i + n - 1 (input rows y0 - 1 + i ..; none past the
+  // block's) go to ring slots i % kSlots, as one group
   auto issue_rows = [&](int i, int n) {
     n = min(n, kStaged - i);
     for (int k = tid; k < n * kMmaCols * 4; k += kThreads) {
@@ -287,7 +215,7 @@ fused_heads3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
     }
     cp_async_commit();
   };
-  if constexpr (kCL) issue_rows(0, kStepRows + 2);
+  issue_rows(0, kStepRows + 2);
 
   // the B fragments: b[tap][half][tile] = (B[2 q][g], B[2 q + 1][g]) and
   // (B[2 q + 8][g], B[2 q + 9][g]) of k = channel - 16 half, n = 8 tile + g
@@ -343,15 +271,11 @@ fused_heads3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
   }
 #pragma unroll 1
   for (int step = 0; step < kSteps; ++step) {
-    if constexpr (kCL) {
-      // the step's staged rows have landed; the barrier also frees the
-      // slots of the step before's first kStepRows rows, for the next step's
-      cp_async_wait<0>();
-      __syncthreads();
-      issue_rows(kStepRows * (step + 1) + 2, kStepRows);
-    } else {
-      __syncthreads();
-    }
+    // the step's staged rows have landed; the barrier also frees the slots
+    // of the step before's first kStepRows rows, for the next step's
+    cp_async_wait<0>();
+    __syncthreads();
+    issue_rows(kStepRows * (step + 1) + 2, kStepRows);
     // where the lane's outputs of row y go (null: no output, or a row past
     // the map)
     const int y = y0 + kStepRows * step + wrow;
@@ -411,54 +335,30 @@ fused_heads3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
   }
 }
 
-// ---- the sums on the CUDA cores ----
+// ---- the sums on the CUDA cores, f32, 14 outputs, a chunk of channels at a time ----
 
-constexpr int kChunk = 4;  // channels staged at a time
+constexpr int kChunkOut = 14;  // outputs of the kernel
+constexpr int kChunk = 4;      // channels staged at a time
 constexpr int kChunks = kChannels / kChunk;
 constexpr int kP = 8;  // adjacent output pixels of a row per thread
-
-// A thread makes kP pixels of PH rows for OPT of the NOUT outputs: NSPLIT
+// A thread makes kP pixels of one row for kOpt of the outputs: kSplit
 // threads share a strip of pixels, each with its own outputs
-template <int NOUT>
-struct Tile {
-  static constexpr int NSPLIT = NOUT <= 2 ? 1 : 2;
-  static constexpr int OPT = NOUT / NSPLIT;
-  static constexpr int PH = NOUT <= 2 ? 2 : 1;
-  static constexpr int kStrips = kTileW / kP;         // strips of a row
-  static constexpr int kPerRow = kStrips * NSPLIT;    // threads per row of threads
-  static constexpr int TH = kThreads / kPerRow * PH;  // output rows per block
-  static constexpr int G = (3 * OPT + 3) / 4 * 4;     // floats per (channel, filter row, split)
-  static_assert(NOUT % NSPLIT == 0 && kThreads % kPerRow == 0, "tile");
-};
+constexpr int kSplit = 2;
+constexpr int kOpt = kChunkOut / kSplit;
+constexpr int kStrips = kTileW / kP;            // strips of a row
+constexpr int kPerRow = kStrips * kSplit;       // threads per row of threads
+constexpr int kChunkRows = kThreads / kPerRow;  // output rows per block
+constexpr int kG = (3 * kOpt + 3) / 4 * 4;      // floats per (channel, filter row, split)
+static_assert(kChunkOut % kSplit == 0 && kThreads % kPerRow == 0, "tile");
 
-// Elements of T in 16 bytes: a staged row holds column x at x + kOff<T>, so
-// the tile's columns start 16-byte aligned and the halo column sits before
-template <typename T>
-constexpr int kOff = 16 / static_cast<int>(sizeof(T));
-template <typename T>
-constexpr int kRowStride = kOff<T> + kTileW + kOff<T>;  // a multiple of 16 bytes
+// A staged row holds column x at x + kOff, so the tile's columns start
+// 16-byte aligned and the halo column sits before
+constexpr int kOff = 4;                              // floats in 16 bytes
+constexpr int kRowStride = kOff + kTileW + kOff;     // a multiple of 16 bytes
+constexpr size_t kChunkSmem = sizeof(float) * kChannels * 3 * kSplit * kG +
+                              2 * sizeof(float) * kChunk * (kChunkRows + 2) * kRowStride;
 
-template <typename T, int NOUT>
-constexpr size_t kSmem = sizeof(float) * kChannels * 3 * Tile<NOUT>::NSPLIT * Tile<NOUT>::G +
-                         2 * sizeof(T) * kChunk * (Tile<NOUT>::TH + 2) * kRowStride<T>;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// a parameter as the map's dtype rounds it (the plain version's cast)
-template <typename T>
-__device__ __forceinline__ float as_param(float v) { return to_f32(from_f32<T>(v)); }
-
-// N elements at p (16-byte aligned) as f32
+// N floats at p (16-byte aligned)
 template <int N>
 __device__ __forceinline__ void load_vec(const float* p, float* v) {
 #pragma unroll
@@ -470,31 +370,6 @@ __device__ __forceinline__ void load_vec(const float* p, float* v) {
     v[k + 3] = q.w;
   }
 }
-__device__ __forceinline__ void unpack2(uint32_t u, float* v) {
-  v[0] = __uint_as_float(u << 16);
-  v[1] = __uint_as_float(u & 0xffff0000u);
-}
-// kChunk channels of a channel-last pixel at p (aligned to their size)
-__device__ __forceinline__ void load_chunk(const float* p, float (&v)[kChunk]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-}
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float (&v)[kChunk]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  unpack2(q.x, v);
-  unpack2(q.y, v + 2);
-}
-
-template <int N>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
-  static_assert(N == 8, "8 bf16 values");
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
-  unpack2(q.x, v);
-  unpack2(q.y, v + 2);
-  unpack2(q.z, v + 4);
-  unpack2(q.w, v + 6);
-}
-
 template <int N>
 __device__ __forceinline__ void store_vec(float* p, const float* v) {
 #pragma unroll
@@ -502,31 +377,19 @@ __device__ __forceinline__ void store_vec(float* p, const float* v) {
     *reinterpret_cast<float4*>(p + k) = make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
   }
 }
-template <int N>
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
-  static_assert(N == 8, "8 bf16 values");
-  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                                            pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
-}
 
-template <typename T, int NOUT, bool kCL>
 __global__ void __launch_bounds__(kThreads)
-fused_heads3x3_kernel(const T* __restrict__ x, const float* __restrict__ pred_w,
+fused_heads3x3_kernel(const float* __restrict__ x, const float* __restrict__ pred_w,
                       const float* __restrict__ pred_b, const float* __restrict__ conf_w,
-                      const float* __restrict__ conf_b, T* __restrict__ pred,
-                      T* __restrict__ conf, int h, int w, int tiles_x, int tiles, bool do_relu,
+                      const float* __restrict__ conf_b, float* __restrict__ pred,
+                      float* __restrict__ conf, int h, int w, int tiles_x, int tiles, bool do_relu,
                       bool vec) {
-  using Shape = Tile<NOUT>;
-  constexpr int P = kP, PH = Shape::PH, TH = Shape::TH, G = Shape::G, OPT = Shape::OPT;
-  constexpr int NSPLIT = Shape::NSPLIT, kStrips = Shape::kStrips, kPerRow = Shape::kPerRow;
-  constexpr int kOffT = kOff<T>, kStride = kRowStride<T>;
-  constexpr int kRows = kChunk * (TH + 2);            // staged rows per chunk
-  constexpr int kStage = kRows * kStride;             // elements per buffer
-  constexpr int kVecPerRow = kTileW / kOffT;          // 16-byte pieces per staged row
+  constexpr int NOUT = kChunkOut, P = kP, TH = kChunkRows, G = kG, OPT = kOpt;
+  constexpr int kStage = kChunk * (TH + 2) * kRowStride;  // floats per buffer
 
   extern __shared__ float4 smem_raw[];
   float* w_s = reinterpret_cast<float*>(smem_raw);  // [channel][filter row][split][G]
-  T* stage = reinterpret_cast<T*>(w_s + kChannels * 3 * NSPLIT * G);
+  float* stage = w_s + kChannels * 3 * kSplit * G;
 
   const int tid = threadIdx.x;
   const int64_t blk = blockIdx.x;
@@ -534,56 +397,29 @@ fused_heads3x3_kernel(const T* __restrict__ x, const float* __restrict__ pred_w,
   const int t = static_cast<int>(blk - r * tiles);
   const int y0 = (t / tiles_x) * TH;
   const int x0 = (t % tiles_x) * kTileW;
-  const T* xr = x + r * kChannels * h * w;
+  const float* xr = x + r * kChannels * h * w;
 
   // the chunk's TH + 2 rows x kTileW + 2 columns of kChunk channels into
-  // buffer ``buf``, zero outside the map
-  auto issue = [&](int chunk, T* buf) {
+  // buffer ``buf``, zero outside the map: the chunk's kChunk channels of a
+  // pixel are contiguous, loaded together and stored to their kChunk planes
+  auto issue = [&](int chunk, float* buf) {
     const int c0 = chunk * kChunk;
-    if constexpr (kCL) {
-      // from a channel-last map: the chunk's kChunk channels of a pixel are
-      // contiguous, loaded together and stored to their kChunk planes
-      for (int i = tid; i < (TH + 2) * (kTileW + 2); i += kThreads) {
-        const int row = i / (kTileW + 2), col = i - row * (kTileW + 2);
-        const int y = y0 - 1 + row, xx = x0 - 1 + col;
-        float v[kChunk] = {};
-        if (inside(y, xx, h, w)) {
-          const T* src = xr + (static_cast<int64_t>(y) * w + xx) * kChannels + c0;
-          if (vec) {
-            load_chunk(src, v);
-          } else {
+    for (int i = tid; i < (TH + 2) * (kTileW + 2); i += kThreads) {
+      const int row = i / (kTileW + 2), col = i - row * (kTileW + 2);
+      const int y = y0 - 1 + row, xx = x0 - 1 + col;
+      float v[kChunk] = {};
+      if (inside(y, xx, h, w)) {
+        const float* src = xr + (static_cast<int64_t>(y) * w + xx) * kChannels + c0;
+        if (vec) {
+          load_vec<kChunk>(src, v);
+        } else {
 #pragma unroll
-            for (int c = 0; c < kChunk; ++c) v[c] = to_f32(src[c]);
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < kChunk; ++c) {
-          buf[(c * (TH + 2) + row) * kStride + kOffT - 1 + col] = from_f32<T>(v[c]);
+          for (int c = 0; c < kChunk; ++c) v[c] = src[c];
         }
       }
-    } else if (vec) {
-      for (int i = tid; i < kRows * kVecPerRow; i += kThreads) {
-        const int row = i / kVecPerRow, piece = i - row * kVecPerRow;
-        const int c = c0 + row / (TH + 2), y = y0 - 1 + row % (TH + 2);
-        const int xx = x0 + piece * kOffT;
-        const bool in = inside(y, xx, h, w);
-        const T* src = in ? xr + (static_cast<int64_t>(c) * h + y) * w + xx : x;
-        cp_async16(buf + row * kStride + kOffT + piece * kOffT, src, in ? 16 : 0);
-      }
-      for (int i = tid; i < 2 * kRows; i += kThreads) {  // the halo columns
-        const int row = i >> 1, side = i & 1;
-        const int c = c0 + row / (TH + 2), y = y0 - 1 + row % (TH + 2);
-        const int xx = side ? x0 + kTileW : x0 - 1;
-        buf[row * kStride + kOffT - 1 + side * (kTileW + 1)] =
-            inside(y, xx, h, w) ? xr[(static_cast<int64_t>(c) * h + y) * w + xx] : from_f32<T>(0.f);
-      }
-    } else {
-      for (int i = tid; i < kRows * (kTileW + 2); i += kThreads) {
-        const int row = i / (kTileW + 2), col = i - row * (kTileW + 2);
-        const int c = c0 + row / (TH + 2), y = y0 - 1 + row % (TH + 2);
-        const int xx = x0 - 1 + col;
-        buf[row * kStride + kOffT - 1 + col] =
-            inside(y, xx, h, w) ? xr[(static_cast<int64_t>(c) * h + y) * w + xx] : from_f32<T>(0.f);
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        buf[(c * (TH + 2) + row) * kRowStride + kOff - 1 + col] = v[c];
       }
     }
     cp_async_commit();
@@ -593,79 +429,53 @@ fused_heads3x3_kernel(const T* __restrict__ x, const float* __restrict__ pred_w,
 
   // the weights, as [channel][filter row][split][dx * OPT + output of the
   // split], zero past 3 OPT
-  for (int i = tid; i < kChannels * 3 * NSPLIT * G; i += kThreads) {
+  for (int i = tid; i < kChannels * 3 * kSplit * G; i += kThreads) {
     const int g = i / G, j = i - g * G;
-    const int cdy = g / NSPLIT, split = g - cdy * NSPLIT;
+    const int cdy = g / kSplit, split = g - cdy * kSplit;
     float v = 0.f;
     if (j < 3 * OPT) {
       const int dx = j / OPT, o = split * OPT + j - dx * OPT, tap = cdy * 3 + dx;  // (c, dy, dx)
-      v = as_param<T>(o < NOUT - 1 ? pred_w[o * kChannels * 9 + tap] : conf_w[tap]);
+      v = o < NOUT - 1 ? pred_w[o * kChannels * 9 + tap] : conf_w[tap];
     }
     w_s[i] = v;
   }
 
   const int tr = tid / kPerRow, in_row = tid - tr * kPerRow;
   const int split = in_row / kStrips, xl = (in_row - split * kStrips) * P;
-  float acc[PH][OPT][P];
+  float acc[OPT][P];
 #pragma unroll
-  for (int j = 0; j < PH; ++j) {
+  for (int o = 0; o < OPT; ++o) {
 #pragma unroll
-    for (int o = 0; o < OPT; ++o) {
-#pragma unroll
-      for (int p = 0; p < P; ++p) acc[j][o][p] = 0.f;
-    }
+    for (int p = 0; p < P; ++p) acc[o][p] = 0.f;
   }
-
-  // the FMAs of one staged input row ``v`` for output row j, filter row dy
-  auto fma_row = [&](const float* v, const float* wv, int j) {
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-#pragma unroll
-      for (int o = 0; o < OPT; ++o) {
-#pragma unroll
-        for (int p = 0; p < P; ++p) acc[j][o][p] = fmaf(v[p + dx], wv[dx * OPT + o], acc[j][o][p]);
-      }
-    }
-  };
 
 #pragma unroll 1
   for (int chunk = 0; chunk < kChunks; ++chunk) {
-    T* buf = stage + (chunk & 1) * kStage;
+    float* buf = stage + (chunk & 1) * kStage;
     if (chunk + 1 < kChunks) {
       issue(chunk + 1, stage + ((chunk + 1) & 1) * kStage);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();  // the chunk's copies, halo stores and (first) the weights
+    __syncthreads();  // the chunk's stores and (first) the weights
 #pragma unroll
     for (int cl = 0; cl < kChunk; ++cl) {
-      const T* src = buf + (cl * (TH + 2) + tr * PH) * kStride + kOffT + xl;
-      const float* wc = w_s + (chunk * kChunk + cl) * 3 * NSPLIT * G + split * G;
-      if constexpr (PH == 1) {
+      const float* src = buf + (cl * (TH + 2) + tr) * kRowStride + kOff + xl;
+      const float* wc = w_s + (chunk * kChunk + cl) * 3 * kSplit * G + split * G;
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          float v[P + 2], wv[G];
-          v[0] = to_f32(src[dy * kStride - 1]);
-          load_vec<P>(src + dy * kStride, v + 1);
-          v[P + 1] = to_f32(src[dy * kStride + P]);
-          load_vec<G>(wc + dy * NSPLIT * G, wv);
-          fma_row(v, wv, 0);
-        }
-      } else {
-        // the channel's three filter rows, each used by PH output rows
-        float wv[3][G];
+      for (int dy = 0; dy < 3; ++dy) {
+        float v[P + 2], wv[G];
+        v[0] = src[dy * kRowStride - 1];
+        load_vec<P>(src + dy * kRowStride, v + 1);
+        v[P + 1] = src[dy * kRowStride + P];
+        load_vec<G>(wc + dy * kSplit * G, wv);
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy) load_vec<G>(wc + dy * NSPLIT * G, wv[dy]);
+        for (int dx = 0; dx < 3; ++dx) {
 #pragma unroll
-        for (int i = 0; i < PH + 2; ++i) {  // input rows
-          float v[P + 2];
-          v[0] = to_f32(src[i * kStride - 1]);
-          load_vec<P>(src + i * kStride, v + 1);
-          v[P + 1] = to_f32(src[i * kStride + P]);
+          for (int o = 0; o < OPT; ++o) {
 #pragma unroll
-          for (int dy = 0; dy < 3; ++dy) {
-            if (i - dy >= 0 && i - dy < PH) fma_row(v, wv[dy], i - dy);
+            for (int p = 0; p < P; ++p) acc[o][p] = fmaf(v[p + dx], wv[dx * OPT + o], acc[o][p]);
           }
         }
       }
@@ -674,43 +484,34 @@ fused_heads3x3_kernel(const T* __restrict__ x, const float* __restrict__ pred_w,
   }
 
   const int xo = x0 + xl;
-  if (xo >= w) return;
-  // rows of whole 16-byte pieces: vector stores (an NCHW map's vec says so)
-  const bool vec_out = kCL ? w % kOffT == 0 : vec;
-  float bias[OPT];
+  const int y = y0 + tr;
+  if (xo >= w || y >= h) return;
+  // rows of whole 16-byte pieces: vector stores
+  const bool vec_out = w % kOff == 0;
 #pragma unroll
   for (int o = 0; o < OPT; ++o) {
     const int oo = split * OPT + o;
-    bias[o] = as_param<T>(oo < NOUT - 1 ? pred_b[oo] : conf_b[0]);
-  }
+    const float bias = oo < NOUT - 1 ? pred_b[oo] : conf_b[0];
+    float out[P];
 #pragma unroll
-  for (int j = 0; j < PH; ++j) {
-    const int y = y0 + tr * PH + j;
-    if (y >= h) break;
-#pragma unroll
-    for (int o = 0; o < OPT; ++o) {
-      const int oo = split * OPT + o;
-      float out[P];
+    for (int p = 0; p < P; ++p) {
+      const float s = acc[o][p] + bias;
+      out[p] = oo == NOUT - 1 ? sigmoid(s) : (do_relu ? relu(s) : s);
+    }
+    float* dst = (oo == NOUT - 1 ? conf + r * h * w : pred + (r * (NOUT - 1) + oo) * h * w) +
+                 static_cast<int64_t>(y) * w + xo;
+    if (vec_out && xo + P <= w) {
+      store_vec<P>(dst, out);
+    } else {
 #pragma unroll
       for (int p = 0; p < P; ++p) {
-        const float s = acc[j][o][p] + bias[o];
-        out[p] = oo == NOUT - 1 ? sigmoid(s) : (do_relu ? relu(s) : s);
-      }
-      T* dst = (oo == NOUT - 1 ? conf + r * h * w : pred + (r * (NOUT - 1) + oo) * h * w) +
-               static_cast<int64_t>(y) * w + xo;
-      if (vec_out && xo + P <= w) {
-        store_vec<P>(dst, out);
-      } else {
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          if (xo + p < w) dst[p] = from_f32<T>(out[p]);
-        }
+        if (xo + p < w) dst[p] = out[p];
       }
     }
   }
 }
 
-// ---- the sums on the CUDA cores, from a channel-last f32 map, 2 outputs ----
+// ---- the sums on the CUDA cores, f32, 2 outputs, whole rows at a time ----
 
 constexpr int kNhwcBlockRows = 32;  // output rows a block makes, two at a time
 constexpr int kNhwcRing = 6;        // staged input rows: 4 read by a step, 2 in flight
@@ -876,25 +677,20 @@ fused_heads3x3_nhwc_kernel(const float* __restrict__ x, const float* __restrict_
 }
 
 // One launch of ``kernel`` over rows x (tiles of th rows x kTileW columns)
-// blocks with ``smem`` bytes of dynamic shared memory, on an NCHW map or
-// (channels_last) an NHWC one
+// blocks with ``smem`` bytes of dynamic shared memory
 template <typename T, typename Kernel>
 int launch(Kernel kernel, int th, size_t smem, const void* x, const float* pred_w,
            const float* pred_b, const float* conf_w, const float* conf_b, void* pred, void* conf,
-           int64_t rows, int64_t h, int64_t w, bool do_relu, bool channels_last,
-           cudaStream_t stream) {
+           int64_t rows, int64_t h, int64_t w, bool do_relu, cudaStream_t stream) {
   if (rows == 0 || h == 0 || w == 0) return static_cast<int>(cudaGetLastError());
   const int64_t tiles_x = (w + kTileW - 1) / kTileW;
   const int64_t tiles = (h + th - 1) / th * tiles_x;
   if (h >= (int64_t{1} << 30) || w >= (int64_t{1} << 30) || rows * tiles >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // from a 16-byte aligned map, rows of whole 16-byte pieces (NCHW) or any
-  // NHWC map (a pixel is 32 channels): vector loads, and in NCHW vector
-  // stores; otherwise element by element
-  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const bool vec =
-      aligned && (channels_last || (w * static_cast<int64_t>(sizeof(T))) % 16 == 0);
+  // a pixel is 32 channels, a whole number of 16-byte pieces: from a 16-byte
+  // aligned map, vector loads; otherwise element by element
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -905,70 +701,38 @@ int launch(Kernel kernel, int th, size_t smem, const void* x, const float* pred_
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NOUT, bool kCL>
-int launch_layout(const void* x, int dtype, const float* pred_w, const float* pred_b,
-                  const float* conf_w, const float* conf_b, void* pred, void* conf, int64_t rows,
-                  int64_t h, int64_t w, bool do_relu, cudaStream_t stream) {
-  switch (dtype) {
-    case 0:  // f32: on the CUDA cores
-      if constexpr (kCL && NOUT <= 2) {
-        return launch<float>(fused_heads3x3_nhwc_kernel, kNhwcBlockRows, kNhwcSmem, x, pred_w,
-                             pred_b, conf_w, conf_b, pred, conf, rows, h, w, do_relu, kCL, stream);
-      } else {
-        return launch<float>(fused_heads3x3_kernel<float, NOUT, kCL>, Tile<NOUT>::TH,
-                             kSmem<float, NOUT>, x, pred_w, pred_b, conf_w, conf_b, pred, conf,
-                             rows, h, w, do_relu, kCL, stream);
-      }
-    case 2:  // bf16: a channel-last map on the tensor cores; NCHW, 2 outputs on the CUDA cores
-      if constexpr (kCL) {
-        return launch<__nv_bfloat16>(fused_heads3x3_mma_kernel<NOUT, true>, kMmaBlockRows<NOUT>,
-                                     kMmaRingSmem<NOUT>, x, pred_w, pred_b, conf_w, conf_b, pred,
-                                     conf, rows, h, w, do_relu, kCL, stream);
-      } else if constexpr (NOUT <= 2) {
-        return launch<__nv_bfloat16>(fused_heads3x3_kernel<__nv_bfloat16, NOUT, false>,
-                                     Tile<NOUT>::TH, kSmem<__nv_bfloat16, NOUT>, x, pred_w, pred_b,
-                                     conf_w, conf_b, pred, conf, rows, h, w, do_relu, kCL, stream);
-      } else {
-        return launch<__nv_bfloat16>(fused_heads3x3_mma_kernel<NOUT, false>, kMmaRows, kMmaSmem,
-                                     x, pred_w, pred_b, conf_w, conf_b, pred, conf, rows, h, w,
-                                     do_relu, kCL, stream);
-      }
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <int NOUT>
-int launch_dtype(const void* x, int dtype, const float* pred_w, const float* pred_b,
-                 const float* conf_w, const float* conf_b, void* pred, void* conf, int64_t rows,
-                 int64_t h, int64_t w, bool do_relu, bool channels_last, cudaStream_t stream) {
-  return channels_last
-             ? launch_layout<NOUT, true>(x, dtype, pred_w, pred_b, conf_w, conf_b, pred, conf,
-                                         rows, h, w, do_relu, stream)
-             : launch_layout<NOUT, false>(x, dtype, pred_w, pred_b, conf_w, conf_b, pred, conf,
-                                          rows, h, w, do_relu, stream);
-}
+// the kernel of a (dtype, nout): dtype 0 (f32) or 2 (bf16), nout 2 or 14
+constexpr int form(int dtype, int nout) { return dtype * 64 + nout; }
 
 }  // namespace
 
-// x: (rows, 32, h, w), contiguous (channels_last 0) or channels-last, NHWC in
-// memory (channels_last 1), dtype 0 (f32) or 2 (bf16); pred_w (nout - 1, 32,
-// 3, 3), pred_b (nout - 1), conf_w (1, 32, 3, 3), conf_b (1): contiguous f32;
-// pred (rows, nout - 1, h, w) and conf (rows, 1, h, w): contiguous, x's
-// dtype. nout: 2 or 14. Returns the cudaError_t of the launch (0 on success).
+// x: (rows, 32, h, w), channels-last (NHWC in memory), dtype 0 (f32) or 2
+// (bf16); pred_w (nout - 1, 32, 3, 3), pred_b (nout - 1), conf_w (1, 32, 3,
+// 3), conf_b (1): contiguous f32; pred (rows, nout - 1, h, w) and conf
+// (rows, 1, h, w): contiguous, x's dtype. nout: 2 or 14. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int omnifusion_fused_heads(const void* x, int dtype, const float* pred_w,
                                       const float* pred_b, const float* conf_w,
                                       const float* conf_b, void* pred, void* conf, int nout,
                                       int64_t rows, int64_t h, int64_t w, int do_relu,
-                                      int channels_last, void* stream) {
+                                      void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (nout) {
-    case 2:
-      return launch_dtype<2>(x, dtype, pred_w, pred_b, conf_w, conf_b, pred, conf, rows, h, w,
-                             do_relu != 0, channels_last != 0, s);
-    case 14:
-      return launch_dtype<14>(x, dtype, pred_w, pred_b, conf_w, conf_b, pred, conf, rows, h, w,
-                              do_relu != 0, channels_last != 0, s);
+  const bool relu = do_relu != 0;
+  switch (form(dtype, nout)) {
+    case form(2, 2):  // bf16: on the tensor cores
+      return launch<__nv_bfloat16>(fused_heads3x3_mma_kernel<2>, kMmaBlockRows<2>,
+                                   kMmaRingSmem<2>, x, pred_w, pred_b, conf_w, conf_b, pred, conf,
+                                   rows, h, w, relu, s);
+    case form(2, 14):
+      return launch<__nv_bfloat16>(fused_heads3x3_mma_kernel<14>, kMmaBlockRows<14>,
+                                   kMmaRingSmem<14>, x, pred_w, pred_b, conf_w, conf_b, pred,
+                                   conf, rows, h, w, relu, s);
+    case form(0, 2):  // f32: on the CUDA cores
+      return launch<float>(fused_heads3x3_nhwc_kernel, kNhwcBlockRows, kNhwcSmem, x, pred_w,
+                           pred_b, conf_w, conf_b, pred, conf, rows, h, w, relu, s);
+    case form(0, 14):
+      return launch<float>(fused_heads3x3_kernel, kChunkRows, kChunkSmem, x, pred_w, pred_b,
+                           conf_w, conf_b, pred, conf, rows, h, w, relu, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -66,7 +66,7 @@ _SIGNATURES = {
     "omnifusion_fused_heads": (
         _P, _I, _P, _P, _P, _P,  # x, dtype, pred weight, bias, conf weight, bias
         _P, _P, _I, _L, _L, _L, _I,  # pred, conf, outputs, rows, h, w, relu
-        _I, _P,  # channels last, stream
+        _P,  # stream
     ),
 }
 

@@ -9,14 +9,13 @@ computes them. On the card cuDNN ran them as a transpose of the map, a
 the bytes' bound, so the serving path has a kernel of its own.
 
 - ``fused_heads``: on a CUDA tensor it launches
-  ``omnifusion_torch/csrc/heads.cu`` and adds one to
-  ``fused_heads.launches`` and to the counter ``fused_heads.launches``
-  (``utils/profiling.count``): its channel-last form on a channels-last map
-  (``_build.channels_last``, the decoder's map where autograd records
-  nothing), which also adds one to the counter ``fused_heads.channels_last``,
-  and its NCHW form on a contiguous one. On a CPU tensor it runs
-  ``fused_heads_plain``; on any other device it raises. It records nothing
-  for autograd: the models call it only where autograd records nothing.
+  ``omnifusion_torch/csrc/heads.cu`` on the map in channels-last memory
+  order (the decoder's map where autograd records nothing is so already;
+  any other layout is copied once) and adds one to ``fused_heads.launches``
+  and to the counter ``fused_heads.launches`` (``utils/profiling.count``).
+  On a CPU tensor it runs ``fused_heads_plain``; on any other device it
+  raises. It records nothing for autograd: the models call it only where
+  autograd records nothing.
 - ``fused_heads_plain``: the heads as the models compute them where
   gradients are recorded (``F.conv2d`` with both heads' parameters cast to
   the map's dtype, then the activations).
@@ -60,10 +59,9 @@ def _heads_kernel(x, pred_weight, pred_bias, conf_weight, conf_bias, activation:
         raise ValueError(f"fused_heads: {n_out} outputs; the kernel is built for {OUTPUTS}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_heads: unsupported dtype {x.dtype}")
-    channels_last = _build.channels_last(x)
-    if x.dim() != 4 or x.shape[1] != CHANNELS or not (x.is_contiguous() or channels_last):
-        raise ValueError(f"fused_heads: need a contiguous or channels-last (R, {CHANNELS}, H, W) "
-                         f"map, got {tuple(x.shape)} with strides {x.stride()}")
+    if x.dim() != 4 or x.shape[1] != CHANNELS:
+        raise ValueError(f"fused_heads: the kernel is built for a width of {CHANNELS} channels: "
+                         f"need an (R, {CHANNELS}, H, W) map, got {tuple(x.shape)}")
     for p, shape in ((pred_weight, (n_out - 1, CHANNELS, 3, 3)), (pred_bias, (n_out - 1,)),
                      (conf_weight, (1, CHANNELS, 3, 3)), (conf_bias, (1,))):
         if (p.dtype != torch.float32 or tuple(p.shape) != shape or not p.is_contiguous()
@@ -72,6 +70,7 @@ def _heads_kernel(x, pred_weight, pred_bias, conf_weight, conf_bias, activation:
                              f"{x.device}, got {p.dtype} {tuple(p.shape)} on {p.device}")
     if activation not in ("relu", "none"):
         raise ValueError(f"fused_heads: activation must be 'relu' or 'none', got {activation!r}")
+    x = x.contiguous(memory_format=torch.channels_last)
     r, _, h, w = x.shape
     pred = torch.empty(r, n_out - 1, h, w, dtype=x.dtype, device=x.device)
     conf = torch.empty(r, 1, h, w, dtype=x.dtype, device=x.device)
@@ -79,13 +78,11 @@ def _heads_kernel(x, pred_weight, pred_bias, conf_weight, conf_bias, activation:
         x.data_ptr(), _build.DTYPE_CODES[x.dtype],
         pred_weight.data_ptr(), pred_bias.data_ptr(), conf_weight.data_ptr(), conf_bias.data_ptr(),
         pred.data_ptr(), conf.data_ptr(), n_out, r, h, w, int(activation == "relu"),
-        int(channels_last), torch.cuda.current_stream(x.device).cuda_stream,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "fused_heads")
     fused_heads.launches += 1
     count("fused_heads.launches")
-    if channels_last:
-        count("fused_heads.channels_last")
     return pred, conf
 
 
@@ -93,9 +90,8 @@ def fused_heads(x, pred_weight, pred_bias, conf_weight, conf_bias, activation: s
     """(pred (R, k, H, W), conf (R, 1, H, W)) in ``x``'s dtype of the NCHW
     map ``x`` (R, 32, H, W) and the heads' f32 parameters: pred_weight (k,
     32, 3, 3), pred_bias (k,), conf_weight (1, 32, 3, 3), conf_bias (1,).
-    On the card ``x`` is contiguous or channels-last, f32 or bf16, k + 1 is
-    in ``OUTPUTS``, and both outputs are contiguous whatever ``x``'s
-    layout."""
+    On the card ``x`` is f32 or bf16 in any layout, k + 1 is in
+    ``OUTPUTS``, and both outputs are contiguous whatever ``x``'s layout."""
     if _build.on_cuda(x, "fused_heads"):
         return _heads_kernel(x, pred_weight, pred_bias, conf_weight, conf_bias, activation)
     return fused_heads_plain(x, pred_weight, pred_bias, conf_weight, conf_bias, activation)

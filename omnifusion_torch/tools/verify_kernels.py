@@ -320,7 +320,7 @@ def kernel_checks(device) -> list[dict]:
                  up2x_adjoint(gy_t), up2x_adjoint_plain(gy_t), 0.0)
     x = torch.randn(256, 128, device=device, generator=g) * 1e3
     _row(rows, "probe", probe(x), probe_plain(x), 0.0)
-    for n_out in OUTPUTS:  # the heads at the decoder's last stage, patch 32
+    for n_out in OUTPUTS:  # the heads at the decoder's last stage, patch 32 (through the copy)
         params = heads_params(n_out, g)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(8 * p, 32, PATCH, PATCH, device=device, generator=g).to(dtype)

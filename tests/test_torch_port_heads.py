@@ -9,8 +9,10 @@ one-block encoders and a one-layer transformer.
   records nothing, once a pass, and only for an output count the kernel is
   built for; a train step never calls it.
 - The kernel's wrapper refuses what the kernel does not take (checked with
-  ``_build.on_cuda`` patched, before any launch), and launches the form of
-  the map's layout (against a library that records its calls).
+  ``_build.on_cuda`` patched, before any launch), and hands the kernel the
+  map in channels-last memory order whatever its layout: a channels-last
+  map as it is, any other after one copy (against a library that records
+  what it is handed).
 - Channels-last maps: the plain path gives the NCHW values within
   rounding's bound. On the card's dispatch (``_build.on_cuda`` patched, the
   kernels' arithmetic by their plain versions) the models' decoder runs
@@ -27,6 +29,7 @@ The kernel itself is held to the plain version on the card
 (``tests/test_torch_port_cuda.py``, ``chip_smoke.py``).
 """
 
+import ctypes
 import types
 
 import numpy as np
@@ -172,10 +175,8 @@ def test_train_step_never_calls_the_wrapper(heads_calls, kind):
     assert np.isfinite(float(out["loss"])) and heads_calls == []
 
 
-def _refused(n_out=2, dtype=torch.float32, shape=(2, 32, 8, 8), view=None, param=None):
+def _refused(n_out=2, dtype=torch.float32, shape=(2, 32, 8, 8), param=None):
     x = torch.zeros(shape, dtype=dtype)
-    if view is not None:
-        x = view(x)
     params = list(_params(n_out))
     if param is not None:
         i, fn = param
@@ -189,8 +190,7 @@ REFUSALS = [
     ("outputs", ValueError, dict(n_out=15)),
     ("dtype", TypeError, dict(dtype=torch.float16)),
     ("dtype", TypeError, dict(dtype=torch.float64)),
-    ("contiguous", ValueError, dict(shape=(2, 32, 8, 16), view=lambda t: t[..., ::2])),
-    ("contiguous", ValueError, dict(shape=(2, 16, 8, 8))),
+    ("width of 32 channels", ValueError, dict(shape=(2, 16, 8, 8))),
     ("parameters", ValueError, dict(param=(0, lambda p: p.double()))),
     ("parameters", ValueError, dict(param=(2, lambda p: p[:, :16]))),
 ]
@@ -248,35 +248,48 @@ def test_plain_path_on_channels_last_maps_gives_the_nchw_values(dtype, n_out, ac
 
 
 class _FakeLibrary:
-    """The kernel library's heads entry, recording each call's layout."""
+    """The kernel library's heads entry, recording each call's sizes, the
+    map's address and the bf16 map as the kernel reads it (rows x h x w
+    pixels of 32 channels, as 16-bit words)."""
 
     def __init__(self):
         self.calls = []
 
     def omnifusion_fused_heads(self, x, dtype, pw, pb, cw, cb, pred, conf, n_out, rows, h, w,
-                               relu, channels_last, stream):
-        self.calls.append((n_out, rows, h, w, channels_last))
+                               relu, stream):
+        assert dtype == _build.DTYPE_CODES[torch.bfloat16]
+        read = (ctypes.c_int16 * (rows * h * w * hd.CHANNELS)).from_address(x)
+        self.calls.append((n_out, rows, h, w, x, torch.frombuffer(read, dtype=torch.int16).clone()))
         return 0
 
 
+LAYOUTS = {
+    "contiguous": lambda x: x,
+    "channels_last": lambda x: x.contiguous(memory_format=torch.channels_last),
+    "strided": lambda x: torch.stack([x, torch.zeros_like(x)], dim=4).flatten(3)[..., ::2],
+}
+
+
 @pytest.mark.parametrize("n_out", [2, 14])
-@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_kernel_wrapper_launches_the_form_of_the_map_layout(monkeypatch, layout, n_out):
     lib = _FakeLibrary()
     monkeypatch.setattr(_build, "on_cuda", lambda x, what: True)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
-    x = torch.zeros(2, 32, 6, 10, dtype=torch.bfloat16)
-    if layout == "channels_last":
-        x = x.contiguous(memory_format=torch.channels_last)
+    x = torch.randn(2, 32, 6, 10, generator=torch.Generator().manual_seed(9)).to(torch.bfloat16)
+    x_in = LAYOUTS[layout](x)
     before = hd.fused_heads.launches
     with recording() as rec:
-        pred, conf = hd.fused_heads(x, *_params(n_out))
-    cl = layout == "channels_last"
-    assert lib.calls == [(n_out, 2, 6, 10, int(cl))] and hd.fused_heads.launches == before + 1
-    assert rec.counters["fused_heads.launches"] == 1
-    assert rec.counters.get("fused_heads.channels_last", 0) == cl
+        pred, conf = hd.fused_heads(x_in, *_params(n_out))
+    assert hd.fused_heads.launches == before + 1 and rec.counters == {"fused_heads.launches": 1}
+    [(n, rows, h, w, address, seen)] = lib.calls
+    assert (n, rows, h, w) == (n_out, 2, 6, 10)
+    # the kernel reads the map channels-last: a channels-last map in place,
+    # any other layout after one copy
+    assert (address == x_in.data_ptr()) == (layout == "channels_last")
+    assert torch.equal(seen, x.permute(0, 2, 3, 1).reshape(-1).view(torch.int16))
     # the outputs are contiguous NCHW whatever the map's layout: the merge reads them so
     assert pred.shape == (2, n_out - 1, 6, 10) and conf.shape == (2, 1, 6, 10)
     assert pred.is_contiguous() and conf.is_contiguous()
