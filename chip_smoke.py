@@ -88,7 +88,14 @@ version (cuDNN's convolution and the activations) on the same map
 no gradients, never in a train step. Where autograd records nothing the
 decoder runs channels-last, so up2x's NHWC form (the NCHW form's bits) is
 checked and timed at the batch-64 shapes beside its NCHW form, and each
-model's forward is asserted to launch only it (channels_last_phase).
+model's forward is asserted to launch only it (channels_last_phase). In
+those forwards each convolution and its eval-mode BatchNorm run folded: the
+convolution on its cached bf16 weight, then one pass (the epilogue kernel)
+applies the BatchNorm's scale and bias, the residual and the ReLU. Each
+model's folded forward is held to its unfolded one and counted (47 folded
+convolutions a pass, each folded once), the kernel to its plain version's
+bits at the b64 maps and timed, and the b64 bf16 forward timed both ways
+(fold_phase).
 
 Then it times each kernel beside its bound, its plain version and one
 library call that computes the same function (the up2x adjoint also with
@@ -133,9 +140,10 @@ sys.path.insert(0, REPO)
 # the tolerances and the parity helpers that omnifusion_torch.tools.verify_kernels
 # shares with this script (a directory without the repository fails here)
 from omnifusion_torch.tools.verify_kernels import (  # noqa: E402
-    BLEND_TOL, F64_RATIO, GRAD_TOL, HEAD_SCALE, LOSS_TOL, SPREAD_TOL, ULP_RATIO, UP2X_BF16_RTOL,
-    UP2X_TOL, as_f64, compare, grad_parity, heads_gap, heads_params, loss_and_grads, nudged,
-    plain_versions, step_parity, tame_heads,
+    BLEND_TOL, F64_RATIO, FOLD_BF16_RATIO, FOLD_F32_GAP, GRAD_TOL, HEAD_SCALE, LOSS_TOL,
+    SPREAD_TOL, ULP_RATIO, UP2X_BF16_RTOL, UP2X_TOL, as_f64, calibrate_norms, compare,
+    grad_parity, heads_gap, heads_params, loss_and_grads, nudged, plain_versions, step_parity,
+    tame_heads,
 )
 
 DEVICE = "cuda"
@@ -1700,6 +1708,146 @@ def channels_last_phase(gpu: str, timer) -> dict:
     return {"rows": rows, "served": served}
 
 
+def fold_phase(gpu: str, timer) -> dict:
+    """The folded trunk (omnifusion_torch/models/layers.py: conv_bn_relu):
+    at BATCH, a forward without autograd of each model (one-shot f32 and
+    bf16, iterative and segmentation bf16; one set of weights, its
+    BatchNorms calibrated on the batch in f32 by
+    verify_kernels.calibrate_norms), runs 47 (iterative 94) convolutions
+    folded and 44 (88) epilogue kernels (the downsamples join their block's),
+    folds each once and nothing on the second forward, and gives
+    the unfolded forward's outputs (the same model with the fold off): f32
+    within FOLD_F32_GAP, bf16 no farther from the f32 forward than
+    FOLD_BF16_RATIO times the unfolded bf16 one. Then the epilogue kernel
+    (omnifusion_torch/ops/epilogue.py) at four of the HEADS_BATCH forward's
+    maps gives its plain version's bits and is timed beside its bytes' bound
+    and the plain version, and the one-shot bf16 forward at HEADS_BATCH is
+    timed folded and unfolded."""
+    import omnifusion_torch.models.layers as ly
+    from omnifusion_torch.models import (
+        SphericalFusion, SphericalFusionIterative, SphericalFusionSeg, init_weights,
+    )
+    from omnifusion_torch.ops.epilogue import conv_epilogue, conv_epilogue_plain
+    from omnifusion_torch.projection import ProjectionSpec
+    from omnifusion_torch.utils.profiling import bound_ms, nbytes, recording
+
+    dev = torch.device(DEVICE)
+    spec = ProjectionSpec.create(ERP, PATCH, (FOV, FOV), NROWS)
+    g = torch.Generator(device=dev).manual_seed(43)
+    rgb = torch.rand(BATCH, *ERP, 3, device=dev, generator=g)
+    models = {"oneshot": (SphericalFusion, {}, 47, 47),
+              "iterative": (SphericalFusionIterative, {"num_iters": ITERS}, 94, 49),
+              "seg": (SphericalFusionSeg, {"num_classes": SEG_CLASSES}, 47, 47)}
+
+    def build(kind, dtype):
+        """The model in ``dtype`` with the f32 model's weights, calibrated on
+        the batch in f32, and the f32 model."""
+        cls, kw, _, _ = models[kind]
+        f32 = calibrate_norms(init_weights(cls(spec, device=dev, **kw), 0), rgb)
+        if dtype is None:
+            return f32, f32
+        model = cls(spec, dtype=dtype, device=dev, **kw)
+        model.load_state_dict(f32.state_dict())
+        return model.eval(), f32
+
+    def forward(model, rgb, fold=True):
+        saved = ly._folds
+        if not fold:
+            ly._folds = lambda bn, x: False
+        try:
+            with torch.inference_mode(), recording() as rec:
+                out = model(rgb)
+        finally:
+            ly._folds = saved
+        torch.cuda.synchronize()
+        return [o.double() for o in (out if isinstance(out, list) else [out])], rec.counters
+
+    def gap(a, b):
+        return float((a - b).norm() / b.norm())
+
+    rows = []
+    for kind, dtype in (("oneshot", None), ("oneshot", torch.bfloat16),
+                        ("iterative", torch.bfloat16), ("seg", torch.bfloat16)):
+        _, _, convs, folds = models[kind]
+        model, f32_model = build(kind, dtype)
+        seen = []
+        for _ in range(2):
+            got, counters = forward(model, rgb)
+            seen.append({k: counters.get(k, 0)
+                         for k in ("conv_fold.convs", "conv_fold.folds", "conv_epilogue.launches")})
+        want, _ = forward(model, rgb, fold=False)
+        f32 = forward(f32_model, rgb, fold=False)[0]
+        del model, f32_model
+        gaps = [gap(a, b) for a, b in zip(got, want)]
+        to_f32 = [(gap(a, c), gap(b, c)) for a, b, c in zip(got, want, f32)]
+        row = {"model": kind, "dtype": "bf16" if dtype else "f32", "batch": BATCH,
+               "counters": seen, "gap_to_unfolded": gaps, "gap_to_f32": to_f32}
+        emit({"phase": "fold", "gpu": gpu, **row})
+        rows.append(row)
+        launches = 44 * (convs // 47)  # a pass: 47 convolutions, 3 of them downsamples
+        if seen != [{"conv_fold.convs": convs, "conv_fold.folds": n, "conv_epilogue.launches":
+                     launches} for n in (folds, 0)]:
+            raise AssertionError(f"fold {kind}: counters {seen}, expected {convs} folded "
+                                 f"convolutions, {launches} epilogue launches, {folds} then 0 "
+                                 "folds")
+        if dtype is None and max(gaps) >= FOLD_F32_GAP:
+            raise AssertionError(f"fold {kind} f32: {gaps} against the unfolded forward")
+        if dtype is not None and any(a > FOLD_BF16_RATIO * b for a, b in to_f32):
+            raise AssertionError(f"fold {kind} bf16: {to_f32} (folded, unfolded) to the f32 one")
+        del got, want, f32
+        torch.cuda.empty_cache()
+    # the epilogue kernel at the b64 forward's maps: the plain version's bits,
+    # timed beside its bytes' bound and the plain version
+    maps = HEADS_BATCH * spec.n_patches
+    kernel_rows = []
+    for case, shape, fmt, residual in (
+            ("de_conv4_0", (maps, 32, PATCH, PATCH), torch.channels_last, "none"),
+            ("layer1_conv2", (maps, 64, PATCH // 4, PATCH // 4), torch.channels_last, "identity"),
+            ("layer2_downsample", (maps, 128, PATCH // 8, PATCH // 8), torch.channels_last,
+             "shortcut"),
+            ("mlp_points2", (maps, 64, PATCH // 4, PATCH // 4), torch.contiguous_format, "none")):
+        y = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16).contiguous(
+            memory_format=fmt)
+        z = None if residual == "none" else torch.randn_like(y)
+        c = shape[1]
+        scale = torch.rand(c, device=dev, generator=g) + 0.5
+        bias = torch.randn(c, device=dev, generator=g)
+        z_scale, z_bias = ((torch.rand(c, device=dev, generator=g) + 0.5,
+                            torch.randn(c, device=dev, generator=g))
+                           if residual == "shortcut" else (None, None))
+        before = conv_epilogue.launches
+        got = conv_epilogue(y.clone(), scale, bias, z, z_scale, z_bias)
+        want = conv_epilogue_plain(y.clone(), scale, bias, z, z_scale, z_bias)
+        torch.cuda.synchronize()
+        if conv_epilogue.launches != before + 1 or not torch.equal(got, want):
+            raise AssertionError(f"conv_epilogue {case}: the kernel did not give the plain bits")
+        b_ms, b_by = bound_ms(nbytes(y, y, z), 0)
+        row = {"case": case, "shape": list(shape), "layout": str(fmt)[6:], "residual": residual,
+               "ms": timer(lambda: conv_epilogue(y, scale, bias, z, z_scale, z_bias)),
+               "plain_ms": timer(lambda: conv_epilogue_plain(y, scale, bias, z, z_scale, z_bias),
+                                 iters=5),
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "time", "kernel": "conv_epilogue", "gpu": gpu, **row})
+        kernel_rows.append(row)
+        del y, z, got, want
+    torch.cuda.empty_cache()
+    model = build("oneshot", torch.bfloat16)[0]
+    x = torch.rand(HEADS_BATCH, *ERP, 3, device=dev, generator=g)
+    with torch.inference_mode():
+        folded_ms = timer(lambda: model(x), iters=10)
+        saved, ly._folds = ly._folds, lambda bn, x: False
+        try:
+            unfolded_ms = timer(lambda: model(x), iters=10)
+        finally:
+            ly._folds = saved
+    time_row = {"model": "oneshot", "dtype": "bf16", "batch": HEADS_BATCH,
+                "folded_ms": folded_ms, "unfolded_ms": unfolded_ms}
+    emit({"phase": "time", "kernel": "folded_forward", "gpu": gpu, **time_row})
+    del model, x
+    torch.cuda.empty_cache()
+    return {"rows": rows, "kernel_rows": kernel_rows, "time": time_row}
+
+
 def multi_device_phases(gpu: str, f64_witness: dict) -> dict:
     """ddp_gloo2, mesh_model and mesh1 (see the comment above DDP_RANKS);
     ``f64_witness``: the float64 steps of the train parity phases, by
@@ -2526,6 +2674,10 @@ def main() -> int:
     # ---- up2x's NHWC form at the batched serving cells' shapes, and the
     # forwards that launch it ----
     channels_last = channels_last_phase(gpu, timer)
+
+    # ---- the folded trunk: every model's forward without autograd against
+    # its unfolded forward, and the b64 forward timed both ways ----
+    fold_phase(gpu, timer)
 
     # ---- the extras: pano_stretch on the blend and spread kernels, and the
     # DIBR chain against float64 ----

@@ -9,10 +9,11 @@ from __future__ import annotations
 
 from typing import Sequence
 
-import torch.nn.functional as F
 from torch import nn
 
-from omnifusion_torch.models.layers import TorchBatchNorm, max_pool_3x3_s2, torch_conv
+from omnifusion_torch.models.layers import (
+    TorchBatchNorm, conv_bn_relu, max_pool_3x3_s2, torch_conv,
+)
 from omnifusion_torch.utils.profiling import span
 
 
@@ -33,10 +34,9 @@ class BasicBlock(nn.Module):
             )
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + identity)
+        out = conv_bn_relu(self.conv1, self.bn1, x)
+        identity = x if self.downsample is None else (*self.downsample, x)
+        return conv_bn_relu(self.conv2, self.bn2, out, residual=identity)
 
 
 def resnet_stage(
@@ -97,7 +97,7 @@ class ResNet34Encoder(nn.Module):
     def encode(self, x, extra_layer1_features=None) -> dict:
         with span("encoder"):
             feats = {}
-            x = F.relu(self.bn1(self.conv1(x)))
+            x = conv_bn_relu(self.conv1, self.bn1, x)
             feats["conv1"] = x
             x = max_pool_3x3_s2(x)
             for i in range(1, len(self.stages) + 1):

@@ -25,7 +25,9 @@ conf are gathered before the merge, which every model rank runs whole.
 ``dtype=torch.bfloat16`` is the JAX package's serving recipe (bench.py:
 163-188): the ERP is cast before equi2pers, so the e2p blend reads bf16;
 MlpPoints, the encoder, ``down``, ``up_proj``, the decoder and the fused
-heads compute in bf16 on f32 parameters; the BatchNorms normalize in f32;
+heads compute in bf16 on f32 parameters; the BatchNorms normalize in f32
+(where autograd records nothing on the card, as one f32 pass after each
+convolution with the residual and the ReLU: ``layers.conv_bn_relu``);
 the transformer runs in f32 (transformer.py); the merge's precision is
 ``merge_dtype`` alone and the depth is f32. Parameters stay f32, so state
 dicts do not change.
@@ -44,6 +46,7 @@ from omnifusion_torch.device import resolve_device
 from omnifusion_torch.models.layers import (
     ConvBnReLU,
     TorchBatchNorm,
+    conv_bn_relu,
     resize_bilinear,
     torch_conv,
 )
@@ -65,7 +68,9 @@ from omnifusion_torch.utils.profiling import span
 
 class MlpPoints(nn.Sequential):
     """Two 1x1 conv + BN + ReLU geometric embedding (upstream mlp_points:
-    Sequential indices 0, 1, 3, 4 hold the parameters)."""
+    Sequential indices 0, 1, 3, 4 hold the parameters; the forward runs
+    each conv and BN through ``conv_bn_relu``, so the ReLU modules at 2 and 5
+    only keep those indices)."""
 
     def __init__(
         self, in_features: int = 5, hidden: int = 16, out: int = 64, dtype=None, device=None
@@ -78,6 +83,9 @@ class MlpPoints(nn.Sequential):
             TorchBatchNorm(out, device=device),
             nn.ReLU(),
         )
+
+    def forward(self, x):
+        return conv_bn_relu(self[3], self[4], conv_bn_relu(self[0], self[1], x))
 
 
 class DepthTrunk(ResNet34Encoder):

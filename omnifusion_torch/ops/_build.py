@@ -10,8 +10,8 @@ process; a later process with the same sources loads it without building.
 
 Pointers and the stream go through ctypes as ``c_void_p``, sizes and strides
 as ``c_int64``. Every entry returns ``cudaGetLastError()`` of its launch;
-the wrappers in ``quad_blend.py``, ``upsample.py``, ``heads.py`` and
-``probe.py`` raise when it is not 0.
+the wrappers in ``quad_blend.py``, ``upsample.py``, ``heads.py``,
+``epilogue.py`` and ``probe.py`` raise when it is not 0.
 """
 
 from __future__ import annotations
@@ -68,6 +68,8 @@ _SIGNATURES = {
         _P, _P, _I, _L, _L, _L, _I,  # pred, conf, outputs, rows, h, w, relu
         _P,  # stream
     ),
+    # y, z, dtype, scale, bias, z scale, z bias, n, c, hw, nhwc, stream
+    "omnifusion_conv_epilogue": (_P, _P, _I, _P, _P, _P, _P, _L, _L, _L, _I, _P),
 }
 
 

@@ -68,6 +68,14 @@ SPREAD_TOL = {torch.float32: (1e-5, 1.3e-4), torch.float16: (1e-5, 1e-3),
 # BatchNorms on running statistics the median is also held to GRAD_TOL
 LOSS_TOL, GRAD_TOL, F64_RATIO, ULP_RATIO = 1e-5, 1e-3, 1.5, 2.0
 HEAD_SCALE = 0.05  # tame_heads
+# the folded trunk (models/layers.py: conv_bn_relu) against the same model
+# unfolded, each output's relative L2 gap: f32 (TF32 off) within
+# FOLD_F32_GAP (the BatchNorm's affine map in another order, 47 times a
+# pass); bf16 no farther from the f32 forward than FOLD_BF16_RATIO times the
+# unfolded bf16 forward's gap (the same weights, convolution outputs and bf16
+# roundings, the BatchNorm's f32 map in another order; a wrong fold moves it
+# by the whole output)
+FOLD_F32_GAP, FOLD_BF16_RATIO = 1e-4, 1.25
 
 # the JAX tool's spec, and its batches: 64 panoramas for each kernel and
 # for the composed step
@@ -89,20 +97,43 @@ def plain_versions():
     the kernel's plain version, on the card; the autograd Functions stay, so
     autograd still never differentiates the plain code. Only the parity
     checks do this, to compare the whole forward and train step."""
+    import omnifusion_torch.ops.epilogue as ep
     import omnifusion_torch.ops.heads as hd
     import omnifusion_torch.ops.quad_blend as qb
     import omnifusion_torch.ops.upsample as ups
 
     saved = (qb._blend_kernel, qb._spread_kernel, ups._up2x_kernel, ups._adjoint_kernel,
-             hd._heads_kernel)
+             hd._heads_kernel, ep._epilogue_kernel)
     qb._blend_kernel, qb._spread_kernel = qb.quad_blend_plain, qb.quad_spread_plain
     ups._up2x_kernel, ups._adjoint_kernel = ups.up2x_plain, ups.up2x_adjoint_plain
     hd._heads_kernel = hd.fused_heads_plain
+    ep._epilogue_kernel = ep.conv_epilogue_plain
     try:
         yield
     finally:
         (qb._blend_kernel, qb._spread_kernel, ups._up2x_kernel, ups._adjoint_kernel,
-         hd._heads_kernel) = saved
+         hd._heads_kernel, ep._epilogue_kernel) = saved
+
+
+@torch.no_grad()
+def calibrate_norms(model: torch.nn.Module, rgb: torch.Tensor, seed: int = 1) -> torch.nn.Module:
+    """``model``'s BatchNorms given scales in [0.5, 1.5) and shifts of 0.3
+    N(0, 1) (seeded), and as running statistics those of one train-mode
+    forward of ``rgb`` without autograd, so that the eval-mode model
+    normalizes its features as a trained one does; returns it in eval
+    mode."""
+    g = torch.Generator().manual_seed(seed)
+    norms = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    momenta = [m.momentum for m in norms]
+    for m in norms:
+        c = m.num_features
+        m.weight.copy_(0.5 + torch.rand(c, generator=g))
+        m.bias.copy_(0.3 * torch.randn(c, generator=g))
+        m.momentum = 1.0  # the running statistics become the batch's
+    model.train()(rgb)
+    for m, momentum in zip(norms, momenta):
+        m.momentum = momentum
+    return model.eval()
 
 
 @contextlib.contextmanager

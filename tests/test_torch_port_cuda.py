@@ -12,6 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+import omnifusion_torch.models.layers as ly
+from omnifusion_torch.models import (
+    SphericalFusion, SphericalFusionIterative, SphericalFusionSeg, init_weights,
+)
 from omnifusion_torch.ops import _build
 from omnifusion_torch.ops import quad_blend as qb
 from omnifusion_torch.ops.quad_blend import (
@@ -23,6 +27,7 @@ from omnifusion_torch.ops.quad_blend import (
     quad_spread,
     quad_spread_plain,
 )
+from omnifusion_torch.ops.epilogue import conv_epilogue, conv_epilogue_plain
 from omnifusion_torch.ops.heads import fused_heads, fused_heads_plain
 from omnifusion_torch.ops.probe import probe, probe_plain
 from omnifusion_torch.ops.upsample import up2x, up2x_adjoint, up2x_adjoint_plain, up2x_plain
@@ -31,7 +36,10 @@ from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
 from omnifusion_torch.projection.spec import (
     TransposedTables, build_equi2pers_grids, build_vjp_tables,
 )
-from omnifusion_torch.tools.verify_kernels import full_f32, heads_gap, heads_params
+from omnifusion_torch.tools.verify_kernels import (
+    FOLD_BF16_RATIO, FOLD_F32_GAP, calibrate_norms, full_f32, heads_gap, heads_params,
+)
+from omnifusion_torch.utils.profiling import recording
 
 pytestmark = pytest.mark.cuda
 
@@ -832,3 +840,155 @@ def test_uniform_layout_projections_match_plain(cuda, layout):
     g_pers = quad_spread_plain(cot.reshape(2, -1, 3), t_p2e.vjp, True)
     g_erp = quad_spread_plain(g_pers, t_e2p.vjp, True)
     torch.testing.assert_close(erp.grad.reshape(g_erp.shape), g_erp, rtol=1.3e-4, atol=1e-5)
+
+
+# the folded trunk (models/layers.py: conv_bn_relu): patch 64, so layer4 is
+# 2x2 and the decoder runs channels-last, as at the flagship's patch 128
+FOLD_SPEC = ProjectionSpec.create((128, 256), (64, 64), (80, 80), 4)
+FOLD_MODELS = {"oneshot": (SphericalFusion, {}, 47, 47),
+               "iterative": (SphericalFusionIterative, {"num_iters": 2}, 94, 49),
+               "seg": (SphericalFusionSeg, {"num_classes": 13}, 47, 47)}
+
+
+def fold_models(kind: str, rgb):
+    """The f32 and bf16 models of ``kind``, in eval mode, with the same
+    seeded weights and BatchNorms calibrated on ``rgb`` in f32
+    (``verify_kernels.calibrate_norms``)."""
+    cls, kw, _, _ = FOLD_MODELS[kind]
+    f32 = calibrate_norms(init_weights(cls(FOLD_SPEC, device=rgb.device, **kw), 0), rgb)
+    bf16 = cls(FOLD_SPEC, dtype=torch.bfloat16, device=rgb.device, **kw)
+    bf16.load_state_dict(f32.state_dict())
+    return f32, bf16.eval()
+
+
+def fold_forward(model, rgb, fold: bool = True):
+    """Each pass's output of a forward without autograd, and its counters;
+    ``fold=False``: the same forward with the BatchNorms unfolded."""
+    saved = ly._folds
+    if not fold:
+        ly._folds = lambda bn, x: False
+    try:
+        with torch.inference_mode(), recording() as rec:
+            out = model(rgb)
+    finally:
+        ly._folds = saved
+    torch.cuda.synchronize()
+    return [o.double() for o in (out if isinstance(out, list) else [out])], rec.counters
+
+
+def rel_gap(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", list(FOLD_MODELS))
+def test_folded_forward_matches_unfolded(cuda, kind, dtype):
+    """The folded forward against the same model's unfolded one: f32 (TF32
+    off) within FOLD_F32_GAP; bf16 no farther from the f32 forward than
+    FOLD_BF16_RATIO times the unfolded bf16 one. It runs 47 (iterative 94)
+    convolutions folded a forward and 44 (88) epilogue kernels (the
+    downsamples join their block's), folds each once and nothing on the
+    second forward."""
+    _, _, convs, folds = FOLD_MODELS[kind]
+    rgb = torch.rand(2, FOLD_SPEC.erp_h, FOLD_SPEC.erp_w, 3, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(3))
+    with full_f32():
+        f32_model, bf16_model = fold_models(kind, rgb)
+        model = f32_model if dtype == torch.float32 else bf16_model
+        for n_folds in (folds, 0):
+            got, counters = fold_forward(model, rgb)
+            assert counters.get("conv_fold.convs") == convs
+            assert counters.get("conv_epilogue.launches") == 44 * (convs // 47)
+            assert counters.get("conv_fold.folds", 0) == n_folds
+        want, counters = fold_forward(model, rgb, fold=False)
+        assert "conv_fold.convs" not in counters and "conv_epilogue.launches" not in counters
+        f32 = fold_forward(f32_model, rgb, fold=False)[0]
+    for g, w, f in zip(got, want, f32):
+        assert torch.isfinite(g).all()
+        if dtype == torch.float32:
+            assert rel_gap(g, w) < FOLD_F32_GAP, rel_gap(g, w)
+        else:
+            assert rel_gap(g, f) <= FOLD_BF16_RATIO * rel_gap(w, f), (rel_gap(g, f),
+                                                                      rel_gap(w, f))
+
+
+# (shape, layout): the trunk's channels-last maps (the flagship's widths at
+# small sizes) and the embedding's NCHW maps, in the 16-byte vector form; in
+# the element form channels or planes no vector divides, 1x1 maps, and an
+# NCHW map 2 bytes off alignment ("nchw_offset")
+EPILOGUE_CASES = [((2, 64, 16, 16), "nhwc"), ((3, 32, 8, 8), "nhwc"), ((2, 512, 4, 4), "nhwc"),
+                  ((2, 16, 32, 32), "nchw"), ((2, 64, 8, 8), "nchw"), ((2, 12, 5, 7), "nhwc"),
+                  ((2, 16, 3, 5), "nchw"), ((4, 24, 1, 1), "nhwc"), ((2, 16, 4, 8), "nchw_offset")]
+
+
+def epilogue_operands(shape, layout, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def laid_out(t):
+        if layout == "nhwc":
+            return t.contiguous(memory_format=torch.channels_last)
+        if layout == "nchw":
+            return t.contiguous()
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    y = laid_out((torch.randn(shape, device=device, generator=g) * 3).to(dtype))
+    z = laid_out(torch.randn(shape, device=device, generator=g).to(dtype))
+    c = shape[1]
+    scale = torch.rand(c, device=device, generator=g) * 2 + 0.1
+    bias = torch.randn(c, device=device, generator=g)
+    z_scale = torch.rand(c, device=device, generator=g) + 0.5
+    z_bias = torch.randn(c, device=device, generator=g)
+    return y, scale, bias, z, z_scale, z_bias
+
+
+@pytest.mark.parametrize("residual", ["none", "identity", "shortcut"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,layout", EPILOGUE_CASES)
+def test_conv_epilogue_kernel_gives_the_plain_bits(cuda, shape, layout, dtype, residual):
+    y, scale, bias, z, z_scale, z_bias = epilogue_operands(shape, layout, dtype, cuda)
+    z = None if residual == "none" else z
+    z_scale, z_bias = (z_scale, z_bias) if residual == "shortcut" else (None, None)
+    want = conv_epilogue_plain(y.clone(), scale, bias, z, z_scale, z_bias)
+    before = conv_epilogue.launches
+    got = conv_epilogue(y, scale, bias, z, z_scale, z_bias)
+    torch.cuda.synchronize()
+    assert conv_epilogue.launches == before + 1
+    assert got.data_ptr() == y.data_ptr() and got.stride() == want.stride()
+    assert torch.equal(got, want)
+
+
+# operands the kernel does not take: the wrapper raises on the card
+EPILOGUE_REFUSALS = ["f16", "f64", "strided", "residual_dtype", "residual_order", "scale_f64"]
+
+
+@pytest.mark.parametrize("case", EPILOGUE_REFUSALS)
+def test_conv_epilogue_refuses_what_the_kernel_does_not_take(cuda, case):
+    dtype = {"f16": torch.float16, "f64": torch.float64}.get(case, torch.bfloat16)
+    y, scale, bias, z, _, _ = epilogue_operands((2, 16, 4, 8), "nhwc", dtype, cuda)
+    if case == "strided":
+        y = y[..., ::2]
+    elif case == "residual_dtype":
+        z = z.float()
+    elif case == "residual_order":
+        z = z.contiguous()
+    elif case == "scale_f64":
+        scale = scale.double()
+    before = conv_epilogue.launches
+    with pytest.raises((TypeError, ValueError)):
+        conv_epilogue(y, scale, bias, z if case.startswith("residual") else None)
+    assert conv_epilogue.launches == before
+
+
+def test_conv_epilogue_kernel_past_32_bit_indices(cuda):
+    # de_conv4_0 of a batch-256 bf16 forward: 2.4e9 outputs (omnifusion_torch.bench's batch)
+    y, scale, bias, _, _, _ = epilogue_operands((4608, 32, 8, 8), "nhwc", torch.bfloat16, cuda)
+    y = y.repeat(1, 1, 16, 16).contiguous(memory_format=torch.channels_last)
+    assert y.numel() > 2**31
+    rows = [0, 2047, 4607]
+    want = [conv_epilogue_plain(y[i:i + 1].clone(), scale, bias) for i in rows]
+    conv_epilogue(y, scale, bias)
+    torch.cuda.synchronize()
+    for i, w in zip(rows, want):
+        assert torch.equal(y[i:i + 1], w)

@@ -18,7 +18,8 @@ one-block encoders and a one-layer transformer.
   kernels' arithmetic by their plain versions) the models' decoder runs
   channels-last from the first resize to the heads where autograd records
   nothing (at patch 64: layer4 is 2x2; a 1x1 layer4 is either layout and
-  stays NCHW), with the NCHW path's outputs; where it records, in a train
+  stays NCHW), with the NCHW path's outputs (its BatchNorms unfolded,
+  ``layers._folds`` patched: the fold has its own tests); where it records, in a train
   step, and on the CPU's own dispatch it runs contiguous NCHW, as before.
 - ``tools/verify_kernels.py: heads_gap``, the bound the card's checks hold
   the kernel to, admits the kernel's arithmetic (operands as the map's
@@ -37,6 +38,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import omnifusion_torch.models.layers as ly
 import omnifusion_torch.models.spherical_fusion as sf
 from omnifusion_torch.models import (
     SphericalFusion, SphericalFusionIterative, SphericalFusionSeg, init_weights,
@@ -332,6 +334,8 @@ def _watched(kind: str, monkeypatch, where: str):
 def test_decoder_runs_channels_last_only_on_the_card_without_autograd(monkeypatch, kind, where):
     model, seen = _watched(kind, monkeypatch, where)
     passes = 2 if kind == "iterative" else 1
+    # the BatchNorms unfolded (tests/test_torch_port_fold.py holds the fold)
+    monkeypatch.setattr(ly, "_folds", lambda bn, x: False)
     with plain_versions():
         with torch.inference_mode():
             out = model(_rgb())
