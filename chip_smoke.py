@@ -95,7 +95,10 @@ applies the BatchNorm's scale and bias, the residual and the ReLU. Each
 model's folded forward is held to its unfolded one and counted (47 folded
 convolutions a pass, each folded once), the kernel to its plain version's
 bits at the b64 maps and timed, and the b64 bf16 forward timed both ways
-(fold_phase).
+(fold_phase). The one-shot model at the upstream README's patch 256 gets
+the same checks at its own shapes: each kernel against its plain version,
+the fold, the up_proj sum in layer4's memory order, the serving forward's
+launches and time, and cli/infer.py (p256_phase).
 
 Then it times each kernel beside its bound, its plain version and one
 library call that computes the same function (the up2x adjoint also with
@@ -1708,6 +1711,51 @@ def channels_last_phase(gpu: str, timer) -> dict:
     return {"rows": rows, "served": served}
 
 
+# the epilogue kernel's cases at a forward's maps: (case, channels, the
+# patch's side over the map's, memory order, residual)
+EPILOGUE_CASES = (("de_conv4_0", 32, 1, torch.channels_last, "none"),
+                  ("layer1_conv2", 64, 4, torch.channels_last, "identity"),
+                  ("layer2_downsample", 128, 8, torch.channels_last, "shortcut"),
+                  ("mlp_points2", 64, 4, torch.contiguous_format, "none"))
+
+
+def epilogue_case(gpu: str, case: str, shape: tuple, fmt, residual: str, g, timer) -> dict:
+    """The epilogue kernel (omnifusion_torch/ops/epilogue.py) on a seeded
+    bf16 map of ``shape`` in memory order ``fmt``, with no residual, the
+    identity or a shortcut through its own scale and bias: one launch, the
+    plain version's bits; timed beside its bytes' bound and the plain
+    version (emitted as a time row, and returned)."""
+    from omnifusion_torch.ops.epilogue import conv_epilogue, conv_epilogue_plain
+    from omnifusion_torch.utils.profiling import bound_ms, nbytes
+
+    dev = torch.device(DEVICE)
+    y = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16).contiguous(
+        memory_format=fmt)
+    z = None if residual == "none" else torch.randn_like(y)
+    c = shape[1]
+    scale = torch.rand(c, device=dev, generator=g) + 0.5
+    bias = torch.randn(c, device=dev, generator=g)
+    z_scale, z_bias = ((torch.rand(c, device=dev, generator=g) + 0.5,
+                        torch.randn(c, device=dev, generator=g))
+                       if residual == "shortcut" else (None, None))
+    before = conv_epilogue.launches
+    got = conv_epilogue(y.clone(), scale, bias, z, z_scale, z_bias)
+    want = conv_epilogue_plain(y.clone(), scale, bias, z, z_scale, z_bias)
+    torch.cuda.synchronize()
+    if conv_epilogue.launches != before + 1 or not torch.equal(got, want):
+        raise AssertionError(f"conv_epilogue {case}: the kernel did not give the plain bits")
+    del got, want
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound_ms(nbytes(y, y, z), 0)
+    row = {"case": case, "shape": list(shape), "layout": str(fmt)[6:], "residual": residual,
+           "ms": timer(lambda: conv_epilogue(y, scale, bias, z, z_scale, z_bias)),
+           "plain_ms": timer(lambda: conv_epilogue_plain(y, scale, bias, z, z_scale, z_bias),
+                             iters=5),
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "time", "kernel": "conv_epilogue", "gpu": gpu, **row})
+    return row
+
+
 def fold_phase(gpu: str, timer) -> dict:
     """The folded trunk (omnifusion_torch/models/layers.py: conv_bn_relu):
     at BATCH, a forward without autograd of each model (one-shot f32 and
@@ -1727,9 +1775,8 @@ def fold_phase(gpu: str, timer) -> dict:
     from omnifusion_torch.models import (
         SphericalFusion, SphericalFusionIterative, SphericalFusionSeg, init_weights,
     )
-    from omnifusion_torch.ops.epilogue import conv_epilogue, conv_epilogue_plain
     from omnifusion_torch.projection import ProjectionSpec
-    from omnifusion_torch.utils.profiling import bound_ms, nbytes, recording
+    from omnifusion_torch.utils.profiling import recording
 
     dev = torch.device(DEVICE)
     spec = ProjectionSpec.create(ERP, PATCH, (FOV, FOV), NROWS)
@@ -1799,37 +1846,9 @@ def fold_phase(gpu: str, timer) -> dict:
     # the epilogue kernel at the b64 forward's maps: the plain version's bits,
     # timed beside its bytes' bound and the plain version
     maps = HEADS_BATCH * spec.n_patches
-    kernel_rows = []
-    for case, shape, fmt, residual in (
-            ("de_conv4_0", (maps, 32, PATCH, PATCH), torch.channels_last, "none"),
-            ("layer1_conv2", (maps, 64, PATCH // 4, PATCH // 4), torch.channels_last, "identity"),
-            ("layer2_downsample", (maps, 128, PATCH // 8, PATCH // 8), torch.channels_last,
-             "shortcut"),
-            ("mlp_points2", (maps, 64, PATCH // 4, PATCH // 4), torch.contiguous_format, "none")):
-        y = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16).contiguous(
-            memory_format=fmt)
-        z = None if residual == "none" else torch.randn_like(y)
-        c = shape[1]
-        scale = torch.rand(c, device=dev, generator=g) + 0.5
-        bias = torch.randn(c, device=dev, generator=g)
-        z_scale, z_bias = ((torch.rand(c, device=dev, generator=g) + 0.5,
-                            torch.randn(c, device=dev, generator=g))
-                           if residual == "shortcut" else (None, None))
-        before = conv_epilogue.launches
-        got = conv_epilogue(y.clone(), scale, bias, z, z_scale, z_bias)
-        want = conv_epilogue_plain(y.clone(), scale, bias, z, z_scale, z_bias)
-        torch.cuda.synchronize()
-        if conv_epilogue.launches != before + 1 or not torch.equal(got, want):
-            raise AssertionError(f"conv_epilogue {case}: the kernel did not give the plain bits")
-        b_ms, b_by = bound_ms(nbytes(y, y, z), 0)
-        row = {"case": case, "shape": list(shape), "layout": str(fmt)[6:], "residual": residual,
-               "ms": timer(lambda: conv_epilogue(y, scale, bias, z, z_scale, z_bias)),
-               "plain_ms": timer(lambda: conv_epilogue_plain(y, scale, bias, z, z_scale, z_bias),
-                                 iters=5),
-               "bound_ms": b_ms, "bound_by": b_by}
-        emit({"phase": "time", "kernel": "conv_epilogue", "gpu": gpu, **row})
-        kernel_rows.append(row)
-        del y, z, got, want
+    kernel_rows = [epilogue_case(gpu, case, (maps, c, PATCH // d, PATCH // d), fmt, residual, g,
+                                 timer)
+                   for case, c, d, fmt, residual in EPILOGUE_CASES]
     torch.cuda.empty_cache()
     model = build("oneshot", torch.bfloat16)[0]
     x = torch.rand(HEADS_BATCH, *ERP, 3, device=dev, generator=g)
@@ -1846,6 +1865,244 @@ def fold_phase(gpu: str, timer) -> dict:
     del model, x
     torch.cuda.empty_cache()
     return {"rows": rows, "kernel_rows": kernel_rows, "time": time_row}
+
+
+# the README's patch 256 (benchmark/configs/oneshot_s2d3d_p256.json): its
+# tables' blend plans at the batched serving cells' batch (HEADS_BATCH), the
+# shapes its decoder's last stages meet, and its serving forward's launches
+P256 = 256
+P256_LAUNCHES = {"up2x.channels_last": 5, "conv_epilogue.launches": 44,
+                 "fused_heads.launches": 1, "quad_blend.staged": 1, "quad_blend.global": 1,
+                 "up_proj.calls": 1}
+
+
+def p256_phase(gpu: str, timer) -> dict:
+    """The one-shot model at patch 256 (512x1024, fov 80, nrows 4: 18
+    patches of 256x256, a 2048-wide token folded back through up_proj).
+    Each kernel at its HEADS_BATCH shapes against its plain version: the
+    merge (f16, 128 rows; footprint past STAGE_MAX_FOOTPRINT: the rule
+    gathers from global memory) and the e2p (bf16 stored bf16, 64 batches of
+    3; within it: the rule stages), each on the rule's plan and on the other
+    (``staged=``); the heads (bf16, 2 outputs) on the channels-last (1152,
+    32, 256, 256) map; up2x's NHWC form at 32 channels, 128 -> 256, bf16;
+    the conv epilogue on the forward's channels-last maps (EPILOGUE_CASES).
+    Each timed beside its bound, the plain version and the library call.
+    The BATCH forward's fold and the up_proj sum (p256_fold_and_fuse).
+    Then a bf16 serving forward (f16 merge) at BATCH and at HEADS_BATCH
+    launches P256_LAUNCHES and hands the heads a channels-last map (no
+    copy); the HEADS_BATCH forward is timed, with its peak memory; and two
+    panoramas go through cli/infer.py with --patchsize 256 --bf16."""
+    import torch.nn.functional as F
+
+    import omnifusion_torch.models.spherical_fusion as sf
+    from omnifusion_torch.cli import infer
+    from omnifusion_torch.models import SphericalFusion, init_weights
+    from omnifusion_torch.ops import _build
+    from omnifusion_torch.ops import quad_blend as qb
+    from omnifusion_torch.ops.heads import fused_heads, fused_heads_plain
+    from omnifusion_torch.ops.upsample import up2x, up2x_plain
+    from omnifusion_torch.projection import ProjectionSpec
+    from omnifusion_torch.projection.ops import equi2pers_tables, pers2equi_tables
+    from omnifusion_torch.utils.profiling import (
+        blend_bound, bound_ms as bound, nbytes, recording, up2x_bound,
+    )
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(45)
+    spec = ProjectionSpec.create(ERP, P256, (FOV, FOV), NROWS)
+    maps = HEADS_BATCH * spec.n_patches
+    t0 = time.perf_counter()
+    t_e2p, t_p2e = equi2pers_tables(spec, dev), pers2equi_tables(spec, dev)
+    emit({"phase": "p256_tables", "seconds": time.perf_counter() - t0,
+          "e2p": {"footprint_per_output": t_e2p.tiles.footprint, "pitch": t_e2p.tiles.pitch,
+                  **_plan(t_e2p.tiles, HEADS_BATCH, 3, 2)},
+          "merge": {"footprint_per_output": t_p2e.tiles.footprint, "pitch": t_p2e.tiles.pitch,
+                    "tail_entries": t_p2e.n_tail, **_plan(t_p2e.tiles, 2 * HEADS_BATCH, 1, 2)}})
+    rows = []
+    for name, tables, cl, dtype, out_dtype in (
+            ("merge", t_p2e, False, torch.float16, None),
+            ("e2p", t_e2p, True, torch.bfloat16, torch.bfloat16)):
+        shape = (HEADS_BATCH, tables.n_in, 3) if cl else (HEADS_BATCH, 2, tables.n_in)
+        x = torch.rand(shape, device=dev, generator=g).to(dtype)
+        want = qb.quad_blend_plain(x, tables, cl, out_dtype)
+        rule = qb.blend_plan(tables.tiles, shape[0] if cl else shape[0] * 2, 3 if cl else 1,
+                             x.element_size())[0]
+        for staged in (rule, not rule):
+            with recording() as rec:
+                got = qb._blend_kernel(x, tables, cl, out_dtype, staged=staged)
+            plan = "staged" if staged else "global"
+            tol = (BLEND_TOL, 0.0) if out_dtype is None else (1e-6, 2.0**-7)
+            check("quad_blend", f"p256_{name}_{plan}_b{HEADS_BATCH}", got, want, *tol,
+                  rule=staged == rule, footprint=tables.tiles.footprint)
+            if {k: v for k, v in rec.counters.items() if k.startswith("quad_blend.")} != {
+                    f"quad_blend.{plan}": 1}:
+                raise AssertionError(f"p256 {name} {plan}: counters {rec.counters}")
+            b_ms, b_by = blend_bound(x, tables, got)
+            rows.append({"case": f"p256_{name}_b{HEADS_BATCH}", "plan": plan,
+                         "rule": staged == rule, "dtype": str(dtype)[6:],
+                         "ms": timer(lambda: qb._blend_kernel(x, tables, cl, out_dtype,
+                                                              staged=staged)),
+                         "plain_ms": timer(lambda: qb.quad_blend_plain(x, tables, cl, out_dtype),
+                                           iters=3),
+                         "bound_ms": b_ms, "bound_by": b_by})
+            emit({"phase": "time", "kernel": "quad_blend", "gpu": gpu, **rows[-1]})
+        del x, want, got
+    torch.cuda.empty_cache()
+
+    params = heads_params(2, g)
+    x = torch.randn(maps, 32, P256, P256, device=dev, generator=g).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    got = fused_heads(x, *params)
+    torch.cuda.synchronize()
+    gap = heads_gap(got, fused_heads_plain(x, *params), x, *params)
+    emit({"phase": "check", "kernel": "fused_heads", "case": f"p256_2_outputs_bf16_b{HEADS_BATCH}",
+          "shape": list(x.shape), "dtype": "bfloat16", **gap, "bound_ratio_tol": 1.0})
+    if gap["bound_ratio"] > 1:
+        raise AssertionError(f"fused_heads at patch 256: {gap}")
+    b_ms, b_by = bound(nbytes(x, *got), 0)
+    rows.append({"case": f"p256_heads_2_outputs_bf16_b{HEADS_BATCH}", "shape": list(x.shape),
+                 "ms": timer(lambda: fused_heads(x, *params)),
+                 "library_ms": timer(lambda: fused_heads_plain(x, *params), iters=5),
+                 "bound_ms": b_ms, "bound_by": b_by})
+    emit({"phase": "time", "kernel": "fused_heads", "gpu": gpu, **rows[-1]})
+    del x, got
+    torch.cuda.empty_cache()
+
+    x = torch.rand(maps, 32, P256 // 2, P256 // 2, device=dev, generator=g).to(torch.bfloat16)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    got = up2x(x_cl)
+    same = torch.equal(got, up2x(x))
+    check("up2x_nhwc", f"p256_{maps}x32x128x128_bfloat16", got, up2x_plain(x), 1e-6,
+          UP2X_BF16_RTOL, nchw_bits=same)
+    if not same or not _build.channels_last(got):
+        raise AssertionError("up2x at patch 256: the NHWC form differs from the NCHW form")
+    b_ms, b_by = up2x_bound(x)
+    rows.append({"case": f"p256_up2x_nhwc_{maps}x32x128x128_bf16",
+                 "ms": timer(lambda: up2x(x_cl)), "nchw_ms": timer(lambda: up2x(x)),
+                 "plain_ms": timer(lambda: up2x_plain(x_cl), iters=5),
+                 # the library's NHWC form refuses 2^31 outputs: two calls of half
+                 "library_ms": timer(lambda: [F.interpolate(
+                     half, scale_factor=2, mode="bilinear", align_corners=False)
+                     for half in x_cl.chunk(2)]),
+                 "bound_ms": b_ms, "bound_by": b_by})
+    emit({"phase": "time", "kernel": "up2x_nhwc", "gpu": gpu, **rows[-1]})
+    del x, x_cl, got
+    torch.cuda.empty_cache()
+
+    # the epilogue kernel at the channels-last maps of the b64 forward: the
+    # last decoder stage's map has 2.4e9 elements, past 32-bit indices
+    rows += [epilogue_case(gpu, f"p256_{case}", (maps, c, P256 // d, P256 // d), fmt, residual,
+                           g, timer)
+             for case, c, d, fmt, residual in EPILOGUE_CASES if fmt == torch.channels_last]
+    torch.cuda.empty_cache()
+
+    # the serving forward: launches, the heads' map, the b64 time and peak
+    rgb = torch.rand(HEADS_BATCH, *ERP, 3, device=dev, generator=g)
+    f32 = calibrate_norms(init_weights(SphericalFusion(spec, device=dev), 0), rgb[:BATCH])
+    model = SphericalFusion(spec, dtype=torch.bfloat16, merge_dtype=torch.float16, device=dev)
+    model.load_state_dict(f32.state_dict())
+    model.eval()
+    fused = p256_fold_and_fuse(gpu, model, f32, rgb[:BATCH], g)
+    del f32
+    heads_in = []
+    kernel = sf.fused_heads
+    sf.fused_heads = lambda x, *a: (heads_in.append(_build.channels_last(x)), kernel(x, *a))[1]
+    served = {}
+    try:
+        for b in (BATCH, HEADS_BATCH):
+            heads_in.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.inference_mode(), recording() as rec:
+                depth = model(rgb[:b])
+            torch.cuda.synchronize()
+            got = {k: rec.counters.get(k, 0) for k in P256_LAUNCHES}
+            served[b] = {"launches": got, "heads_channels_last": list(heads_in),
+                         "finite": bool(torch.isfinite(depth).all()),
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            emit({"phase": "p256_forward", "batch": b, **served[b], "expected": P256_LAUNCHES})
+            if got != P256_LAUNCHES or heads_in != [True] or not served[b]["finite"]:
+                raise AssertionError(f"p256 forward at b{b}: {served[b]}")
+    finally:
+        sf.fused_heads = kernel
+    with torch.inference_mode():
+        forward_ms = timer(lambda: model(rgb), iters=10)
+    emit({"phase": "time", "kernel": "p256_forward", "gpu": gpu, "batch": HEADS_BATCH,
+          "ms": forward_ms, "panoramas_per_s": 1e3 * HEADS_BATCH / forward_ms})
+    del model, rgb, depth
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_") as tmp:
+        inputs = os.path.join(tmp, "panos")
+        os.makedirs(inputs)
+        rng = np.random.default_rng(2)
+        for i in range(BATCH):
+            np.save(os.path.join(inputs, f"pano{i}.npy"), rng.random((*ERP, 3), dtype=np.float32))
+        args = infer.build_parser().parse_args(
+            ["--input", inputs, "--save_path", os.path.join(tmp, "out"), "--seed", "0",
+             "--device", DEVICE, "--batch", str(BATCH), "--erp_size", f"{ERP[0]},{ERP[1]}",
+             "--patchsize", str(P256), "--fov", str(FOV), "--nrows", str(NROWS), "--bf16",
+             "--merge_dtype", "f16"])
+        depths = [np.load(w) for w in infer.run_infer(args)]
+    ok = len(depths) == BATCH and all(d.shape == ERP and np.isfinite(d).all() for d in depths)
+    emit({"phase": "p256_infer", "written": len(depths), "ok": ok})
+    if not ok:
+        raise AssertionError("cli/infer.py at patch 256 wrote no finite depth of the ERP's size")
+    return {"rows": rows, "fused": fused, "served": served, "forward_ms": forward_ms}
+
+
+# the up_proj sum on a channels-last layer4 against the same sum on its
+# NCHW copy (the order the CPU tests hold to the JAX package), by relative
+# L2: f32 (TF32 off) and bf16 (up_proj's and the sum's roundings to bf16 may
+# land one ulp apart where cuDNN sums the two orders differently)
+FUSE_GAP = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+
+
+def p256_fold_and_fuse(gpu: str, model, f32_model, rgb, g) -> dict:
+    """At patch 256: the bf16 serving forward of ``rgb`` folded, no farther
+    from the f32 forward (``f32_model``, unfolded) than FOLD_BF16_RATIO times
+    the same model unfolded, as fold_phase holds patch 128; and each model's
+    ``fuse`` (the transformer and the up_proj sum) on a seeded channels-last
+    layer4 of the batch: a channels-last sum within FUSE_GAP of the sum on
+    the NCHW copy, which comes out NCHW."""
+    import omnifusion_torch.models.layers as ly
+    from omnifusion_torch.ops import _build
+
+    def forward(m, fold=True):
+        saved = ly._folds
+        if not fold:
+            ly._folds = lambda bn, x: False
+        try:
+            with torch.inference_mode():
+                return m(rgb).double()
+        finally:
+            ly._folds = saved
+
+    def gap(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    f32 = forward(f32_model, fold=False)
+    to_f32 = (gap(forward(model), f32), gap(forward(model, fold=False), f32))
+    b = rgb.shape[0]
+    fuse = {}
+    for name, m in (("f32", f32_model), ("bf16", model)):
+        dtype = m.dtype or torch.float32
+        l4 = torch.randn(b * m.n_patches, 512, P256 // 32, P256 // 32, device=rgb.device,
+                         generator=g).to(dtype)
+        l4_cl = l4.contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            got, want = m.fuse(l4_cl, b), m.fuse(l4, b)
+        fuse[name] = {"gap": gap(got, want), "tol": FUSE_GAP[dtype],
+                      "channels_last": _build.channels_last(got),
+                      "nchw": want.is_contiguous() and not _build.channels_last(want)}
+    row = {"batch": b, "gap_to_f32": to_f32, "fold_bf16_ratio": FOLD_BF16_RATIO, "fuse": fuse}
+    emit({"phase": "p256_fold_and_fuse", "gpu": gpu, **row})
+    if to_f32[0] > FOLD_BF16_RATIO * to_f32[1]:
+        raise AssertionError(f"p256 fold bf16: {to_f32} (folded, unfolded) to the f32 forward")
+    for name, f in fuse.items():
+        if not (f["gap"] <= f["tol"] and f["channels_last"] and f["nchw"]):
+            raise AssertionError(f"p256 up_proj sum {name}: {f}")
+    return row
 
 
 def multi_device_phases(gpu: str, f64_witness: dict) -> dict:
@@ -2678,6 +2935,10 @@ def main() -> int:
     # ---- the folded trunk: every model's forward without autograd against
     # its unfolded forward, and the b64 forward timed both ways ----
     fold_phase(gpu, timer)
+
+    # ---- the README's patch 256: its kernels at the b64 shapes, its
+    # serving forward's launches and time, cli/infer.py ----
+    p256_phase(gpu, timer)
 
     # ---- the extras: pano_stretch on the blend and spread kernels, and the
     # DIBR chain against float64 ----

@@ -52,6 +52,7 @@ from omnifusion_torch.models.layers import (
 )
 from omnifusion_torch.models.resnet import RESNET34_STAGES, ResNet34Encoder
 from omnifusion_torch.models.transformer import TransformerCascade
+from omnifusion_torch.ops import _build
 from omnifusion_torch.ops.heads import OUTPUTS as HEAD_OUTPUTS
 from omnifusion_torch.ops.heads import fused_heads, fused_heads_plain
 from omnifusion_torch.parallel.model_axis import gather_patches, gather_tokens, shard_rows
@@ -63,7 +64,7 @@ from omnifusion_torch.projection.spec import (
     build_equi2pers_grids,
     build_pers2equi_grids,
 )
-from omnifusion_torch.utils.profiling import span
+from omnifusion_torch.utils.profiling import count, span
 
 
 class MlpPoints(nn.Sequential):
@@ -170,20 +171,33 @@ class DepthTrunk(ResNet34Encoder):
         """Global fusion: one channel-major-flattened token per patch; the
         tokens come out of the transformer in f32 (transformer.py) and are
         added to layer4. Under a model axis the transformer runs on the
-        model group's tokens, gathered, and this rank keeps its rows."""
+        model group's tokens, gathered, and this rank keeps its rows.
+        Spans: ``transformer`` around it all, ``transformer_blocks`` around
+        the ``TransformerCascade`` call, ``up_proj`` around the tokens'
+        fold back through ``up_proj`` and the sum (counter
+        ``up_proj.calls``), where the token is not layer4's width."""
         with span("transformer"):
             rows, n = l4.shape[0], b * self.n_patches
             tok = gather_tokens(getattr(self, self.DOWN)(l4).reshape(rows, self.emb), n)
-            tok = self.transformer(tok.reshape(b, self.n_patches, self.emb))
+            with span("transformer_blocks"):
+                tok = self.transformer(tok.reshape(b, self.n_patches, self.emb))
             tok = shard_rows(tok.reshape(n, self.emb))
             if self.emb == l4.shape[1]:
                 # bf16 + f32 promotes to f32, as in JAX (spherical_fusion.py:147),
                 # so under a bf16 trunk the first decoder upsample runs in f32
                 return l4 + tok.reshape(rows, self.emb, 1, 1)
-            # up_proj computes in the trunk's dtype: the sum keeps it
-            # (spherical_fusion.py:151-153)
-            hh, ww = l4.shape[-2:]
-            return l4 + self.up_proj(tok.reshape(rows, 32, hh, ww))
+            with span("up_proj"):
+                count("up_proj.calls")
+                # up_proj computes in the trunk's dtype and the sum keeps it
+                # (spherical_fusion.py:151-153). The tokens' map is cast as
+                # up_proj's call would cast it, channels-last where layer4 is
+                # (not a 1x1 map, which is either), and the sum is put in
+                # layer4's order: a channels-last layer4 keeps the decoder
+                # channels-last whichever operand came out in which order
+                hh, ww = l4.shape[-2:]
+                fmt = torch.channels_last if _build.channels_last(l4) else torch.contiguous_format
+                t = tok.reshape(rows, 32, hh, ww).to(l4.dtype, memory_format=fmt)
+                return (l4 + self.up_proj(t)).contiguous(memory_format=fmt)
 
     def trunk(self, x, point_feat, b: int):
         bp = x.shape[0]

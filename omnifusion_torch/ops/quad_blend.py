@@ -30,7 +30,9 @@ What lives here:
 - ``quad_blend``: the differentiable wrapper, an ``autograd.Function`` whose
   backward is ``quad_spread``. Its forward launches the CUDA kernel
   (``omnifusion_torch/csrc/quad_blend.cu``) on a CUDA tensor and adds one to
-  ``quad_blend.launches``; on a CPU tensor it runs ``quad_blend_plain``; on
+  ``quad_blend.launches`` and to the counter ``quad_blend.staged`` or
+  ``quad_blend.global`` (``utils/profiling.count``), by the plan
+  ``blend_plan`` chose; on a CPU tensor it runs ``quad_blend_plain``; on
   any other device it raises.
 - ``quad_spread``: the transposed blend. On a CUDA tensor it launches the
   CUDA kernel (``omnifusion_torch/csrc/quad_spread.cu``) and adds one to
@@ -62,6 +64,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from omnifusion_torch.ops import _build
+from omnifusion_torch.utils.profiling import count
 
 _MAX_ROWS = 8 * 65535  # quad_spread: grid.y = ceil(rows / 8) must fit the launch limit
 # quad_blend (csrc/quad_blend.cu): a block blends a TILE of (rows, columns)
@@ -537,6 +540,7 @@ def _blend_kernel(
     )
     _build.check(err, "quad_blend")
     quad_blend.launches += 1
+    count("quad_blend.staged" if staged else "quad_blend.global")
     return out
 
 

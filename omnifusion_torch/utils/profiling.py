@@ -39,13 +39,19 @@ the elementwise work.
 Spans. The port opens a span at each of its layer boundaries: ``model``
 around a model's forward, with ``e2p``, ``points``, ``encoder``,
 ``transformer``, ``decoder``, ``heads`` and ``merge`` inside it (each pass
-of the iterative model opens the trunk's and the merge's again);
+of the iterative model opens the trunk's and the merge's again;
+``transformer`` holds ``transformer_blocks``, the ``TransformerCascade``
+call, and, where the token is not layer4's width, ``up_proj``);
 ``train_step`` around an update, with ``forward``, ``loss``, ``backward``
 and ``optimizer`` inside it; and in set-up ``kernel_library`` (the kernel
 library built or loaded, ``ops/_build.py``) and ``tables`` (the projection
 tables computed or read from disk, and the blend tables made and moved to
 a device). Counters: ``kernel_library.built`` (nvcc ran),
-``tables.computed``, ``tables.from_disk`` and ``tables.uploaded``.
+``tables.computed``, ``tables.from_disk`` and ``tables.uploaded``; the
+kernels' (``fused_heads.launches``, ``up2x.channels_last``,
+``conv_epilogue.launches``, ``conv_fold.convs``, ``conv_fold.folds``,
+``quad_blend.staged`` and ``quad_blend.global``, a blend launch by its
+plan); ``up_proj.calls``, a pass through ``up_proj``.
 
 Off, which is the default, ``span`` returns one shared context that does
 nothing: it records nothing, allocates nothing and touches no CUDA API.

@@ -992,3 +992,148 @@ def test_conv_epilogue_kernel_past_32_bit_indices(cuda):
     torch.cuda.synchronize()
     for i, w in zip(rows, want):
         assert torch.equal(y[i:i + 1], w)
+
+
+# ---- the README's patch 256 (benchmark/configs/oneshot_s2d3d_p256.json):
+# its shapes at the batched serving cells' batch, and its serving forward ----
+
+P256 = ProjectionSpec.create((512, 1024), (256, 256), (80, 80), 4)
+P128 = ProjectionSpec.create((512, 1024), (128, 128), (80, 80), 4)
+SERVE_BATCH = 64
+
+
+def blend_plans(rec) -> dict:
+    """The blend launches a recording counted, by plan (the first kernel
+    call of a process also counts the library's build)."""
+    return {k: v for k, v in rec.counters.items() if k.startswith("quad_blend.")}
+
+
+@pytest.mark.parametrize("staged", [None, True, False])
+def test_p256_merge_matches_plain_on_either_plan(cuda, staged):
+    # f16, b64 (128 channel-first rows): the footprint, 3.55 staged pixels
+    # an output, is past STAGE_MAX_FOOTPRINT, so the rule gathers from
+    # global memory; the staged plan gives the same sums
+    tables = pers2equi_tables(P256, cuda)
+    assert tables.tiles.footprint > qb.STAGE_MAX_FOOTPRINT
+    x = _blend_source(tables, 2 * SERVE_BATCH, False, torch.float16)
+    with recording() as rec:
+        got = qb._blend_kernel(x, tables, False, staged=staged)
+    torch.cuda.synchronize()
+    plan = "staged" if staged else "global"
+    assert blend_plans(rec) == {f"quad_blend.{plan}": 1}
+    torch.testing.assert_close(got, quad_blend_plain(x, tables), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("staged", [None, True, False])
+def test_p256_e2p_matches_plain_on_either_plan(cuda, staged):
+    # bf16 stored bf16, b64 (64 channel-last batches of 3): the footprint,
+    # 1.82, is within STAGE_MAX_FOOTPRINT, so the rule stages; one bf16
+    # rounding of the same f32 sums either way
+    tables = equi2pers_tables(P256, cuda)
+    assert tables.tiles.footprint <= qb.STAGE_MAX_FOOTPRINT
+    x = _blend_source(tables, SERVE_BATCH, True, torch.bfloat16)
+    with recording() as rec:
+        got = qb._blend_kernel(x, tables, True, torch.bfloat16, staged=staged)
+    torch.cuda.synchronize()
+    plan = "global" if staged is False else "staged"
+    assert blend_plans(rec) == {f"quad_blend.{plan}": 1}
+    torch.testing.assert_close(got, quad_blend_plain(x, tables, True, torch.bfloat16),
+                               rtol=2.0**-7, atol=1e-6)
+
+
+def test_p256_heads_kernel_on_the_decoders_map(cuda):
+    # bf16, 2 outputs, a channels-last (rows, 32, 256, 256) map of two
+    # panoramas: two column tiles a row, a ring of 256 rows
+    g = torch.Generator(device=cuda).manual_seed(26)
+    params = heads_params(2, g)
+    x = torch.randn(2 * P256.n_patches, 32, 256, 256, device=cuda, generator=g)
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    got = fused_heads(x, *params)
+    torch.cuda.synchronize()
+    gap = heads_gap(got, fused_heads_plain(x, *params), x, *params)
+    assert gap["bound_ratio"] <= 1, gap
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_p256_last_up2x_nhwc(cuda, dtype):
+    # the decoder's last resize at patch 256: 32 channels, 128 -> 256, of two
+    # panoramas' maps: the NCHW form's bits, and the plain version's
+    x = torch.rand(2 * P256.n_patches, 32, 128, 128, generator=torch.Generator().manual_seed(27))
+    x = x.to(cuda, dtype)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    with recording() as rec:
+        got = up2x(x_cl)
+    torch.cuda.synchronize()
+    assert rec.counters.get("up2x.channels_last") == 1 and _build.channels_last(got)
+    assert torch.equal(got, up2x(x))
+    tol = dict(rtol=0, atol=1e-6) if dtype == torch.float32 else dict(rtol=2.0**-7, atol=1e-6)
+    torch.testing.assert_close(got.float(), up2x_plain(x).float(), **tol)
+
+
+def serving_counters(spec, cuda, monkeypatch) -> tuple[dict, list]:
+    """The counters of a b2 bf16 serving forward (f16 merge) of the one-shot
+    model on ``spec`` (seeded weights, its BatchNorms calibrated on the
+    batch), and for each heads call whether its map came in channels-last
+    (no copy before the kernel)."""
+    import omnifusion_torch.models.spherical_fusion as sf
+
+    rgb = torch.rand(2, spec.erp_h, spec.erp_w, 3, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(28))
+    with full_f32():
+        f32 = calibrate_norms(init_weights(SphericalFusion(spec, device=cuda), 0), rgb)
+    model = SphericalFusion(spec, dtype=torch.bfloat16, merge_dtype=torch.float16, device=cuda)
+    model.load_state_dict(f32.state_dict())
+    model.eval()
+    heads_in = []
+    kernel = sf.fused_heads
+    monkeypatch.setattr(sf, "fused_heads",
+                        lambda x, *a: (heads_in.append(_build.channels_last(x)), kernel(x, *a))[1])
+    with torch.inference_mode(), recording() as rec:
+        depth = model(rgb)
+    torch.cuda.synchronize()
+    assert torch.isfinite(depth).all()
+    return rec.counters, heads_in
+
+
+# the launches of one serving forward, by counter, at either patch: the
+# decoder channels-last (five NHWC resizes), the folded trunk's epilogues,
+# the heads once, one blend on each plan
+SERVING_LAUNCHES = {"up2x.channels_last": 5, "conv_epilogue.launches": 44,
+                    "fused_heads.launches": 1, "quad_blend.staged": 1, "quad_blend.global": 1}
+
+
+def test_p256_serving_forward_stays_channels_last(cuda, monkeypatch):
+    # the tokens fold back through up_proj once; the merge gathers, the e2p
+    # stages; the heads read the decoder's map as it is
+    counters, heads_in = serving_counters(P256, cuda, monkeypatch)
+    assert {k: counters.get(k, 0) for k in SERVING_LAUNCHES} == SERVING_LAUNCHES
+    assert counters.get("up_proj.calls") == 1 and heads_in == [True]
+
+
+def test_p128_serving_forward_counts_no_up_proj(cuda, monkeypatch):
+    # the flagship's patch: the token is layer4's width, broadcast; the
+    # merge stages, the e2p gathers
+    counters, heads_in = serving_counters(P128, cuda, monkeypatch)
+    assert {k: counters.get(k, 0) for k in SERVING_LAUNCHES} == SERVING_LAUNCHES
+    assert "up_proj.calls" not in counters and heads_in == [True]
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0**-7)])
+def test_p256_up_proj_sum_keeps_layer4s_order(cuda, dtype, tol):
+    # the transformer and the up_proj sum (DepthTrunk.fuse) on a
+    # channels-last layer4 of two panoramas: a channels-last sum, within
+    # rounding of the sum on the NCHW copy, which stays NCHW (bf16: up_proj's
+    # and the sum's roundings may land an ulp apart where cuDNN sums the two
+    # orders differently)
+    model = init_weights(SphericalFusion(P256, dtype=None if dtype == torch.float32 else dtype,
+                                         device=cuda), 0).eval()
+    l4 = torch.randn(2 * P256.n_patches, 512, 8, 8, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(29)).to(dtype)
+    with full_f32(), torch.inference_mode(), recording() as rec:
+        got = model.fuse(l4.contiguous(memory_format=torch.channels_last), 2)
+        want = model.fuse(l4, 2)
+    assert rec.counters.get("up_proj.calls") == 2
+    assert _build.channels_last(got) and want.is_contiguous() and not _build.channels_last(want)
+    assert got.dtype == want.dtype == dtype
+    gap = float((got.double() - want.double()).norm() / want.double().norm())
+    assert gap <= tol, gap

@@ -41,6 +41,9 @@ def _rel(ours, theirs):
     "erp,patch,depth",
     [
         ((64, 128), 32, 1),  # token width 32: the up_proj branch
+        # token width 128 from a 2x2 layer4: the up_proj branch where the
+        # token's channel-major order matters (a 1x1 layer4 cannot tell)
+        ((128, 256), 64, 1),
         ((256, 512), 128, 2),  # token width 512 == layer4 width: the add branch
     ],
 )

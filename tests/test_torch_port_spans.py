@@ -7,7 +7,8 @@
 - Under ``recording()``: the one-shot, iterative and segmentation
   forwards and a train step record the layer spans, each with its parent,
   nested in time (the segmentation merge's blend in ``merge_blend``,
-  inside ``merge``).
+  inside ``merge``; ``transformer_blocks`` and ``up_proj`` inside
+  ``transformer``), and the counter ``up_proj.calls`` once a pass.
 - The set-up counters: a spec's tables counted once as computed or read
   from disk and as uploaded, in two ``tables`` spans that do not nest, a
   second call counting nothing; the kernel library counted as built only
@@ -97,12 +98,24 @@ def test_spans_off_by_default_touch_no_profiler_and_no_cuda(models, what, monkey
     assert rec.spans == [] and rec.counters == {} and profiling._RECORDING is None
 
 
+def _in_model(stages):
+    """(span, parent) of ``stages`` closing inside ``model``: patch 32's token
+    is 32 wide, not layer4's 512, so ``transformer`` holds
+    ``transformer_blocks`` and ``up_proj``."""
+    out = []
+    for s in stages:
+        if s == "transformer":
+            out += [("transformer_blocks", s), ("up_proj", s)]
+        out.append((s, "model"))
+    return out
+
+
 EXPECTED = {
-    "oneshot": [(s, "model") for s in STAGES] + [("model", None)],
-    "iterative": [(s, "model") for s in STAGES + ["points"] + TRUNK] + [("model", None)],
-    "seg": [(s, "model") for s in STAGES[:-1]] + [
+    "oneshot": _in_model(STAGES) + [("model", None)],
+    "iterative": _in_model(STAGES + ["points"] + TRUNK) + [("model", None)],
+    "seg": _in_model(STAGES[:-1]) + [
         ("merge_blend", "merge"), ("merge", "model"), ("model", None)],
-    "train_step": [(s, "model") for s in STAGES] + [
+    "train_step": _in_model(STAGES) + [
         ("model", "forward"), ("forward", "train_step"), ("loss", "train_step"),
         ("backward", "train_step"), ("optimizer", "train_step"), ("train_step", None)],
 }
@@ -114,7 +127,8 @@ def test_recorded_spans_nest_with_their_parents(models, what):
     with recording() as rec:
         _run(models, what)
     assert [(s.name, s.parent) for s in rec.spans] == EXPECTED[what]
-    assert rec.counters == {}
+    # a pass through up_proj each (the plain blends count no plan on the CPU)
+    assert rec.counters == {"up_proj.calls": 2 if what == "iterative" else 1}
     outer = rec.spans[-1]
     for s in rec.spans:
         assert outer.start_ns <= s.start_ns <= s.end_ns <= outer.end_ns
